@@ -1,0 +1,62 @@
+"""Carry an operator's state across from numpy arrays.
+
+The JAX package's operators hand out their state as arrays (P, the
+(eta, K+1) coefficient table, the Block-ELL structure).  These functions
+build the port's objects from exactly that state, so that both packages
+can be fed identical inputs: the coefficients are taken as given, never
+recomputed.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional, Sequence
+
+import numpy as np
+import torch
+
+from .core.graph import BlockELL
+from .dist.operator import GraphOperator
+
+
+def _no_multiplier(lam):
+    raise ValueError("this operator was built from a coefficient table and "
+                     "has no multiplier functions")
+
+
+def operator_from_reference(P, coeffs, lmax: float, K: int,
+                            multipliers: Optional[Sequence[Callable]] = None
+                            ) -> GraphOperator:
+    """A GraphOperator over P that uses exactly `coeffs` ((eta, K+1)).
+
+    `multipliers` (the g_j) are needed only by the multiplier-level
+    methods (`exact_apply`, `error_bound`); without them those raise.
+    """
+    c = np.array(coeffs, dtype=np.float64)
+    if c.ndim != 2 or c.shape[1] != K + 1:
+        raise ValueError(f"coeffs must be (eta, K+1) = (eta, {K + 1}), "
+                         f"got {c.shape}")
+    mults = (tuple(multipliers) if multipliers is not None
+             else (_no_multiplier,) * c.shape[0])
+    if len(mults) != c.shape[0]:
+        raise ValueError(f"{len(mults)} multipliers for {c.shape[0]} "
+                         f"coefficient rows")
+    op = GraphOperator(P=torch.from_numpy(np.array(P)), multipliers=mults,
+                       lmax=float(lmax), K=int(K))
+    op.__dict__["coeffs"] = c  # seeds the cached_property: never recomputed
+    return op
+
+
+def block_ell_from_numpy(blocks, indices, mask, n: int) -> BlockELL:
+    """A BlockELL holding the given structure arrays (host tensors)."""
+    blocks = torch.from_numpy(np.array(blocks))
+    indices = torch.from_numpy(np.array(indices, dtype=np.int32))
+    mask = torch.from_numpy(np.array(mask, dtype=bool))
+    if blocks.ndim != 4 or indices.shape != blocks.shape[:2] \
+            or mask.shape != indices.shape:
+        raise ValueError(f"not a Block-ELL structure: blocks "
+                         f"{tuple(blocks.shape)}, indices "
+                         f"{tuple(indices.shape)}, mask {tuple(mask.shape)}")
+    ncb = blocks.shape[0] * blocks.shape[2] // blocks.shape[3]
+    if indices.numel() and (int(indices.min()) < 0
+                            or int(indices.max()) >= ncb):
+        raise ValueError(f"column-block indices outside [0, {ncb})")
+    return BlockELL(blocks=blocks, indices=indices, mask=mask, n=int(n))

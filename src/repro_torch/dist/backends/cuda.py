@@ -1,0 +1,110 @@
+"""'cuda' execution backend: Block-ELL SpMV, fused Chebyshev-step and
+whole-recurrence sweep kernels written for Hopper.
+
+The counterpart of the JAX package's 'pallas' backend, with its contract:
+the dense P is packed once into Block-ELL at plan time and moved to the
+plan's device; signals are padded to the Block-ELL padded size on the way
+in and cropped back to the logical N on the way out.  By default `apply`
+and `apply_gram` send the whole K-order recurrence to the single-launch
+`cheb_sweep` kernel, guarded by the L2 footprint model with a logged
+per-order fallback (``sweep=False`` / ``l2_budget=`` at plan time control
+it); `apply_adjoint` runs one batched SpMV launch per order.  The plan's
+matvec is tagged with its Block-ELL structure so that
+`ops.fused_cheb_recurrence` over it engages the sweep.
+
+On a CUDA device every kernel launches (or raises); with
+``device="cpu"`` the same code runs the kernels' plain PyTorch versions.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from ...core import chebyshev as cheb
+from ...core import graph as graphmod
+from ...kernels import ops
+from ...kernels.cheb_sweep import BF16_ROADMAP
+from . import register_backend, resolve_device
+
+Tensor = torch.Tensor
+
+
+@register_backend("cuda")
+def build(op, *, mesh=None, partition=None, device=None,
+          block: Tuple[int, int] = (8, 128), sweep: Optional[bool] = None,
+          l2_budget: Optional[int] = None,
+          sweep_dtype: Optional[str] = None, **options):
+    from ..operator import ExecutionPlan
+
+    del mesh, partition  # single-device backend
+    if options:
+        raise TypeError(f"cuda backend takes no options {sorted(options)}")
+    if sweep_dtype == "bf16":
+        raise NotImplementedError(BF16_ROADMAP)
+    if sweep_dtype not in (None, "f32"):
+        raise ValueError(f"sweep_dtype must be 'f32', got {sweep_dtype!r}")
+    if callable(op.P):
+        raise ValueError("cuda backend needs a dense P to build Block-ELL")
+    dev = resolve_device(device)
+    L = torch.as_tensor(op.P).to(torch.float32).numpy(force=True)
+    A = graphmod.to_block_ell(L, block).to(dev)
+    n = L.shape[0]
+    del L
+    total = A.padded_n
+    coeffs = op.coeffs
+    lmax = op.lmax
+
+    def _pad(x) -> Tensor:
+        return ops.pad_trailing(torch.as_tensor(x, device=dev), total)
+
+    def _mv(t: Tensor) -> Tensor:
+        # batched Block-ELL SpMV: leading dims (batch, eta streams, ...)
+        # ride one sweep of the sparsity structure
+        return ops.spmv(A, t.contiguous())
+
+    if sweep is None or sweep:
+        # tag the matvec so ops.fused_cheb_recurrence takes the sweep
+        _mv.block_ell = A
+        _mv.l2_budget = l2_budget
+
+    def apply(f) -> Tensor:
+        out = ops.fused_cheb_apply(A, _pad(f), coeffs, lmax, sweep=sweep,
+                                   l2_budget=l2_budget)
+        return out[..., :n]
+
+    def apply_adjoint(a) -> Tensor:
+        out = cheb.cheb_apply_adjoint(_mv, _pad(a), coeffs, lmax)
+        return out[..., :n]
+
+    def apply_gram(f) -> Tensor:
+        d = cheb.gram_coeffs(coeffs)
+        out = ops.fused_cheb_apply(A, _pad(f), d[None], lmax, sweep=sweep,
+                                   l2_budget=l2_budget)
+        return out[..., 0, :n]
+
+    def matvec_runner(fn, signals, consts=()):
+        # run the iteration body against the Block-ELL SpMV on the padded
+        # domain; every output's trailing vertex axis is cropped back to n
+        outs = fn(_mv, *(_pad(s) for s in signals), *consts)
+        if isinstance(outs, (tuple, list)):
+            return type(outs)(o[..., :n] for o in outs)
+        return outs[..., :n]
+
+    nnz_blocks = int(A.mask.sum())
+    return ExecutionPlan(
+        op=op, backend="cuda", device=dev,
+        apply=apply, apply_adjoint=apply_adjoint, apply_gram=apply_gram,
+        matvec_runner=matvec_runner,
+        info={
+            "block": block,
+            "padded_n": total,
+            "nnz_blocks": nnz_blocks,
+            "flops_per_matvec": nnz_blocks * 2 * block[0] * block[1],
+            "sweep_dtype": "f32",
+            "sweep_l2_bytes": ops.cheb_sweep_l2_bytes(total, op.eta),
+            "sweep_l2_budget": (ops.DEFAULT_SWEEP_L2_BUDGET
+                                if l2_budget is None else l2_budget),
+            "block_ell": A,
+        },
+    )

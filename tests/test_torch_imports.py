@@ -1,0 +1,35 @@
+"""The port stands alone: no module of src/repro_torch/ and not
+chip_smoke.py imports jax, jaxlib or the JAX package `repro`."""
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+FORBIDDEN = {"jax", "jaxlib", "repro"}
+
+
+def _imported_roots(tree: ast.AST):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_port_files_found():
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    assert "src/repro_torch/kernels/ops.py" in names
+    assert "src/repro_torch/dist/backends/cuda.py" in names
+    assert len(names) >= 20
+
+
+@pytest.mark.parametrize("path", FILES,
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_jax_or_reference_import(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = sorted(set(_imported_roots(tree)) & FORBIDDEN)
+    assert not bad, f"{path} imports {bad}"
