@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA card.
+"""Drive the PyTorch port's paths on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -7,20 +7,32 @@ Run from the root of a checkout on a machine with a CUDA card.  It
 
 1. builds every CUDA kernel of the port from ``src/repro_torch/csrc``;
 2. holds each kernel against its plain PyTorch version on the card, at
-   the shapes of the main path, and times both (plus one PyTorch library
+   the shapes of the paths below, and times both (plus one PyTorch library
    call computing the same product, where there is one);
 3. drives the main path — ``GraphOperator(...).plan("cuda")`` `apply`,
    `apply_adjoint`, `apply_gram` and the ``sweep=False`` apply — on the
    Section IV-D random sensor network at n = 16384 sensors, the SGWT union
    with J = 6 (eta = 7), K = 20, on a batch of 64 signals, and holds every
    output against the port's float64 ``plan("dense")`` on the card;
-4. shows through the kernels' launch counters that the main path ran
-   through the kernels;
-5. times the whole-recurrence sweep against the per-order path on both
-   sides of the sweep's L2 budget.
+4. times the whole-recurrence sweep against the per-order path on both
+   sides of the sweep's L2 budget;
+5. drives the Section-V solvers (`plan.solve`, all four methods, in the
+   Fig. 2 settings (a) P = L_norm, r = 1, 20 rounds and (b) P = L, r = 2,
+   10 rounds of Jacobi), the per-round path (``history=True``) and the
+   divergence guard (``check_every=7``), the wavelet lasso
+   (`plan.solve_lasso`, 20 ISTA iterations, mu 0.01 / 0.75) and the
+   Section III-D classifier (`semi_supervised_classify` with 4 quadrant
+   classes, 10% labeled) at the same n and batch, each against float64
+   dense on the card;
+6. shows through the kernels' launch counters that every path ran through
+   its kernels: each path is driven once with the counts set to 0 just
+   before it and read just after.
 
-It prints the card's name and power limit, one JSON line ``{"kernels":
-[...]}`` and, last, ``{"ok": true, "device": {...}}``.  Any failed check
+Kernel times are CUDA events around back-to-back calls of each wrapper
+(``ms``) and, where torch.profiler traces the card, the device time per
+launch (``device_ms``).  It prints one JSON line ``{"paths": [...]}``, the
+card's name and power limit, one JSON line ``{"kernels": [...]}`` and,
+last, ``{"ok": true, "device": {...}}``.  Any failed check
 raises and exits non-zero without the last line.  It needs no network,
 imports nothing of JAX, and has no CPU fallback: without a card (or
 outside a checkout) it exits with code 2.
@@ -57,6 +69,19 @@ TOL_SPMV = 1e-5
 TOL_STEP = 1e-6
 TOL_SWEEP = 1e-4
 TOL_PATH = 1e-4
+# Section-V settings (Fig. 2): tau, rounds; the lasso weights of Section VI
+# (0.01 on the scaling function, 0.75 on the wavelets); the SSL classes.
+TAU = 0.5
+ROUNDS_A, ROUNDS_B, LASSO_ITERS = 20, 10, 20
+MU = [0.01] + [0.75] * J
+N_CLASSES, LABELED = 4, 0.10
+# Per-round final iterate vs the sweep's (the same f32 arithmetic, P h
+# products in another grouping); the guarded solve vs the unguarded one
+# (the same kernel launches in chunks); SSL predictions are compared where
+# the top two float64 scores differ by more than PRED_MARGIN.
+TOL_ROUNDS = 1e-5
+TOL_GUARD = 1e-6
+PRED_MARGIN = 1e-3
 
 ROOT = Path(__file__).resolve().parent
 
@@ -93,6 +118,30 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int, kernel: str):
+    """Mean device time per launch of the CUDA kernels whose name contains
+    `kernel`, from a torch.profiler trace of `iters` calls (the events of
+    `time_ms` also hold the host's enqueue gaps between back-to-back
+    calls).  None when the trace holds no device time for it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages() if kernel in e.key]
+    except (RuntimeError, AssertionError) as exc:  # cannot trace the card
+        print(f"profiler: no trace for {kernel}: {exc}")
+        return None
+    total = sum(getattr(e, "device_time_total", 0.0) for e in rows)
+    count = sum(e.count for e in rows)
+    return total / count / 1e3 if count and total > 0 else None
+
+
 def bound(nbytes: float, flops: float):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
     f32 operations over the f32 peak."""
@@ -109,6 +158,16 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def rel_check(got, ref, tol: float, what: str):
+    """Print and check max |got - ref| / max |ref| <= tol."""
+    check(tuple(got.shape) == tuple(ref.shape),
+          f"{what}: shape {tuple(got.shape)} != {tuple(ref.shape)}")
+    err, rel = rel_err(got, ref)
+    print(f"  {what}: max_abs_err={err:.3e} rel={rel:.3e} (tol {tol})")
+    check(rel <= tol, f"{what}: rel err {rel:.3e} > {tol}")
+    return err, rel
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -119,33 +178,41 @@ def main() -> int:
               "(src/repro_torch is missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.core import graph, wavelets
-    from repro_torch.dist import GraphOperator
+    from repro_torch.core import filters, graph, jacobi, lasso, ssl, wavelets
+    from repro_torch.dist import METHODS, GraphOperator
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.bcsr_spmv import (block_ell_spmv,
                                                block_ell_spmv_plain)
     from repro_torch.kernels.cheb_step import cheb_step, cheb_step_plain
-    from repro_torch.kernels.cheb_sweep import cheb_sweep, cheb_sweep_plain
+    from repro_torch.kernels.cheb_sweep import (cheb_sweep, cheb_sweep_plain,
+                                                jacobi_sweep,
+                                                jacobi_sweep_plain)
+    from repro_torch.kernels.jacobi_step import jacobi_step, jacobi_step_plain
+    from repro_torch.kernels.soft_threshold import (ista_shrink,
+                                                    ista_shrink_plain)
 
     dev = torch.device("cuda")
     smi = nvidia_smi()
     print(f"card: {smi}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    t_start = time.perf_counter()
 
     t0 = time.perf_counter()
     _build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(_build.SOURCES)})")
 
-    # -- the graph and the operator ------------------------------------------
+    # -- the graph and the operators -----------------------------------------
     t0 = time.perf_counter()
     rng = np.random.RandomState(SEED)
     g = graph.connected_sensor_graph(rng, n=N, theta=THETA, kappa=KAPPA)
     g, _ = graph.spatial_sort(g)
     L = g.laplacian()
+    L_norm = g.laplacian("normalized")
     lmax = g.lambda_max_bound()
     n_edges = g.n_edges
+    coords = g.coords.numpy()
     del g
     op = wavelets.sgwt_operator(L, lmax, J=J, K=K)
     plan = op.plan("cuda")
@@ -155,15 +222,26 @@ def main() -> int:
     nrb, slots, br, bc = A.blocks.shape
     nnz = int((A.blocks != 0).sum())
     fill = nnz / A.blocks.numel()
+    ssl_mult = [filters.ssl_multiplier(filters.power_kernel(1), TAU)]
+    op_n = GraphOperator(P=L_norm, multipliers=ssl_mult, lmax=2.0, K=K)
+    plan_n = op_n.plan("cuda")
+    A_n = plan_n.info["block_ell"]
+    nnz_n = int((A_n.blocks != 0).sum())
     print(f"graph: n={N} kappa={KAPPA:.6f} theta={THETA:.6f} |E|={n_edges} "
           f"mean degree={2 * n_edges / N:.2f} lmax_bound={lmax:.4f} "
           f"({time.perf_counter() - t0:.1f} s to build and plan)")
     print(f"block-ell: {nrb} row blocks x {slots} slots of ({br}, {bc}), "
           f"{A.blocks.numel() * 4 / 2**20:.1f} MiB of blocks, "
-          f"nnz={nnz}, fill={fill:.4f}")
+          f"nnz={nnz}, fill={fill:.4f}; L_norm: "
+          f"{A_n.blocks.shape[1]} slots, nnz={nnz_n}")
     check(op.K == K and eta == J + 1, "operator shape")
+    check(A_n.blocks.shape == A.blocks.shape
+          and bool(torch.equal(A_n.indices, A.indices)),
+          "L_norm must share the Block-ELL structure of L")
     check(plan.info["sweep_l2_bytes"] * BATCH <= plan.info["sweep_l2_budget"],
           "the smoke shape must take the sweep")
+    check(ops.jacobi_sweep_l2_bytes(N, BATCH) <= ops.DEFAULT_SWEEP_L2_BUDGET,
+          "the smoke shape must take the Jacobi sweep")
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
@@ -185,14 +263,17 @@ def main() -> int:
         plain_ms = time_ms(
             lambda: block_ell_spmv_plain(A.blocks, A.indices, x), 5)
         lib_ms = time_ms(lambda: torch.sparse.mm(L_csr, xt), 20)
+        dev_ms = device_ms(lambda: block_ell_spmv(A.blocks, A.indices, x),
+                           20, "block_ell_spmv_kernel")
         b_ms, b_by = bound(nnz * 8 + 2 * B * N * 4, 2 * nnz * B)
         spmv_rows[B] = dict(max_abs_err=err, rel_err=rel, ms=ms,
                             plain_ms=plain_ms, library_ms=lib_ms,
-                            bound_ms=b_ms, bound_by=b_by)
+                            bound_ms=b_ms, bound_by=b_by, device_ms=dev_ms)
         print(f"kernel block_ell_spmv B={B}: max_abs_err={err:.3e} "
               f"rel={rel:.3e} (tol {TOL_SPMV}) ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f} library_ms(torch.sparse.mm CSR)="
-              f"{lib_ms:.4f} bound_ms={b_ms:.5f} ({b_by})")
+              f"device_ms={dev_ms} plain_ms={plain_ms:.4f} "
+              f"library_ms(torch.sparse.mm CSR)={lib_ms:.4f} "
+              f"bound_ms={b_ms:.5f} ({b_by})")
     del L_csr
 
     pt, t1, t2 = randn(BATCH, N), randn(BATCH, N), randn(BATCH, N)
@@ -209,12 +290,16 @@ def main() -> int:
     step_ms = time_ms(lambda: cheb_step(pt, t1, t2, acc, coef, alpha=alpha), 20)
     step_plain = time_ms(
         lambda: cheb_step_plain(pt, t1, t2, acc, coef, alpha=alpha), 20)
+    step_dev = device_ms(lambda: cheb_step(pt, t1, t2, acc, coef,
+                                           alpha=alpha), 20,
+                         "cheb_step_kernel")
     step_b = bound(4 * (4 * BATCH * N + 2 * BATCH * eta * N + eta),
                    4 * BATCH * N + 2 * BATCH * eta * N)
     print(f"kernel cheb_step B={BATCH} eta={eta}: max_abs_err="
           f"{max(err_tk, err_acc):.3e} rel={max(rel_tk, rel_acc):.3e} "
-          f"(tol {TOL_STEP}) ms={step_ms:.4f} plain_ms={step_plain:.4f} "
-          f"bound_ms={step_b[0]:.5f} ({step_b[1]})")
+          f"(tol {TOL_STEP}) ms={step_ms:.4f} device_ms={step_dev} "
+          f"plain_ms={step_plain:.4f} bound_ms={step_b[0]:.5f} "
+          f"({step_b[1]})")
 
     x = randn(BATCH, N)
     c = op.coeffs
@@ -227,51 +312,186 @@ def main() -> int:
                                           alpha=alpha), 5)
     sweep_plain = time_ms(lambda: cheb_sweep_plain(A.blocks, A.indices, x, c,
                                                    alpha=alpha), 2, warmup=1)
+    sweep_dev = device_ms(lambda: cheb_sweep(A.blocks, A.indices, x, c,
+                                             alpha=alpha), 3,
+                          "cheb_sweep_kernel")
     sweep_b = bound(nnz * 8 + 4 * BATCH * N + 4 * BATCH * eta * N
                     + 4 * (K + 1) * eta,
                     K * (2 * nnz * BATCH + 4 * BATCH * N)
                     + 2 * (K + 1) * BATCH * eta * N)
     print(f"kernel cheb_sweep B={BATCH} eta={eta} K={K}: max_abs_err="
           f"{err_sw:.3e} rel={rel_sw:.3e} (tol {TOL_SWEEP}) ms={sweep_ms:.4f} "
-          f"plain_ms={sweep_plain:.4f} bound_ms={sweep_b[0]:.5f} "
-          f"({sweep_b[1]}) grid={cheb_sweep.last_grid} blocks")
+          f"device_ms={sweep_dev} plain_ms={sweep_plain:.4f} "
+          f"bound_ms={sweep_b[0]:.5f} ({sweep_b[1]}) "
+          f"grid={cheb_sweep.last_grid} blocks")
     del pt, t1, t2, acc, got, want
 
-    # -- the main path, counted ----------------------------------------------
+    # jacobi_step: y and inv_d batched, shared (n,), and as the per-round
+    # solver path passes them (b batched, the reciprocal diagonal shared)
+    qx, xj, xp = randn(BATCH, N), randn(BATCH, N), randn(BATCH, N)
+    rows = {"batched": (randn(BATCH, N), randn(BATCH, N)),
+            "shared": (randn(N), randn(N))}
+    rows["path"] = (rows["batched"][0], rows["shared"][1])
+    js_rows = {}
+    for form, (yv, dv) in rows.items():
+        def call(yv=yv, dv=dv):
+            return jacobi_step(qx, xj, xp, yv, dv, w=1.7, s=0.3)
+
+        def plain(yv=yv, dv=dv):
+            return jacobi_step_plain(qx, xj, xp, yv, dv, w=1.7, s=0.3)
+
+        got, want = call(), plain()
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, want)
+        check(rel <= TOL_STEP, f"jacobi_step {form}: rel err {rel:.3e}")
+        ms, plain_ms = time_ms(call, 20), time_ms(plain, 20)
+        dev_ms = device_ms(call, 20, "jacobi_step_kernel")
+        b_ms, b_by = bound(4 * (4 * BATCH * N + yv.numel() + dv.numel()),
+                           5 * BATCH * N)
+        js_rows[form] = dict(max_abs_err=err, rel_err=rel, ms=ms,
+                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                             device_ms=dev_ms)
+        print(f"kernel jacobi_step B={BATCH} y/inv_d={form}: max_abs_err="
+              f"{err:.3e} rel={rel:.3e} (tol {TOL_STEP}) ms={ms:.4f} "
+              f"device_ms={dev_ms} plain_ms={plain_ms:.4f} "
+              f"bound_ms={b_ms:.5f} ({b_by})")
+    del qx, xj, xp, rows, got, want
+
+    # ista_shrink: a threshold per scale (the lasso's (eta, 1)), per signal
+    # and scale, and per vertex
+    av, phv, grv = (randn(BATCH, eta, N) for _ in range(3))
+    threshes = {"scale": 0.5 * torch.rand(eta, 1, generator=gen, device=dev),
+                "signal_scale": 0.5 * torch.rand(BATCH, eta, 1, generator=gen,
+                                                 device=dev),
+                "vertex": 0.5 * torch.rand(BATCH, eta, N, generator=gen,
+                                           device=dev)}
+    ist_rows = {}
+    for form, th in threshes.items():
+        def call(th=th):
+            return ista_shrink(av, phv, grv, th, gamma=0.3)
+
+        def plain(th=th):
+            return ista_shrink_plain(av, phv, grv, th, gamma=0.3)
+
+        got, want = call(), plain()
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, want)
+        check(rel <= TOL_STEP, f"ista_shrink {form}: rel err {rel:.3e}")
+        ms, plain_ms = time_ms(call, 20), time_ms(plain, 20)
+        dev_ms = device_ms(call, 20, "ista_shrink_kernel")
+        b_ms, b_by = bound(4 * (4 * av.numel() + th.numel()), 6 * av.numel())
+        ist_rows[form] = dict(max_abs_err=err, rel_err=rel, ms=ms,
+                              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                              device_ms=dev_ms)
+        print(f"kernel ista_shrink B={BATCH} eta={eta} thresh={form} "
+              f"{tuple(th.shape)}: max_abs_err={err:.3e} rel={rel:.3e} "
+              f"(tol {TOL_STEP}) ms={ms:.4f} device_ms={dev_ms} "
+              f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} ({b_by})")
+    del av, phv, grv, threshes, got, want
+
+    # jacobi_sweep in the two Fig. 2 settings the solve phases run:
+    # (a) den = (tau, 1) on L_norm, 20 rounds; (b) den = (tau, 0, 1) on L,
+    # 10 rounds; diag(den(P)) from P's rows in float64
+    L_dev = L.to(dev)
+    Ln_dev = L_norm.to(dev)
+    diag_a = TAU + torch.diagonal(Ln_dev).double()
+    diag_b = TAU + (L_dev.double() ** 2).sum(1)          # L symmetric
+    sweep_cases = {
+        "a": (A_n, (TAU, 1.0), ROUNDS_A, (1.0 / diag_a).float(), nnz_n),
+        "b": (A, (TAU, 0.0, 1.0), ROUNDS_B, (1.0 / diag_b).float(), nnz),
+    }
+    del L_dev, Ln_dev, diag_a, diag_b
+    jsw_rows = {}
+    bj = randn(BATCH, N)
+    x0j = torch.zeros_like(bj)
+    for case, (Aj, den, rounds, inv_d, nz) in sweep_cases.items():
+        ws = jacobi.jacobi_weights(rounds)
+
+        def call(Aj=Aj, den=den, ws=ws, inv_d=inv_d):
+            return jacobi_sweep(Aj.blocks, Aj.indices, bj, inv_d, ws, x0j,
+                                den=den)
+
+        def plain(Aj=Aj, den=den, ws=ws, inv_d=inv_d):
+            return jacobi_sweep_plain(Aj.blocks, Aj.indices, bj, inv_d, ws,
+                                      x0j, den=den)
+
+        got, want = call(), plain()
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, want)
+        check(rel <= TOL_SWEEP, f"jacobi_sweep ({case}): rel err {rel:.3e}")
+        ms = time_ms(call, 5)
+        dev_ms = device_ms(call, 3, "jacobi_sweep_kernel")
+        plain_ms = time_ms(plain, 2, warmup=1)
+        D = len(den) - 1
+        b_ms, b_by = bound(nz * 8 + 4 * (3 * BATCH * N + N),
+                           rounds * (D * (2 * nz * BATCH + 2 * BATCH * N)
+                                     + 6 * BATCH * N))
+        jsw_rows[case] = dict(max_abs_err=err, rel_err=rel, ms=ms,
+                              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                              grid=jacobi_sweep.last_grid, device_ms=dev_ms)
+        print(f"kernel jacobi_sweep ({case}) B={BATCH} deg(den)={D} "
+              f"rounds={rounds}: max_abs_err={err:.3e} rel={rel:.3e} "
+              f"(tol {TOL_SWEEP}) ms={ms:.4f} device_ms={dev_ms} "
+              f"plain_ms={plain_ms:.4f} "
+              f"bound_ms={b_ms:.5f} ({b_by}) grid={jacobi_sweep.last_grid} "
+              f"blocks")
+    del bj, x0j, sweep_cases, got, want
+
+    # -- counted paths ----------------------------------------------------------
+    counters = (block_ell_spmv, cheb_step, cheb_sweep, jacobi_step,
+                jacobi_sweep, ista_shrink)
+    names = [k.__name__ for k in counters]
+    path_launches = dict.fromkeys(names, 0)
+    path_rows = []
+
+    def run_path(name, fn, steady_iters=3):
+        """Drive one path with every count at 0 just before it, read the
+        counts just after; then its steady time (CUDA events)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in counters:
+            k.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        first = (time.perf_counter() - t0) * 1e3
+        counts = {k.__name__: k.launches for k in counters}
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        for k, v in counts.items():
+            path_launches[k] += v
+        steady = time_ms(fn, steady_iters, warmup=0) if steady_iters else None
+        shown = {k: v for k, v in counts.items() if v}
+        print(f"path {name}: first call {first:.2f} ms (host clock), steady "
+              + (f"{steady:.3f} ms (CUDA events)" if steady is not None
+                 else "not measured")
+              + f", peak {peak:.1f} MiB, launches {shown}")
+        path_rows.append(dict(name=name, first_ms=first, steady_ms=steady,
+                              peak_mib=peak, launches=shown))
+        return out, counts
+
+    # the main path of Algorithm 1 ----------------------------------------------
     F = randn(BATCH, N)
     a = randn(BATCH, eta, N)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    counters = (block_ell_spmv, cheb_step, cheb_sweep)
-    for fn in counters:
-        fn.launches = 0
     outs, calls = {}, {}
     for name, fn, arg in (("apply", plan.apply, F),
                           ("apply_adjoint", plan.apply_adjoint, a),
                           ("apply_gram", plan.apply_gram, F),
                           ("apply[sweep=False]", plan_po.apply, F)):
-        before = [k.launches for k in counters]
-        t0 = time.perf_counter()
-        outs[name] = fn(arg)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-        calls[name] = [k.launches - b for k, b in zip(counters, before)]
-        print(f"path {name}: {wall:.2f} ms host clock (first call) "
-              f"launches spmv/step/sweep={calls[name]}")
-    launches = {k.__name__: k.launches for k in counters}
-    peak = torch.cuda.max_memory_allocated()
-    print(f"path launches: {launches}; peak device memory "
-          f"{peak / 2**20:.1f} MiB")
-    check(calls["apply"] == [0, 0, 1], "apply must be one sweep launch")
-    check(calls["apply_gram"] == [0, 0, 1], "apply_gram must be one sweep")
-    check(calls["apply_adjoint"] == [K, 0, 0],
+        outs[name], calls[name] = run_path(name, lambda fn=fn, arg=arg:
+                                           fn(arg))
+    check(calls["apply"]["cheb_sweep"] == 1
+          and sum(calls["apply"].values()) == 1,
+          "apply must be one sweep launch")
+    check(calls["apply_gram"]["cheb_sweep"] == 1
+          and sum(calls["apply_gram"].values()) == 1,
+          "apply_gram must be one sweep")
+    check(calls["apply_adjoint"]["block_ell_spmv"] == K
+          and sum(calls["apply_adjoint"].values()) == K,
           "apply_adjoint must be K SpMV launches")
-    check(calls["apply[sweep=False]"] == [K, K - 1, 0],
+    check(calls["apply[sweep=False]"]["block_ell_spmv"] == K
+          and calls["apply[sweep=False]"]["cheb_step"] == K - 1,
           "the per-order apply must be K SpMV and K-1 step launches")
-    check(all(v > 0 for v in launches.values()),
-          "every kernel of the path must launch")
 
-    # -- the main path against float64 dense --------------------------------
     op64 = GraphOperator(P=L.double(), multipliers=op.multipliers, lmax=lmax,
                          K=K)
     check(np.array_equal(op64.coeffs, op.coeffs), "coefficient tables")
@@ -280,22 +500,10 @@ def main() -> int:
             "apply_adjoint": dense.apply_adjoint(a.double()),
             "apply_gram": dense.apply_gram(F.double())}
     refs["apply[sweep=False]"] = refs["apply"]
-    shapes = {"apply": (BATCH, eta, N), "apply_adjoint": (BATCH, N),
-              "apply_gram": (BATCH, N), "apply[sweep=False]": (BATCH, eta, N)}
+    print("main path vs float64 dense:")
     for name, out in outs.items():
-        check(tuple(out.shape) == shapes[name], f"{name} shape {out.shape}")
-        err, rel = rel_err(out, refs[name])
-        print(f"path {name} vs float64 dense: max_abs_err={err:.3e} "
-              f"rel={rel:.3e} (tol {TOL_PATH})")
-        check(rel <= TOL_PATH, f"{name}: rel err {rel:.3e} vs dense f64")
-    steady = {name: time_ms(lambda fn=fn, arg=arg: fn(arg), 3, warmup=1)
-              for name, fn, arg in (("apply", plan.apply, F),
-                                    ("apply_adjoint", plan.apply_adjoint, a),
-                                    ("apply_gram", plan.apply_gram, F),
-                                    ("apply[sweep=False]", plan_po.apply, F))}
-    print("path steady ms (CUDA events): "
-          + " ".join(f"{k}={v:.3f}" for k, v in steady.items()))
-    del dense, refs, op64
+        rel_check(out, refs[name], TOL_PATH, name)
+    del refs, outs, a
 
     # -- the guard: sweep vs per-order on both sides of the L2 budget --------
     for B in (BATCH, 2 * BATCH):
@@ -309,34 +517,154 @@ def main() -> int:
         print(f"guard B={B}: L2 working set {need} B {side} budget "
               f"{ops.DEFAULT_SWEEP_L2_BUDGET} B; sweep_ms={sw:.3f} "
               f"per_order_ms={po:.3f}")
+    del xg
+
+    # -- Section-V solvers, Fig. 2 setting (a): P = L_norm, r = 1 ----------
+    Y = randn(BATCH, N)
+    dense_n = GraphOperator(P=L_norm.double(), multipliers=ssl_mult,
+                            lmax=2.0, K=K).plan("dense")
+    expect = {"jacobi": {"jacobi_sweep": 1},
+              "cheb_jacobi": {"jacobi_sweep": 1},
+              "chebyshev": {"cheb_sweep": 1},
+              "arma": {"block_ell_spmv": ROUNDS_A}}
+    kw_a = dict(tau=TAU, r=1, n_iters=ROUNDS_A)
+    solved = {}
+    for method in METHODS:
+        res, counts = run_path(
+            f"solve[{method}] (a)",
+            lambda method=method: plan_n.solve(Y, method, **kw_a))
+        check({k: v for k, v in counts.items() if v} == expect[method],
+              f"solve[{method}] launches {counts}, expected {expect[method]}")
+        ref = dense_n.solve(Y.double(), method, **kw_a)
+        check(set(res.info) == set(ref.info)
+              and res.info["exchange_rounds"] == ref.info["exchange_rounds"],
+              f"solve[{method}] info {res.info} vs {ref.info}")
+        rel_check(res.x, ref.x, TOL_PATH, f"solve[{method}] (a) vs f64 dense")
+        if method == "cheb_jacobi":
+            print(f"  rho (estimated, 2% margin) {res.info['rho']:.9f}")
+        solved[method] = res.x
+
+    # -- the per-round path and the divergence guard -------------------------
+    res, counts = run_path(
+        "solve[jacobi, history=True] (a)",
+        lambda: plan_n.solve(Y, "jacobi", history=True, **kw_a))
+    check(counts["jacobi_step"] == ROUNDS_A
+          and counts["block_ell_spmv"] == ROUNDS_A
+          and counts["jacobi_sweep"] == 0,
+          f"the per-round path must be {ROUNDS_A} jacobi_step and SpMV "
+          f"launches, got {counts}")
+    check(tuple(res.history.shape) == (ROUNDS_A, BATCH, N), "history shape")
+    rel_check(res.x, solved["jacobi"], TOL_ROUNDS,
+              "per-round final iterate vs the sweep")
+    rel_check(res.history[-1], res.x, 0.0, "history[-1] vs x")
+    res, counts = run_path(
+        "solve[jacobi, check_every=7] (a)",
+        lambda: plan_n.solve(Y, "jacobi", check_every=7, **kw_a))
+    check(counts["jacobi_sweep"] == 3 and not res.info["diverged"]
+          and res.info["rounds_run"] == ROUNDS_A,
+          f"guarded solve: {counts}, info {res.info}")
+    rel_check(res.x, solved["jacobi"], TOL_GUARD,
+              "guarded (check_every=7) vs unguarded")
+    print(f"  guard residuals {res.info['residual_history']}")
+    del dense_n, solved
+
+    # -- Fig. 2 setting (b): P = L, r = 2 (2 SpMVs per round in the sweep) ---
+    kw_b = dict(tau=TAU, r=2, n_iters=ROUNDS_B)
+    res, counts = run_path("solve[jacobi] (b)",
+                           lambda: plan.solve(Y, "jacobi", **kw_b))
+    check({k: v for k, v in counts.items() if v} == {"jacobi_sweep": 1},
+          f"solve (b) launches {counts}")
+    check(res.info["matvecs_per_round"] == 2, "setting (b): 2 matvecs/round")
+    ref = dense.solve(Y.double(), "jacobi", **kw_b)
+    rel_check(res.x, ref.x, TOL_PATH, "solve[jacobi] (b) vs f64 dense")
+
+    # -- Algorithm 3: the wavelet lasso ---------------------------------------
+    gamma = lasso.ista_step_size(op)
+    res, counts = run_path(
+        "solve_lasso",
+        lambda: plan.solve_lasso(Y, MU, gamma=gamma, n_iters=LASSO_ITERS),
+        steady_iters=1)
+    check(counts["ista_shrink"] == LASSO_ITERS
+          and counts["cheb_sweep"] == LASSO_ITERS + 1
+          and counts["block_ell_spmv"] == (LASSO_ITERS + 1) * K,
+          f"solve_lasso launches {counts}")
+    ref = dense.solve_lasso(Y.double(), MU, gamma=gamma, n_iters=LASSO_ITERS)
+    print(f"  gamma={gamma:.6f}, non-zero coefficients "
+          f"{int((res.coeffs != 0).sum())} of {res.coeffs.numel()}")
+    rel_check(res.coeffs, ref.coeffs, TOL_PATH, "lasso coefficients vs f64")
+    rel_check(res.signal, ref.signal, TOL_PATH, "lasso signal vs f64")
+    del dense, op64, ref, res
+
+    # -- Section III-D: semi-supervised classification ----------------------
+    labels = ((coords[:, 0] > 0.5).astype(np.int64)
+              + 2 * (coords[:, 1] > 0.5).astype(np.int64))
+    mask = np.zeros(N, dtype=bool)
+    mask[np.random.default_rng(SEED).choice(N, int(LABELED * N),
+                                            replace=False)] = True
+    res, counts = run_path(
+        "semi_supervised_classify",
+        lambda: ssl.semi_supervised_classify(L_norm, labels, mask, N_CLASSES,
+                                             backend="cuda", lmax=2.0),
+        steady_iters=1)
+    check({k: v for k, v in counts.items() if v} == {"cheb_sweep": 1},
+          f"SSL launches {counts}")
+    ref = ssl.semi_supervised_classify(L_norm.double(), labels, mask,
+                                       N_CLASSES, backend="dense", lmax=2.0,
+                                       device=dev)
+    rel_check(res.scores, ref.scores, TOL_PATH, "SSL scores vs f64 dense")
+    top2 = torch.topk(ref.scores, 2, dim=1).values
+    clear = (top2[:, 0] - top2[:, 1]) > PRED_MARGIN
+    agree = res.predictions[clear] == ref.predictions[clear]
+    print(f"  SSL predictions agree on {int(agree.sum())} of "
+          f"{int(clear.sum())} vertices with a top-two gap > {PRED_MARGIN}; "
+          f"accuracy on unlabeled {ssl.accuracy(res, labels, mask):.4f}")
+    check(bool(agree.all()), "SSL predictions differ from float64 dense")
+
+    print(f"path launches (all counted runs): {path_launches}")
+    check(all(v > 0 for v in path_launches.values()),
+          "every kernel of the paths must launch")
+    print(f"total {time.perf_counter() - t_start:.1f} s")
 
     # -- the records ----------------------------------------------------------
     s64 = spmv_rows[BATCH]
     s1 = spmv_rows[1]
+
+    def row(name, source, replaces, r, **extra):
+        return {"name": name, "route": "cuda",
+                "source": f"src/repro_torch/csrc/{source}",
+                "replaces": replaces, "launches": path_launches[name],
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"],
+                "library_ms": r.get("library_ms"),
+                "device_ms": r["device_ms"], **extra}
+
+    step_row = dict(max_abs_err=max(err_tk, err_acc), ms=step_ms,
+                    plain_ms=step_plain, bound_ms=step_b[0],
+                    bound_by=step_b[1], device_ms=step_dev)
+    sweep_row = dict(max_abs_err=err_sw, ms=sweep_ms, plain_ms=sweep_plain,
+                     bound_ms=sweep_b[0], bound_by=sweep_b[1],
+                     device_ms=sweep_dev)
     kernels = [
-        {"name": "block_ell_spmv", "route": "cuda",
-         "source": "src/repro_torch/csrc/block_ell_spmv.cu",
-         "replaces": "src/repro/kernels/bcsr_spmv.py:106",
-         "also_replaces": "src/repro/kernels/bcsr_spmv.py:56",
-         "launches": launches["block_ell_spmv"],
-         "max_abs_err": s64["max_abs_err"], "ms": s64["ms"],
-         "plain_ms": s64["plain_ms"], "bound_ms": s64["bound_ms"],
-         "bound_by": s64["bound_by"], "library_ms": s64["library_ms"],
-         "batch": BATCH, "b1": s1},
-        {"name": "cheb_step", "route": "cuda",
-         "source": "src/repro_torch/csrc/cheb_step.cu",
-         "replaces": "src/repro/kernels/cheb_step.py:66",
-         "launches": launches["cheb_step"],
-         "max_abs_err": max(err_tk, err_acc), "ms": step_ms,
-         "plain_ms": step_plain, "bound_ms": step_b[0],
-         "bound_by": step_b[1], "library_ms": None},
-        {"name": "cheb_sweep", "route": "cuda",
-         "source": "src/repro_torch/csrc/cheb_sweep.cu",
-         "replaces": "src/repro/kernels/cheb_sweep.py:121",
-         "launches": launches["cheb_sweep"],
-         "max_abs_err": err_sw, "ms": sweep_ms, "plain_ms": sweep_plain,
-         "bound_ms": sweep_b[0], "bound_by": sweep_b[1], "library_ms": None},
+        row("block_ell_spmv", "block_ell_spmv.cu",
+            "src/repro/kernels/bcsr_spmv.py:106", s64,
+            also_replaces="src/repro/kernels/bcsr_spmv.py:56",
+            batch=BATCH, b1=s1),
+        row("cheb_step", "cheb_step.cu", "src/repro/kernels/cheb_step.py:66",
+            step_row),
+        row("cheb_sweep", "cheb_sweep.cu",
+            "src/repro/kernels/cheb_sweep.py:121", sweep_row),
+        row("jacobi_step", "jacobi_step.cu",
+            "src/repro/kernels/jacobi_step.py:50", js_rows["path"],
+            forms=js_rows),
+        row("jacobi_sweep", "jacobi_sweep.cu",
+            "src/repro/kernels/cheb_sweep.py:222", jsw_rows["a"],
+            settings=jsw_rows),
+        row("ista_shrink", "ista_shrink.cu",
+            "src/repro/kernels/soft_threshold.py:28", ist_rows["scale"],
+            forms=ist_rows),
     ]
+    print(json.dumps({"paths": path_rows}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,8 @@
 //     t_k   = (2/alpha) pt - 2 t_{k-1} - t_{k-2}
 //     acc_j += c_{j,k} t_k            for every multiplier j < eta,
 //
-// on (B, n) iterates and a (B, eta, n) accumulator.
+// on (B, n) iterates and a (B, eta, n) accumulator (f32; an f64 instance
+// serves float64 reference plans on the card).
 //
 // Replaces: src/repro/kernels/cheb_step.py::cheb_step.
 //
@@ -24,22 +25,40 @@ namespace {
 
 constexpr int kThreads = 256;
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-cheb_step_kernel(const float* __restrict__ pt, const float* __restrict__ t1,
-                 const float* __restrict__ t2, const float* __restrict__ acc,
-                 const float* __restrict__ coef, float* __restrict__ tk_out,
-                 float* __restrict__ acc_out, long long n, long long total,
-                 int eta, float two_over_alpha) {
+cheb_step_kernel(const T* __restrict__ pt, const T* __restrict__ t1,
+                 const T* __restrict__ t2, const T* __restrict__ acc,
+                 const T* __restrict__ coef, T* __restrict__ tk_out,
+                 T* __restrict__ acc_out, long long n, long long total,
+                 int eta, T two_over_alpha) {
   for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) +
                      threadIdx.x;
        e < total; e += static_cast<long long>(gridDim.x) * blockDim.x) {
     const long long b = e / n, i = e % n;
-    const float tk = two_over_alpha * pt[e] - 2.f * t1[e] - t2[e];
+    const T tk = two_over_alpha * pt[e] - T(2) * t1[e] - t2[e];
     tk_out[e] = tk;
     const long long base = b * eta * n + i;
     for (int j = 0; j < eta; ++j)
       acc_out[base + j * n] = acc[base + j * n] + coef[j] * tk;
   }
+}
+
+template <typename T>
+int launch(const void* pt, const void* t1, const void* t2, const void* acc,
+           const void* coef, void* tk_out, void* acc_out, long long B,
+           long long n, int eta, T two_over_alpha, void* stream) {
+  const long long total = B * n;
+  long long blocks = (total + kThreads - 1) / kThreads;
+  if (blocks > 65536) blocks = 65536;  // grid-stride beyond this
+  if (blocks < 1) blocks = 1;
+  cheb_step_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(pt), static_cast<const T*>(t1),
+      static_cast<const T*>(t2), static_cast<const T*>(acc),
+      static_cast<const T*>(coef), static_cast<T*>(tk_out),
+      static_cast<T*>(acc_out), n, total, eta, two_over_alpha);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -56,17 +75,16 @@ int cheb_step_f32(const void* pt, const void* t1, const void* t2,
                   const void* acc, const void* coef, void* tk_out,
                   void* acc_out, long long B, long long n, int eta,
                   float two_over_alpha, void* stream) {
-  const long long total = B * n;
-  long long blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > 65536) blocks = 65536;  // grid-stride beyond this
-  if (blocks < 1) blocks = 1;
-  cheb_step_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(pt), static_cast<const float*>(t1),
-      static_cast<const float*>(t2), static_cast<const float*>(acc),
-      static_cast<const float*>(coef), static_cast<float*>(tk_out),
-      static_cast<float*>(acc_out), n, total, eta, two_over_alpha);
-  return static_cast<int>(cudaGetLastError());
+  return launch<float>(pt, t1, t2, acc, coef, tk_out, acc_out, B, n, eta,
+                       two_over_alpha, stream);
+}
+
+int cheb_step_f64(const void* pt, const void* t1, const void* t2,
+                  const void* acc, const void* coef, void* tk_out,
+                  void* acc_out, long long B, long long n, int eta,
+                  double two_over_alpha, void* stream) {
+  return launch<double>(pt, t1, t2, acc, coef, tk_out, acc_out, B, n, eta,
+                        two_over_alpha, stream);
 }
 
 }  // extern "C"

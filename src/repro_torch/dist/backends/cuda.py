@@ -9,8 +9,11 @@ and `apply_gram` send the whole K-order recurrence to the single-launch
 `cheb_sweep` kernel, guarded by the L2 footprint model with a logged
 per-order fallback (``sweep=False`` / ``l2_budget=`` at plan time control
 it); `apply_adjoint` runs one batched SpMV launch per order.  The plan's
-matvec is tagged with its Block-ELL structure so that
-`ops.fused_cheb_recurrence` over it engages the sweep.
+matvec is tagged with its Block-ELL structure (``_mv.block_ell``) and its
+L2 budget, so that `ops.fused_cheb_recurrence` over it engages the sweep
+and `plan.solve`'s Jacobi methods reach `ops.fused_jacobi_sweep` (one
+`jacobi_sweep` launch per solve), as the JAX package's 'pallas' backend
+tags its own.
 
 On a CUDA device every kernel launches (or raises); with
 ``device="cpu"`` the same code runs the kernels' plain PyTorch versions.
@@ -64,7 +67,8 @@ def build(op, *, mesh=None, partition=None, device=None,
         return ops.spmv(A, t.contiguous())
 
     if sweep is None or sweep:
-        # tag the matvec so ops.fused_cheb_recurrence takes the sweep
+        # tag the matvec so ops.fused_cheb_recurrence and plan.solve's
+        # Jacobi methods take the single-launch sweeps
         _mv.block_ell = A
         _mv.l2_budget = l2_budget
 

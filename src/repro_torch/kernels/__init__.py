@@ -3,6 +3,9 @@ PyTorch versions, and the dispatch layer above them."""
 from . import ops
 from .bcsr_spmv import block_ell_spmv
 from .cheb_step import cheb_step
-from .cheb_sweep import cheb_sweep
+from .cheb_sweep import cheb_sweep, jacobi_sweep
+from .jacobi_step import jacobi_step
+from .soft_threshold import ista_shrink
 
-__all__ = ["ops", "block_ell_spmv", "cheb_step", "cheb_sweep"]
+__all__ = ["ops", "block_ell_spmv", "cheb_step", "cheb_sweep",
+           "ista_shrink", "jacobi_step", "jacobi_sweep"]

@@ -34,15 +34,22 @@ def cheb_step_plain(pt: Tensor, t_km1: Tensor, t_km2: Tensor, acc: Tensor,
     return tk, acc + coef[:, None] * tk[..., None, :]
 
 
-def _lib() -> ctypes.CDLL:
+#: The C entry and scalar type for each operand dtype (float64 serves
+#: reference plans run on the card).
+_ENTRIES = {torch.float32: ("cheb_step_f32", ctypes.c_float),
+            torch.float64: ("cheb_step_f64", ctypes.c_double)}
+
+
+def _lib(dtype: torch.dtype):
     lib = _build.library("cheb_step")
-    fn = lib.cheb_step_f32
+    name, scalar = _ENTRIES[dtype]
+    fn = getattr(lib, name)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 7
                        + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-                          ctypes.c_float, ctypes.c_void_p])
-    return lib
+                          scalar, ctypes.c_void_p])
+    return lib, fn
 
 
 def cheb_step(pt: Tensor, t_km1: Tensor, t_km2: Tensor, acc: Tensor,
@@ -60,8 +67,10 @@ def cheb_step(pt: Tensor, t_km1: Tensor, t_km2: Tensor, acc: Tensor,
         raise ValueError(f"cheb_step runs on CUDA tensors, got {pt.device}")
     if any(t.device != pt.device for t in tensors):
         raise ValueError("cheb_step operands must share one device")
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError("cheb_step takes float32 operands")
+    if pt.dtype not in _ENTRIES or any(t.dtype != pt.dtype
+                                       for t in tensors):
+        raise TypeError("cheb_step takes float32 (or float64) operands of "
+                        "one dtype")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("cheb_step takes contiguous tensors")
     eta = coef.shape[0]
@@ -77,10 +86,10 @@ def cheb_step(pt: Tensor, t_km1: Tensor, t_km2: Tensor, acc: Tensor,
     acc_out = torch.empty_like(acc)
     if B * n == 0:
         return tk, acc_out
-    lib = _lib()
+    lib, fn = _lib(pt.dtype)
     with torch.cuda.device(pt.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.cheb_step_f32(
+        err = fn(
             pt.data_ptr(), t_km1.data_ptr(), t_km2.data_ptr(),
             acc.data_ptr(), coef.data_ptr(), tk.data_ptr(),
             acc_out.data_ptr(), B, n, eta, 2.0 / alpha, stream)

@@ -1,5 +1,5 @@
-"""Whole-recurrence Chebyshev sweep for Hopper: all K orders of Algorithm 1
-in ONE kernel launch.
+"""Whole-iteration sweeps for Hopper: all K orders of Algorithm 1, or all
+rounds of a Section-V Jacobi solve, in ONE kernel launch.
 
 ``csrc/cheb_sweep.cu`` (replacing the JAX package's `cheb_sweep`) is a
 cooperative kernel: a grid of co-resident thread blocks walks the
@@ -8,15 +8,22 @@ fused three-term update and eta-fold accumulation to the same rows, with
 one grid-wide barrier between orders.  The iterates live in device
 memory; `ops.cheb_sweep_l2_bytes` models whether they stay in the L2.
 
-Dispatch: CPU tensors take the plain PyTorch version (`cheb_sweep_plain`);
-CUDA tensors launch the kernel or raise.  A cooperative launch the card
-refuses raises; it never falls back.
+``csrc/jacobi_sweep.cu`` (replacing the JAX package's `jacobi_sweep`) is
+its Section-V counterpart: every round of Eq. (24) / (25) on den(P) x = b
+— deg(den) Block-ELL SpMVs by Horner plus the fused update — with one
+grid-wide barrier per SpMV; `ops.jacobi_sweep_l2_bytes` is its footprint
+model.
+
+Dispatch: CPU tensors take the plain PyTorch versions (`cheb_sweep_plain`,
+`jacobi_sweep_plain`); CUDA tensors launch the kernels or raise.  A
+cooperative launch the card refuses raises; it never falls back.
 """
 from __future__ import annotations
 
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from . import _build
@@ -26,7 +33,8 @@ Tensor = torch.Tensor
 
 #: Where the reduced-precision sweep mode stands in ROADMAP.md.
 BF16_ROADMAP = ("the bf16 sweep_dtype mode is not ported yet "
-                "(ROADMAP.md, queue 2: cheb_sweep scratch_dtype='bf16')")
+                "(ROADMAP.md, queue 2: cheb_sweep / jacobi_sweep "
+                "scratch_dtype='bf16')")
 
 
 def cheb_sweep_plain(blocks: Tensor, indices: Tensor, x: Tensor,
@@ -112,3 +120,103 @@ def cheb_sweep(blocks: Tensor, indices: Tensor, x: Tensor, coeffs,
 
 cheb_sweep.launches = 0
 cheb_sweep.last_grid = 0
+
+
+def jacobi_sweep_plain(blocks: Tensor, indices: Tensor, b: Tensor,
+                       inv_d: Tensor, weights, x0: Tensor, *,
+                       den) -> Tensor:
+    """The whole (accelerated-)Jacobi solve in plain PyTorch, rounds
+    unrolled like the JAX package's `ref.jacobi_sweep_ref`.
+
+    b / x0: (..., n) at the Block-ELL padded size; inv_d broadcastable;
+    weights: (n_iters, 2) host (w_t, s_t); den: monomial coefficients,
+    low degree first.  Returns x after n_iters rounds."""
+    ws = np.asarray(weights, dtype=np.float64)
+    x, x_prev = x0, x0
+    for t in range(ws.shape[0]):
+        h = den[-1] * x
+        for c in den[-2::-1]:
+            h = block_ell_spmv_plain(blocks, indices, h) + c * x
+        x_next = float(ws[t, 0]) * (x + inv_d * (b - h)) \
+            - float(ws[t, 1]) * x_prev
+        x, x_prev = x_next, x
+    return torch.broadcast_to(x, torch.broadcast_shapes(b.shape, x0.shape))
+
+
+def _jacobi_lib() -> ctypes.CDLL:
+    lib = _build.library("jacobi_sweep")
+    fn = lib.jacobi_sweep_f32
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
+                       + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                       + [ctypes.c_void_p, ctypes.c_void_p])
+    return lib
+
+
+def jacobi_sweep(blocks: Tensor, indices: Tensor, b: Tensor, inv_d: Tensor,
+                 weights, x0: Tensor, *, den) -> Tensor:
+    """Whole (accelerated-)Jacobi solve of den(P) x = b in one launch.
+
+    b / x0: (..., n) at the Block-ELL padded size; inv_d: a shared (n,)
+    row or broadcastable to b (zeros on padded rows keep those rows
+    zero).  weights: (n_iters, 2) host (w_t, s_t) schedule, cast to f32 on
+    the device; den: monomial coefficients of the split polynomial, low
+    degree first, any degree (the CUDA kernel loops at run time, so there
+    is no unroll budget).  Returns x after n_iters rounds, shape
+    broadcast(b, x0).  CPU tensors take the plain version; CUDA tensors
+    launch ``csrc/jacobi_sweep.cu`` (counted in ``jacobi_sweep.launches``;
+    the grid of the last launch is ``jacobi_sweep.last_grid``).  f32
+    only: the JAX package's bf16 scratch mode is to port with
+    `cheb_sweep`'s.
+    """
+    den = tuple(float(c) for c in den)
+    if not den:
+        raise ValueError("den must have at least one coefficient")
+    ws = np.asarray(weights, dtype=np.float64)
+    if ws.ndim != 2 or ws.shape[1] != 2:
+        raise ValueError(f"weights must be (n_iters, 2), got {ws.shape}")
+    if b.device.type == "cpu":
+        return jacobi_sweep_plain(blocks, indices, b, inv_d, ws, x0, den=den)
+    check_block_ell(blocks, indices, b)
+    nrb, slots, br, bc = blocks.shape
+    n = b.shape[-1]
+    if n != nrb * br:
+        raise ValueError(f"b length {n} != Block-ELL padded size {nrb * br}")
+    if any(t.device != b.device for t in (inv_d, x0)):
+        raise ValueError("jacobi_sweep operands must share one device")
+    if any(t.dtype != torch.float32 for t in (inv_d, x0)):
+        raise TypeError("jacobi_sweep takes float32 operands")
+    full = torch.broadcast_shapes(b.shape, x0.shape)
+    B = math.prod(full[:-1])
+    b2 = b.expand(full).reshape(B, n).contiguous()
+    x02 = x0.expand(full).reshape(B, n).contiguous()
+    if inv_d.numel() == n:
+        d2, d_stride = inv_d.reshape(n).contiguous(), 0
+    else:
+        d2, d_stride = inv_d.expand(full).reshape(B, n).contiguous(), n
+    n_iters = ws.shape[0]
+    if B == 0 or n_iters == 0:
+        return x02.clone().reshape(full)
+    table = torch.tensor(list(den) + ws.reshape(-1).tolist(),
+                         dtype=torch.float32).to(b.device)
+    U, V, H0, H1 = (torch.empty((B, n), dtype=b.dtype, device=b.device)
+                    for _ in range(4))
+    grid = ctypes.c_int(0)
+    lib = _jacobi_lib()
+    with torch.cuda.device(b.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.jacobi_sweep_f32(
+            blocks.data_ptr(), indices.data_ptr(), b2.data_ptr(),
+            d2.data_ptr(), d_stride, x02.data_ptr(), table.data_ptr(),
+            U.data_ptr(), V.data_ptr(), H0.data_ptr(), H1.data_ptr(),
+            nrb, slots, br, bc, B, n_iters, len(den) - 1, stream,
+            ctypes.addressof(grid))
+    _build.check(lib, err, "jacobi_sweep (cooperative launch)")
+    jacobi_sweep.launches += 1
+    jacobi_sweep.last_grid = grid.value
+    return (U if n_iters % 2 else V).reshape(full)
+
+
+jacobi_sweep.launches = 0
+jacobi_sweep.last_grid = 0

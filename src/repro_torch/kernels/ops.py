@@ -1,10 +1,11 @@
 """Dispatch between the Hopper kernels and the per-order recurrence.
 
-Everything above this module — the `cuda` execution backend, the tests,
-``chip_smoke.py`` — calls these functions; the kernel wrappers
-(`bcsr_spmv.block_ell_spmv`, `cheb_step.cheb_step`,
-`cheb_sweep.cheb_sweep`) pick the CUDA kernel for a CUDA tensor and their
-plain PyTorch version for a CPU tensor.
+Everything above this module — the `cuda` execution backend, the solvers,
+the lasso, the tests, ``chip_smoke.py`` — calls these functions; the
+kernel wrappers (`bcsr_spmv.block_ell_spmv`, `cheb_step.cheb_step`,
+`cheb_sweep.cheb_sweep`, `cheb_sweep.jacobi_sweep`,
+`jacobi_step.jacobi_step`, `soft_threshold.ista_shrink`) pick the CUDA
+kernel for a CUDA tensor and their plain PyTorch version for a CPU tensor.
 
 Single-launch sweep dispatch: a matvec tagged with ``mv.block_ell = A``
 (a local Block-ELL product) routes the whole K-order loop of
@@ -12,7 +13,10 @@ Single-launch sweep dispatch: a matvec tagged with ``mv.block_ell = A``
 cooperative kernel launch for all orders.  The upgrade is guarded by the
 L2 footprint model :func:`cheb_sweep_l2_bytes`; a problem over the budget
 takes the per-order path (one SpMV launch and one `cheb_step` launch per
-order), logged at INFO.
+order), logged at INFO.  `plan.solve`'s Jacobi methods take the same
+route to :func:`fused_jacobi_sweep` (one `jacobi_sweep` launch per solve,
+guarded by :func:`jacobi_sweep_l2_bytes`, with a logged per-round
+fallback).
 """
 from __future__ import annotations
 
@@ -26,7 +30,9 @@ from ..core.chebyshev import _stateful_matvec
 from ..core.graph import BlockELL
 from .bcsr_spmv import block_ell_spmv
 from .cheb_step import cheb_step
-from .cheb_sweep import BF16_ROADMAP, cheb_sweep
+from .cheb_sweep import BF16_ROADMAP, cheb_sweep, jacobi_sweep
+from .jacobi_step import jacobi_step
+from .soft_threshold import ista_shrink
 
 Tensor = torch.Tensor
 
@@ -185,6 +191,108 @@ def fused_cheb_apply(
         return fused_cheb_sweep(A, x, coeffs, lmax, l2_budget=l2_budget,
                                 scratch_dtype=scratch_dtype)
     return _per_order_cheb(A, x, np.atleast_2d(np.asarray(coeffs)), lmax)
+
+
+def jacobi_update(qx: Tensor, x: Tensor, x_prev: Tensor, y: Tensor,
+                  inv_d: Tensor, *, w, s) -> Tensor:
+    """One fused (accelerated-)Jacobi round after the matvec ``qx = Q @ x``:
+
+        x_next = w * (x + inv_d * (y - qx)) - s * x_prev
+
+    (w = 1, s = 0 is the plain Jacobi round of Eq. (24); the Eq. (25)
+    weights vary per round).  A CUDA tensor launches the `jacobi_step`
+    kernel, a CPU tensor takes its plain version.  y / inv_d may be
+    shared (n,) rows.
+    """
+    return jacobi_step(qx, x, x_prev, y, inv_d, w=w, s=s)
+
+
+def jacobi_sweep_l2_bytes(n: int, batch: int = 1, itemsize: int = 4) -> int:
+    """L2 footprint model for one `jacobi_sweep` launch on Hopper.
+
+    The counterpart of the JAX package's `jacobi_sweep_vmem_bytes`: what
+    every round re-reads are six (B, n) buffers — the iterate x, x_prev,
+    the two Horner buffers (h and the SpMV product q), the right-hand
+    side b and D^{-1}:
+
+        6 * B * n * itemsize bytes.
+
+    The Block-ELL blocks stream through once per SpMV either way and are
+    not counted, as in :func:`cheb_sweep_l2_bytes`.
+    """
+    return 6 * batch * n * itemsize
+
+
+def _per_round_jacobi(A: BlockELL, b: Tensor, inv_d: Tensor, den, ws,
+                      x0: Tensor) -> Tensor:
+    """Per-round path: deg(den) SpMV launches (Horner) and one
+    `jacobi_step` launch per round."""
+    x, x_prev = x0, x0
+    for w, s in ws:
+        h = den[-1] * x
+        for c in den[-2::-1]:
+            h = spmv(A, h.contiguous()) + c * x
+        x, x_prev = jacobi_update(h, x, x_prev, b, inv_d, w=float(w),
+                                  s=float(s)), x
+    return x
+
+
+def fused_jacobi_sweep(
+    A: BlockELL,
+    b: Tensor,
+    inv_d: Tensor,
+    den,
+    weights,
+    *,
+    x0: Optional[Tensor] = None,
+    l2_budget: Optional[int] = None,
+) -> Tensor:
+    """Whole (accelerated-)Jacobi solve of den(P) x = b, one launch.
+
+    The Section-V counterpart of :func:`fused_cheb_sweep`: all n_iters
+    rounds of Eq. (24)/(25) — deg(den) Block-ELL SpMVs per round (Horner)
+    plus the fused update — run inside one `jacobi_sweep` launch.  b / x0:
+    (..., n) at any n (padded to A's Block-ELL size here, cropped on
+    return); inv_d broadcastable, zeros on padded rows.  weights:
+    (n_iters, 2) host (w_t, s_t) schedule (`core.jacobi.jacobi_weights` /
+    `cheb_jacobi_weights`).  Guarded by :func:`jacobi_sweep_l2_bytes`
+    against `l2_budget` (default :data:`DEFAULT_SWEEP_L2_BUDGET`): a
+    working set over the budget takes the per-round path (SpMV and
+    `jacobi_step` launches), logged at INFO.
+    """
+    n_logical = b.shape[-1]
+    total = A.padded_n
+    bp = pad_trailing(b, total)
+    invdp = pad_trailing(inv_d, total)
+    x0p = torch.zeros_like(bp) if x0 is None else pad_trailing(x0, total)
+    den = tuple(float(c) for c in den)
+    ws = np.asarray(weights, dtype=np.float64)
+    budget = DEFAULT_SWEEP_L2_BUDGET if l2_budget is None else int(l2_budget)
+    batch = max(1, torch.broadcast_shapes(bp.shape, x0p.shape)[:-1].numel())
+    need = jacobi_sweep_l2_bytes(total, batch, bp.element_size())
+    if need > budget:
+        logger.info(
+            "jacobi_sweep: L2 working set %d B exceeds budget %d B "
+            "(n=%d, B=%d) — falling back to the per-round jacobi_step "
+            "path", need, budget, total, batch)
+        out = _per_round_jacobi(A, bp, invdp, den, ws, x0p)
+    else:
+        out = jacobi_sweep(A.blocks, A.indices, bp, invdp, ws, x0p, den=den)
+    return out[..., :n_logical]
+
+
+def ista_update(a: Tensor, phi_y: Tensor, gram_a: Tensor, thresh,
+                gamma: float) -> Tensor:
+    """One fused ISTA update (Algorithm 3 line 5 + the Eq. (32)
+    shrinkage): ``soft_threshold(a + gamma * (phi_y - gram_a), thresh)``
+    in a single pass.  a / phi_y / gram_a: (..., eta, N); thresh: (eta,),
+    (eta, 1), (..., eta, 1) or per vertex (..., eta, N).  A CUDA tensor
+    launches the `ista_shrink` kernel (which reads the threshold through
+    strides, never expanded), a CPU tensor takes its plain version."""
+    thresh = torch.as_tensor(thresh, dtype=a.dtype, device=a.device)
+    if thresh.ndim == 1:
+        thresh = thresh[:, None]
+    return ista_shrink(a, phi_y, gram_a, thresh, gamma=gamma)
 
 
 def pad_trailing(x: Tensor, total: int) -> Tensor:

@@ -1,5 +1,6 @@
 """Card-only tests: each Hopper kernel against its plain PyTorch version on
-a CUDA device, and the main path against float64 dense.
+a CUDA device, and the main path, the Section-V solvers, the lasso and SSL
+against float64 dense.
 
 They carry the `gpu` marker and skip without a card (decided inside the
 `cuda` fixture, never at import).  The machine with the card has no JAX,
@@ -11,18 +12,27 @@ version) and runs without the JAX-side tests/conftest.py:
 
 Tolerances: the kernels redo the plain versions' f32 arithmetic in another
 summation order — 1e-5 relative for the SpMV, 1e-6 for the elementwise
-step, 1e-4 for the 9-order sweep and for the main path against float64.
+kernels (Chebyshev step, Jacobi step, ISTA shrink), 1e-4 for the sweeps
+(9 orders, or up to 20 Jacobi rounds) and for every path against float64.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import filters as tfilters
 from repro_torch.core import graph as tgraph
+from repro_torch.core import jacobi as tjacobi
+from repro_torch.core import lasso as tlasso
+from repro_torch.core import ssl as tssl
 from repro_torch.core import wavelets as twav
-from repro_torch.dist import GraphOperator
+from repro_torch.dist import METHODS, GraphOperator
 from repro_torch.kernels.bcsr_spmv import block_ell_spmv, block_ell_spmv_plain
 from repro_torch.kernels.cheb_step import cheb_step, cheb_step_plain
-from repro_torch.kernels.cheb_sweep import cheb_sweep, cheb_sweep_plain
+from repro_torch.kernels.cheb_sweep import (cheb_sweep, cheb_sweep_plain,
+                                            jacobi_sweep, jacobi_sweep_plain)
+from repro_torch.kernels.jacobi_step import jacobi_step, jacobi_step_plain
+from repro_torch.kernels.soft_threshold import (ista_shrink,
+                                                ista_shrink_plain)
 
 pytestmark = pytest.mark.gpu
 
@@ -107,3 +117,137 @@ def test_main_path_matches_float64_dense(cuda):
             got = getattr(plan, kind)(x)
             want = getattr(dense, kind)(x.double())
             assert _rel(got.double(), want) < 1e-4, kind
+
+
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("n", [500, 16384])
+def test_jacobi_step_kernel_matches_plain(cuda, n, shared):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    qx, x, xp = (torch.randn(64, n, generator=gen, device=cuda)
+                 for _ in range(3))
+    rows = (n,) if shared else (64, n)
+    y, invd = (torch.randn(rows, generator=gen, device=cuda)
+               for _ in range(2))
+    before = jacobi_step.launches
+    got = jacobi_step(qx, x, xp, y, invd, w=1.7, s=0.3)
+    want = jacobi_step_plain(qx, x, xp, y, invd, w=1.7, s=0.3)
+    torch.cuda.synchronize()
+    assert jacobi_step.launches == before + 1
+    assert _rel(got, want) < 1e-6
+
+
+@pytest.mark.parametrize("form", ["scale", "signal_scale", "vertex"])
+@pytest.mark.parametrize("n", [300, 16384])
+def test_ista_shrink_kernel_matches_plain(cuda, n, form):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    a, phi_y, gram = (torch.randn(8, 7, n, generator=gen, device=cuda)
+                      for _ in range(3))
+    shape = {"scale": (7, 1), "signal_scale": (8, 7, 1),
+             "vertex": (8, 7, n)}[form]
+    thresh = 0.5 * torch.rand(shape, generator=gen, device=cuda)
+    before = ista_shrink.launches
+    got = ista_shrink(a, phi_y, gram, thresh, gamma=0.3)
+    want = ista_shrink_plain(a, phi_y, gram, thresh, gamma=0.3)
+    torch.cuda.synchronize()
+    assert ista_shrink.launches == before + 1
+    assert _rel(got, want) < 1e-6
+
+
+@pytest.mark.parametrize("den,n_iters", [((0.5,), 3), ((0.5, 1.0), 20),
+                                         ((0.5, 0.0, 1.0), 10),
+                                         ((0.5, 0.2, 0.0, 1.0), 5)])
+@pytest.mark.parametrize("batch_shape", [(), (64,), (2, 3)])
+def test_jacobi_sweep_kernel_matches_plain(cuda, batch_shape, den, n_iters):
+    g = tgraph.connected_sensor_graph(np.random.RandomState(1), n=500,
+                                      theta=0.075, kappa=0.075)
+    Ln = g.laplacian("normalized")
+    At = tgraph.to_block_ell(Ln, (8, 128)).to(cuda)
+    n = At.padded_n
+    P = Ln.double()
+    d = sum(c * torch.linalg.matrix_power(P, m).diagonal()
+            for m, c in enumerate(den))
+    inv_d = torch.zeros(n, device=cuda)
+    inv_d[:500] = (1.0 / d).float()
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    b = torch.randn(batch_shape + (n,), generator=gen, device=cuda)
+    b[..., 500:] = 0
+    x0 = torch.zeros_like(b)
+    for ws in (tjacobi.jacobi_weights(n_iters),
+               tjacobi.cheb_jacobi_weights(0.9, n_iters)):
+        before = jacobi_sweep.launches
+        got = jacobi_sweep(At.blocks, At.indices, b, inv_d, ws, x0, den=den)
+        want = jacobi_sweep_plain(At.blocks, At.indices, b, inv_d, ws, x0,
+                                  den=den)
+        torch.cuda.synchronize()
+        assert jacobi_sweep.launches == before + 1
+        assert got.shape == b.shape
+        assert _rel(got, want) < 1e-4
+
+
+@pytest.fixture(scope="module")
+def solver_graph(cuda):
+    g = tgraph.connected_sensor_graph(np.random.RandomState(0), n=1000,
+                                      theta=0.06, kappa=0.06)
+    g, _ = tgraph.spatial_sort(g)
+    return g
+
+
+def test_solve_methods_match_float64_dense(solver_graph):
+    """Fig. 2 setting (a): P = L_norm, tau = 0.5, r = 1, 20 rounds; the
+    Jacobi methods are one jacobi_sweep launch each."""
+    Ln = solver_graph.laplacian("normalized")
+    mult = [tfilters.ssl_multiplier(tfilters.power_kernel(1), 0.5)]
+    plan = GraphOperator(P=Ln, multipliers=mult, lmax=2.0, K=20).plan("cuda")
+    dense = GraphOperator(P=Ln.double(), multipliers=mult, lmax=2.0,
+                          K=20).plan("dense", device="cuda")
+    Y = torch.randn(64, 1000, device="cuda")
+    for method in METHODS:
+        before = jacobi_sweep.launches
+        got = plan.solve(Y, method, tau=0.5, r=1, n_iters=20)
+        launched = jacobi_sweep.launches - before
+        want = dense.solve(Y.double(), method, tau=0.5, r=1, n_iters=20)
+        torch.cuda.synchronize()
+        assert set(got.info) == set(want.info), method
+        assert got.info["exchange_rounds"] == want.info["exchange_rounds"]
+        if method == "cheb_jacobi":
+            assert got.info["rho"] == pytest.approx(want.info["rho"],
+                                                    rel=1e-9)
+        assert _rel(got.x.double(), want.x) < 1e-4, method
+        assert launched == (1 if method in ("jacobi", "cheb_jacobi") else 0)
+    hist = plan.solve(Y, "jacobi", tau=0.5, n_iters=20, history=True)
+    sweep = plan.solve(Y, "jacobi", tau=0.5, n_iters=20)
+    assert _rel(hist.x, sweep.x) < 1e-5
+    guarded = plan.solve(Y, "jacobi", tau=0.5, n_iters=20, check_every=7)
+    assert _rel(guarded.x, sweep.x) < 1e-6
+    assert guarded.info["rounds_run"] == 20
+
+
+def test_lasso_and_ssl_match_float64_dense(solver_graph):
+    L, lmax = solver_graph.laplacian(), solver_graph.lambda_max_bound()
+    op = twav.sgwt_operator(L, lmax, J=6, K=20)
+    op64 = GraphOperator(P=L.double(), multipliers=op.multipliers,
+                         lmax=lmax, K=20)
+    mu = [0.01] + [0.75] * 6
+    gamma = tlasso.ista_step_size(op)
+    Y = torch.randn(8, 1000, device="cuda")
+    before = ista_shrink.launches
+    got = op.plan("cuda").solve_lasso(Y, mu, gamma=gamma, n_iters=10)
+    assert ista_shrink.launches - before == 10
+    want = op64.plan("dense", device="cuda").solve_lasso(
+        Y.double(), mu, gamma=gamma, n_iters=10)
+    torch.cuda.synchronize()
+    assert _rel(got.coeffs.double(), want.coeffs) < 1e-4
+    assert _rel(got.signal.double(), want.signal) < 1e-4
+    coords = solver_graph.coords.numpy()
+    labels = (coords[:, 0] > 0.5).astype(np.int64) \
+        + 2 * (coords[:, 1] > 0.5).astype(np.int64)
+    mask = np.zeros(1000, bool)
+    mask[np.random.default_rng(0).choice(1000, 100, replace=False)] = True
+    Ln = solver_graph.laplacian("normalized")
+    res = tssl.semi_supervised_classify(Ln, labels, mask, 4, backend="cuda",
+                                        lmax=2.0)
+    ref = tssl.semi_supervised_classify(Ln.double(), labels, mask, 4,
+                                        backend="dense", lmax=2.0,
+                                        device="cuda")
+    assert _rel(res.scores.double(), ref.scores) < 1e-4
+    assert tssl.accuracy(res, labels, mask) > 0.8

@@ -24,7 +24,12 @@ def test_port_files_found():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert "src/repro_torch/kernels/ops.py" in names
     assert "src/repro_torch/dist/backends/cuda.py" in names
-    assert len(names) >= 20
+    # the Section-V solvers, lasso and SSL slice
+    for module in ("core/jacobi.py", "core/arma.py", "core/lasso.py",
+                   "core/ssl.py", "dist/solvers.py",
+                   "kernels/jacobi_step.py", "kernels/soft_threshold.py"):
+        assert f"src/repro_torch/{module}" in names, module
+    assert len(names) >= 27
 
 
 @pytest.mark.parametrize("path", FILES,
