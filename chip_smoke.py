@@ -24,7 +24,20 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    Section III-D classifier (`semi_supervised_classify` with 4 quadrant
    classes, 10% labeled) at the same n and batch, each against float64
    dense on the card;
-6. shows through the kernels' launch counters that every path ran through
+6. holds the bf16 mode of both sweeps (``plan("cuda",
+   sweep_dtype="bf16")``: `apply` and the Jacobi `solve` in setting (a))
+   against float64 dense, and each bf16 sweep kernel against its plain
+   bf16 version;
+7. drives the dense LM forward of starcoder2-3b at its full width and
+   depth (30 layers, d_model 3072, 24 query and 2 KV heads of 128) on
+   B = 2 sequences of S = 4096 tokens in bf16, weights drawn from a
+   seeded torch.Generator, with ``RunConfig(attn_impl="flash")``: one
+   flash-attention launch per layer.  Its logits and loss are held against
+   the same forward whose attention is the kernel's plain f32 version, and
+   the kernel against its plain version at the layer shape, at a small
+   f32 shape and at a ragged S = 1000; `scaled_dot_product_attention` is
+   timed beside it as the library yardstick (the port never calls it);
+8. shows through the kernels' launch counters that every path ran through
    its kernels: each path is driven once with the counts set to 0 just
    before it and read just after.
 
@@ -45,6 +58,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -75,6 +89,24 @@ TAU = 0.5
 ROUNDS_A, ROUNDS_B, LASSO_ITERS = 20, 10, 20
 MU = [0.01] + [0.75] * J
 N_CLASSES, LABELED = 4, 0.10
+# The bf16 sweep mode: kernel vs its plain bf16 version and every bf16
+# path vs float64 dense, at the JAX package's bf16 sweep tolerance
+# (tests/test_sweep.py:120,141): 8-bit mantissas over 20 orders / rounds.
+TOL_BF16 = 3e-2
+# The LM forward: starcoder2-3b at full width and depth, B x S tokens.
+LM_ARCH, LM_B, LM_S = "starcoder2-3b", 2, 4096
+# Flash kernel vs plain version: the JAX package's kernel tolerances
+# (tests/test_kernels.py:69), atol = rtol; bf16 outputs round to 8 bits.
+TOL_FLASH = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# LM logits / loss against the same bf16 forward through the plain f32
+# attention: the two attentions round their outputs to bf16 after summing
+# in other orders, so single elements differ by a bf16 ulp, and 30
+# residual layers of bf16 products carry those differences to the logits.
+# A mask or head-mapping fault moves the logits by O(1).
+TOL_LM_LOGITS = 5e-2     # max |d logits| / max |logits|
+TOL_LM_LOSS = 1e-2       # |d loss| (the loss is ~ln 49152 = 10.8)
+# H100 SXM bf16 tensor-core peak (dense): the bound of bf16 work.
+PEAK_BF16_FLOPS = 989e12
 # Per-round final iterate vs the sweep's (the same f32 arithmetic, P h
 # products in another grouping); the guarded solve vs the unguarded one
 # (the same kernel launches in chunks); SSL predictions are compared where
@@ -142,10 +174,42 @@ def device_ms(fn, iters: int, kernel: str):
     return total / count / 1e3 if count and total > 0 else None
 
 
-def bound(nbytes: float, flops: float):
+def device_breakdown(fn, groups):
+    """One call of `fn` under torch.profiler: the device time of its
+    kernels by group (the first of `groups`, name -> substrings, that
+    matches a kernel's name, else "other"), their sum and its share of
+    the call's wall time.  None when the trace holds no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    out = dict.fromkeys(list(groups) + ["other"], 0.0)
+    for e in prof.key_averages():
+        # kernel rows only: an operator's row repeats its kernels' time
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = e.self_device_time_total / 1e3
+        if ms <= 0:
+            continue
+        key = e.key.lower()
+        out[next((g for g, subs in groups.items()
+                  if any(x in key for x in subs)), "other")] += ms
+    busy = sum(out.values())
+    if busy <= 0:
+        return None
+    return dict(out, device_ms=busy, wall_ms=wall_ms, busy_share=busy / wall_ms)
+
+
+def bound(nbytes: float, flops: float, peak: float = PEAK_F32_FLOPS):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    f32 operations over the f32 peak."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_F32_FLOPS
+    the operations over `peak` (default the f32 peak)."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -183,13 +247,18 @@ def main() -> int:
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.bcsr_spmv import (block_ell_spmv,
                                                block_ell_spmv_plain)
+    from repro_torch.configs import get_config
     from repro_torch.kernels.cheb_step import cheb_step, cheb_step_plain
     from repro_torch.kernels.cheb_sweep import (cheb_sweep, cheb_sweep_plain,
                                                 jacobi_sweep,
                                                 jacobi_sweep_plain)
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
     from repro_torch.kernels.jacobi_step import jacobi_step, jacobi_step_plain
     from repro_torch.kernels.soft_threshold import (ista_shrink,
                                                     ista_shrink_plain)
+    from repro_torch.models import (RunConfig, count_params, forward,
+                                    init_params, lm_loss)
 
     dev = torch.device("cuda")
     smi = nvidia_smi()
@@ -435,18 +504,120 @@ def main() -> int:
               f"plain_ms={plain_ms:.4f} "
               f"bound_ms={b_ms:.5f} ({b_by}) grid={jacobi_sweep.last_grid} "
               f"blocks")
-    del bj, x0j, sweep_cases, got, want
+
+    # the bf16 mode of both sweeps at the same shapes: cheb_sweep on the
+    # SGWT union, jacobi_sweep in setting (a)
+    bf16_rows = {}
+    x = randn(BATCH, N)
+    Aj, den, rounds, inv_d, nz = sweep_cases["a"]
+    ws_a = jacobi.jacobi_weights(rounds)
+    bf16_calls = {
+        "cheb_sweep": (
+            lambda: cheb_sweep(A.blocks, A.indices, x, c, alpha=alpha,
+                               scratch_dtype="bf16"),
+            lambda: cheb_sweep_plain(A.blocks, A.indices, x, c, alpha=alpha,
+                                     scratch_dtype="bf16"),
+            # bf16 blocks (value 2 B + column 4 B per non-zero), bf16 x in,
+            # f32 acc out; the same FMAs as the f32 sweep, at the bf16 peak
+            bound(nnz * 6 + 2 * BATCH * N + 4 * BATCH * eta * N
+                  + 4 * (K + 1) * eta,
+                  K * (2 * nnz * BATCH + 4 * BATCH * N)
+                  + 2 * (K + 1) * BATCH * eta * N, PEAK_BF16_FLOPS),
+            lambda: cheb_sweep.last_grid),
+        "jacobi_sweep": (
+            lambda: jacobi_sweep(Aj.blocks, Aj.indices, bj, inv_d, ws_a, x0j,
+                                 den=den, scratch_dtype="bf16"),
+            lambda: jacobi_sweep_plain(Aj.blocks, Aj.indices, bj, inv_d, ws_a,
+                                       x0j, den=den, scratch_dtype="bf16"),
+            bound(nz * 6 + 4 * (3 * BATCH * N + N),
+                  rounds * (2 * nz * BATCH + 2 * BATCH * N + 6 * BATCH * N),
+                  PEAK_BF16_FLOPS),
+            lambda: jacobi_sweep.last_grid),
+    }
+    for name, (call, plain, (b_ms, b_by), grid) in bf16_calls.items():
+        got, want = call(), plain()
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, want)
+        check(rel <= TOL_BF16, f"{name} bf16: rel err {rel:.3e}")
+        ms = time_ms(call, 5)
+        dev_ms = device_ms(call, 3, f"{name}_kernel")
+        plain_ms = time_ms(plain, 2, warmup=1)
+        bf16_rows[name] = dict(max_abs_err=err, rel_err=rel, ms=ms,
+                               plain_ms=plain_ms, bound_ms=b_ms,
+                               bound_by=b_by, grid=grid(), device_ms=dev_ms)
+        print(f"kernel {name} bf16 B={BATCH}: max_abs_err={err:.3e} "
+              f"rel={rel:.3e} (tol {TOL_BF16}) ms={ms:.4f} "
+              f"device_ms={dev_ms} plain_ms={plain_ms:.4f} "
+              f"bound_ms={b_ms:.5f} ({b_by}) grid={grid()} blocks")
+    del bj, x0j, sweep_cases, got, want, x
+
+    # flash attention at the LM layer shape (bf16), a small f32 shape and
+    # a ragged S, each against its plain version
+    cfg = get_config(LM_ARCH)
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    flash_cases = {
+        "layer": (LM_B, hq, hkv, LM_S, hd, torch.bfloat16),
+        "small_f32": (2, 4, 2, 256, 64, torch.float32),
+        "ragged_f32": (1, hq, hkv, 1000, hd, torch.float32),
+    }
+    flash_rows = {}
+    for case, (b, h1, h2, S, d, dt) in flash_cases.items():
+        q = randn(b, h1, S, d).to(dt)
+        k, v = randn(b, h2, S, d).to(dt), randn(b, h2, S, d).to(dt)
+        got = flash_attention(q, k, v, causal=True)
+        want = flash_attention_plain(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        tol = TOL_FLASH[dt]
+        err, rel = rel_err(got, want)
+        excess = float(((got.float() - want.float()).abs()
+                        - tol * want.float().abs()).max())
+        check(got.dtype == dt and excess <= tol,
+              f"flash_attention {case}: |err| - rtol |ref| = {excess:.3e} "
+              f"> atol {tol}")
+        row = dict(shape=[b, h1, h2, S, d], dtype=str(dt).split(".")[-1],
+                   max_abs_err=err, rel_err=rel, tol=tol)
+        msg = (f"kernel flash_attention {case} (B, Hq, Hkv, S, D)="
+               f"{(b, h1, h2, S, d)} {row['dtype']} causal: max_abs_err="
+               f"{err:.3e} (atol = rtol = {tol})")
+        if case == "layer":
+            def call(q=q, k=k, v=v):
+                return flash_attention(q, k, v, causal=True)
+
+            ms = time_ms(call, 10)
+            dev_ms = device_ms(call, 5, "flash_attention_kernel")
+            plain_ms = time_ms(lambda: flash_attention_plain(q, k, v), 3,
+                               warmup=1)
+            lib_ms = time_ms(lambda: torch.nn.functional
+                             .scaled_dot_product_attention(
+                                 q, k, v, is_causal=True, enable_gqa=True), 10)
+            pairs = S * (S + 1) // 2           # causal (row, col) pairs
+            flops = 4 * b * h1 * d * pairs
+            nbytes = 2 * (2 * b * h1 * S * d + 2 * b * h2 * S * d)
+            b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
+            f32_ms = bound(nbytes, flops)[0]
+            row.update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                       library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                       bound_f32_ms=f32_ms, flops=flops, bytes=nbytes)
+            msg += (f" ms={ms:.4f} device_ms={dev_ms} plain_ms={plain_ms:.4f}"
+                    f" library_ms(scaled_dot_product_attention)={lib_ms:.4f}"
+                    f" bound_ms={b_ms:.5f} ({b_by}, bf16 tensor peak) "
+                    f"bound_f32_ms={f32_ms:.5f} (CUDA-core f32 peak)")
+        flash_rows[case] = row
+        print(msg)
+    del q, k, v, got, want
 
     # -- counted paths ----------------------------------------------------------
     counters = (block_ell_spmv, cheb_step, cheb_sweep, jacobi_step,
-                jacobi_sweep, ista_shrink)
+                jacobi_sweep, ista_shrink, flash_attention)
     names = [k.__name__ for k in counters]
     path_launches = dict.fromkeys(names, 0)
+    bf16_launches = dict.fromkeys(names, 0)   # the bf16 sweep paths
     path_rows = []
 
-    def run_path(name, fn, steady_iters=3):
+    def run_path(name, fn, steady_iters=3, tally=path_launches):
         """Drive one path with every count at 0 just before it, read the
-        counts just after; then its steady time (CUDA events)."""
+        counts just after (added to `tally`); then its steady time (CUDA
+        events)."""
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for k in counters:
@@ -458,7 +629,7 @@ def main() -> int:
         counts = {k.__name__: k.launches for k in counters}
         peak = torch.cuda.max_memory_allocated() / 2**20
         for k, v in counts.items():
-            path_launches[k] += v
+            tally[k] += v
         steady = time_ms(fn, steady_iters, warmup=0) if steady_iters else None
         shown = {k: v for k, v in counts.items() if v}
         print(f"path {name}: first call {first:.2f} ms (host clock), steady "
@@ -578,6 +749,31 @@ def main() -> int:
     ref = dense.solve(Y.double(), "jacobi", **kw_b)
     rel_check(res.x, ref.x, TOL_PATH, "solve[jacobi] (b) vs f64 dense")
 
+    # -- the bf16 sweep mode: apply and the setting (a) Jacobi solve ---------
+    plan16 = op.plan("cuda", sweep_dtype="bf16")
+    plan_n16 = op_n.plan("cuda", sweep_dtype="bf16")
+    check(plan16.info["sweep_dtype"] == "bf16"
+          and plan16.info["sweep_l2_bytes"] * BATCH
+          <= plan16.info["sweep_l2_budget"]
+          and ops.jacobi_sweep_l2_bytes(N, BATCH, scratch_dtype="bf16")
+          <= ops.DEFAULT_SWEEP_L2_BUDGET,
+          "the bf16 plans must take the sweeps at the smoke shape")
+    out16, counts = run_path("apply[bf16]", lambda: plan16.apply(F),
+                             tally=bf16_launches)
+    check({k: v for k, v in counts.items() if v} == {"cheb_sweep": 1},
+          f"apply[bf16] launches {counts}")
+    rel_check(out16, dense.apply(F.double()), TOL_BF16,
+              "apply[bf16] vs f64 dense")
+    res16, counts = run_path("solve[jacobi] (a) [bf16]",
+                             lambda: plan_n16.solve(Y, "jacobi", **kw_a),
+                             tally=bf16_launches)
+    check({k: v for k, v in counts.items() if v} == {"jacobi_sweep": 1},
+          f"solve[jacobi] (a) [bf16] launches {counts}")
+    ref = GraphOperator(P=L_norm.double(), multipliers=ssl_mult, lmax=2.0,
+                        K=K).plan("dense").solve(Y.double(), "jacobi", **kw_a)
+    rel_check(res16.x, ref.x, TOL_BF16, "solve[jacobi] (a) [bf16] vs f64 dense")
+    del plan16, plan_n16, out16, res16, ref
+
     # -- Algorithm 3: the wavelet lasso ---------------------------------------
     gamma = lasso.ista_step_size(op)
     res, counts = run_path(
@@ -619,8 +815,58 @@ def main() -> int:
           f"{int(clear.sum())} vertices with a top-two gap > {PRED_MARGIN}; "
           f"accuracy on unlabeled {ssl.accuracy(res, labels, mask):.4f}")
     check(bool(agree.all()), "SSL predictions differ from float64 dense")
+    del res, ref
 
-    print(f"path launches (all counted runs): {path_launches}")
+    # -- the dense LM forward: starcoder2-3b, full width and depth -----------
+    t0 = time.perf_counter()
+    lm_gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = init_params(cfg, lm_gen, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (LM_B, LM_S), device=dev,
+                           generator=lm_gen)
+    torch.cuda.synchronize()
+    n_params = count_params(cfg)
+    print(f"lm: {LM_ARCH} {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{hq}/{hkv} heads of {hd}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, {n_params} parameters in {cfg.dtype} "
+          f"({time.perf_counter() - t0:.1f} s to draw on the card); "
+          f"B={LM_B} S={LM_S}")
+    check(cfg.n_layers == 30 and cfg.d_model == 3072 and hq == 24
+          and hkv == 2 and hd == 128, "starcoder2-3b at full width")
+    run_flash = RunConfig(attn_impl="flash")
+    logits, counts = run_path(
+        f"lm_forward[{LM_ARCH}, B={LM_B}, S={LM_S}]",
+        lambda: forward(cfg, params, tokens, run_flash))
+    check({k: v for k, v in counts.items() if v}
+          == {"flash_attention": cfg.n_layers},
+          f"the LM forward must be {cfg.n_layers} flash launches, got "
+          f"{counts}")
+    lm_row = path_rows[-1]
+    lm_row["tokens_per_s"] = LM_B * LM_S / (lm_row["steady_ms"] / 1e3)
+    print(f"  tokens/s {lm_row['tokens_per_s']:.1f} (steady)")
+    check(tuple(logits.shape) == (LM_B, LM_S, cfg.vocab_size)
+          and logits.dtype == torch.bfloat16, "logits shape / dtype")
+    loss = float(lm_loss(logits, tokens))
+    # the same forward with the kernel's plain f32 version as attention
+    with mock.patch.object(ops, "flash_attention", flash_attention_plain):
+        logits_ref = forward(cfg, params, tokens, run_flash)
+    loss_ref = float(lm_loss(logits_ref, tokens))
+    err, rel = rel_check(logits, logits_ref, TOL_LM_LOGITS,
+                         "LM logits vs the plain-attention forward")
+    print(f"  loss {loss:.6f} vs {loss_ref:.6f} (tol {TOL_LM_LOSS})")
+    check(math.isfinite(loss) and abs(loss - loss_ref) <= TOL_LM_LOSS,
+          f"LM loss {loss} vs {loss_ref}")
+    lm_row.update(logits_max_abs_err=err, logits_rel_err=rel, loss=loss,
+                  loss_ref=loss_ref)
+    lm_row["profile"] = device_breakdown(
+        lambda: forward(cfg, params, tokens, run_flash),
+        {"flash_attention": ("flash_attention_kernel",),
+         "matmul": ("gemm", "cutlass", "xmma", "nvjet")})
+    print(f"  device time by kernel group, one forward under torch.profiler "
+          f"(ms): {lm_row['profile']}")
+    del params, logits, logits_ref
+
+    print(f"path launches (all counted runs): {path_launches}; bf16 sweep "
+          f"paths: {bf16_launches}")
     check(all(v > 0 for v in path_launches.values()),
           "every kernel of the paths must launch")
     print(f"total {time.perf_counter() - t_start:.1f} s")
@@ -663,6 +909,18 @@ def main() -> int:
         row("ista_shrink", "ista_shrink.cu",
             "src/repro/kernels/soft_threshold.py:28", ist_rows["scale"],
             forms=ist_rows),
+        row("flash_attention", "flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:77", flash_rows["layer"],
+            checks=flash_rows),
+        dict(row("cheb_sweep", "cheb_sweep.cu",
+                 "src/repro/kernels/cheb_sweep.py:121",
+                 bf16_rows["cheb_sweep"], scratch_dtype="bf16"),
+             name="cheb_sweep_bf16", launches=bf16_launches["cheb_sweep"]),
+        dict(row("jacobi_sweep", "jacobi_sweep.cu",
+                 "src/repro/kernels/cheb_sweep.py:222",
+                 bf16_rows["jacobi_sweep"], scratch_dtype="bf16"),
+             name="jacobi_sweep_bf16",
+             launches=bf16_launches["jacobi_sweep"]),
     ]
     print(json.dumps({"paths": path_rows}))
     print(smi)

@@ -1,14 +1,15 @@
-"""Carry an operator's state across from numpy arrays.
+"""Carry state across from numpy arrays.
 
 The JAX package's operators hand out their state as arrays (P, the
-(eta, K+1) coefficient table, the Block-ELL structure).  These functions
-build the port's objects from exactly that state, so that both packages
-can be fed identical inputs: the coefficients are taken as given, never
-recomputed.
+(eta, K+1) coefficient table, the Block-ELL structure), and its LM its
+parameter tree.  These functions build the port's objects from exactly
+that state, so that both packages can be fed identical inputs: the
+coefficients are taken as given, never recomputed, and the weights are
+carried key by key.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence
+from typing import Callable, Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -60,3 +61,21 @@ def block_ell_from_numpy(blocks, indices, mask, n: int) -> BlockELL:
                             or int(indices.max()) >= ncb):
         raise ValueError(f"column-block indices outside [0, {ncb})")
     return BlockELL(blocks=blocks, indices=indices, mask=mask, n=int(n))
+
+
+def _tensor_from_numpy(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":   # ml_dtypes' bfloat16: same bits
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def lm_params_from_numpy(tree: Mapping) -> Dict:
+    """The port's LM parameter dict from a nested mapping of numpy arrays
+    (the JAX package's `init_params` tree after ``np.asarray``), key by
+    key, as host tensors of the same dtype; the JAX package's stacked
+    ``(L, ...)`` layout and key names are the port's own
+    (`models.params.abstract_params`)."""
+    return {key: (lm_params_from_numpy(val) if isinstance(val, Mapping)
+                  else _tensor_from_numpy(val))
+            for key, val in tree.items()}

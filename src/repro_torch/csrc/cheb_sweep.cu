@@ -35,7 +35,17 @@
 // order k belongs to t_{k-1}, which nobody writes in order k.  So three
 // (B, n) buffers — x (t_0, read only), U and V — rotate in place with ONE
 // barrier per order: t_1 -> U, t_2 -> V, then t_k -> buffer of t_{k-2}.
-// f32 throughout, plain FFMA (no TF32).
+// f32 mode: f32 throughout, plain FFMA (no TF32).
+//
+// bf16 mode (the JAX kernel's scratch_dtype="bf16"): x, the Block-ELL
+// blocks and the iterates U / V are bf16, the coefficient table and the
+// (B, eta, n) accumulator f32.  The SpMV widens each staged element to
+// f32 and sums in f32; each new iterate is computed in f32 from that sum
+// and the bf16 iterates and rounded once to bf16 where it is stored, and
+// the accumulator adds the stored (rounded) value.  The TPU kernel rounded
+// the SpMV product to bf16 in scratch as well and ran the update in bf16
+// arithmetic; here the product never leaves registers, so it is not
+// rounded on its own.  Same kernel template, T = __nv_bfloat16.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -45,13 +55,13 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-template <int NB>
+template <int NB, typename T>
 __global__ void __launch_bounds__(repro::kThreads)
-cheb_sweep_kernel(const float* __restrict__ blocks,
+cheb_sweep_kernel(const T* __restrict__ blocks,
                   const int* __restrict__ indices,
-                  const float* __restrict__ x,
+                  const T* __restrict__ x,
                   const float* __restrict__ coefT, float* __restrict__ acc,
-                  float* U, float* V, int nrb, int slots, int br, int bc,
+                  T* U, T* V, int nrb, int slots, int br, int bc,
                   long long n, int B, int K, int eta, float alpha) {
   extern __shared__ float smem[];
   cg::grid_group grid = cg::this_grid();
@@ -60,16 +70,16 @@ cheb_sweep_kernel(const float* __restrict__ blocks,
   const int n_tiles = (B + tb - 1) / tb;
   const long long items = static_cast<long long>(nrb) * n_tiles;
   const float two_over_alpha = 2.f / alpha;
-  const float* tm1 = x;        // t_{k-1}
-  const float* tm2 = nullptr;  // t_{k-2}
-  float* dst = U;              // where t_k goes
+  const T* tm1 = x;        // t_{k-1}
+  const T* tm2 = nullptr;  // t_{k-2}
+  T* dst = U;              // where t_k goes
   for (int k = 1; k <= K; ++k) {
     for (long long item = blockIdx.x; item < items; item += gridDim.x) {
       const int rb = static_cast<int>(item / n_tiles);
       const int b0 = static_cast<int>(item % n_tiles) * tb;
       float pt[NB];
-      repro::spmv_tile<NB>(blocks, indices, tm1, slots, br, bc, n, B, rb,
-                           b0, smem, pt);
+      repro::spmv_tile<NB, T, T>(blocks, indices, tm1, slots, br, bc, n, B,
+                                 rb, b0, smem, pt);
       const long long row = static_cast<long long>(rb) * br +
                             threadIdx.x % br;
       const float* ck = coefT + static_cast<long long>(k) * eta;
@@ -81,15 +91,19 @@ cheb_sweep_kernel(const float* __restrict__ blocks,
         float* a = acc + static_cast<long long>(b) * eta * n + row;
         if (k == 1) {
           // orders 0 and 1: acc = (c_0/2) x + c_1 t_1    (lines 4-5)
-          const float xv = x[off];
-          const float t1 = pt[i] / alpha - xv;
-          dst[off] = t1;
+          const float xv = repro::to_f32(x[off]);
+          const T t1s = repro::from_f32<T>(pt[i] / alpha - xv);
+          const float t1 = repro::to_f32(t1s);
+          dst[off] = t1s;
           for (int j = 0; j < eta; ++j)
             a[j * n] = 0.5f * coefT[j] * xv + ck[j] * t1;
         } else {
           // line 9, then the running sum of line 12
-          const float tk = two_over_alpha * pt[i] - 2.f * tm1[off] - tm2[off];
-          dst[off] = tk;
+          const T tks = repro::from_f32<T>(
+              two_over_alpha * pt[i] - 2.f * repro::to_f32(tm1[off]) -
+              repro::to_f32(tm2[off]));
+          const float tk = repro::to_f32(tks);
+          dst[off] = tks;
           for (int j = 0; j < eta; ++j) a[j * n] = a[j * n] + ck[j] * tk;
         }
       }
@@ -98,16 +112,16 @@ cheb_sweep_kernel(const float* __restrict__ blocks,
     grid.sync();  // t_k complete everywhere before order k+1 reads it
     // rotate: t_{k+1} goes into the buffer of t_{k-1} (V after order 1,
     // since t_0 is the read-only input x)
-    float* freed = (k == 1) ? V : const_cast<float*>(tm1);
+    T* freed = (k == 1) ? V : const_cast<T*>(tm1);
     tm2 = tm1;
     tm1 = dst;
     dst = freed;
   }
 }
 
-template <int NB>
-int launch(const float* blocks, const int* indices, const float* x,
-           const float* coefT, float* acc, float* U, float* V, int nrb,
+template <int NB, typename T>
+int launch(const T* blocks, const int* indices, const T* x,
+           const float* coefT, float* acc, T* U, T* V, int nrb,
            int slots, int br, int bc, long long n, int B, int K, int eta,
            float alpha, cudaStream_t stream, int* grid_out) {
   const int per_pass = repro::kThreads / br;
@@ -122,7 +136,7 @@ int launch(const float* blocks, const int* indices, const float* x,
   if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, cheb_sweep_kernel<NB>, repro::kThreads, smem);
+        &per_sm, cheb_sweep_kernel<NB, T>, repro::kThreads, smem);
   if (err == cudaSuccess && per_sm < 1)
     err = cudaErrorCooperativeLaunchTooLarge;
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -134,11 +148,34 @@ int launch(const float* blocks, const int* indices, const float* x,
   void* args[] = {&blocks, &indices, &x, &coefT, &acc, &U, &V, &nrb,
                   &slots, &br, &bc, &n, &B, &K, &eta, &alpha};
   err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(cheb_sweep_kernel<NB>),
+      reinterpret_cast<const void*>(cheb_sweep_kernel<NB, T>),
       dim3(static_cast<unsigned>(g)), dim3(repro::kThreads), args, smem,
       stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int sweep(const void* blocks, const void* indices, const void* x,
+          const void* coefT, void* acc, void* U, void* V, int nrb, int slots,
+          int br, int bc, int B, int K, int eta, float alpha, void* stream,
+          void* grid_out) {
+  const int per_pass = repro::kThreads / br;
+  const long long n = static_cast<long long>(nrb) * br;
+  auto* b = static_cast<const T*>(blocks);
+  auto* ix = static_cast<const int*>(indices);
+  auto* xx = static_cast<const T*>(x);
+  auto* c = static_cast<const float*>(coefT);
+  auto* a = static_cast<float*>(acc);
+  auto* u = static_cast<T*>(U);
+  auto* v = static_cast<T*>(V);
+  auto s = static_cast<cudaStream_t>(stream);
+  auto* g = static_cast<int*>(grid_out);
+  if (B > per_pass)
+    return launch<2>(b, ix, xx, c, a, u, v, nrb, slots, br, bc, n, B, K, eta,
+                     alpha, s, g);
+  return launch<1>(b, ix, xx, c, a, u, v, nrb, slots, br, bc, n, B, K, eta,
+                   alpha, s, g);
 }
 
 }  // namespace
@@ -150,30 +187,27 @@ const char* error_string(int err) {
 }
 
 // blocks (nrb, slots, br, bc), indices (nrb, slots), x (B, n) with
-// n = nrb * br = ncb * bc, coefT (K+1, eta), acc (B, eta, n) output,
-// U and V (B, n) scratch.  K >= 1.  Writes the grid size used to
-// *grid_out.  Returns the launch's cudaError_t: a cooperative launch the
-// card refuses is reported, never run partially or retried another way.
+// n = nrb * br = ncb * bc, coefT (K+1, eta) f32, acc (B, eta, n) f32
+// output, U and V (B, n) scratch.  blocks, x, U and V are f32 in
+// cheb_sweep_f32 and bf16 in cheb_sweep_bf16.  K >= 1.  Writes the grid
+// size used to *grid_out.  Returns the launch's cudaError_t: a
+// cooperative launch the card refuses is reported, never run partially or
+// retried another way.
 int cheb_sweep_f32(const void* blocks, const void* indices, const void* x,
                    const void* coefT, void* acc, void* U, void* V, int nrb,
                    int slots, int br, int bc, int B, int K, int eta,
                    float alpha, void* stream, void* grid_out) {
-  const int per_pass = repro::kThreads / br;
-  const long long n = static_cast<long long>(nrb) * br;
-  auto* b = static_cast<const float*>(blocks);
-  auto* ix = static_cast<const int*>(indices);
-  auto* xx = static_cast<const float*>(x);
-  auto* c = static_cast<const float*>(coefT);
-  auto* a = static_cast<float*>(acc);
-  auto* u = static_cast<float*>(U);
-  auto* v = static_cast<float*>(V);
-  auto s = static_cast<cudaStream_t>(stream);
-  auto* g = static_cast<int*>(grid_out);
-  if (B > per_pass)
-    return launch<2>(b, ix, xx, c, a, u, v, nrb, slots, br, bc, n, B, K, eta,
-                     alpha, s, g);
-  return launch<1>(b, ix, xx, c, a, u, v, nrb, slots, br, bc, n, B, K, eta,
-                   alpha, s, g);
+  return sweep<float>(blocks, indices, x, coefT, acc, U, V, nrb, slots, br,
+                      bc, B, K, eta, alpha, stream, grid_out);
+}
+
+int cheb_sweep_bf16(const void* blocks, const void* indices, const void* x,
+                    const void* coefT, void* acc, void* U, void* V, int nrb,
+                    int slots, int br, int bc, int B, int K, int eta,
+                    float alpha, void* stream, void* grid_out) {
+  return sweep<__nv_bfloat16>(blocks, indices, x, coefT, acc, U, V, nrb,
+                              slots, br, bc, B, K, eta, alpha, stream,
+                              grid_out);
 }
 
 }  // extern "C"

@@ -40,8 +40,18 @@
 // read-only input: round 0 writes U, round 1 writes V, then x_next always
 // lands where x_prev was).  One barrier after each SpMV step, i.e. deg(den)
 // per round; with deg(den) = 0 there is no SpMV and no barrier, since
-// every thread then only touches its own elements.  f32 throughout, plain
-// FFMA (no TF32).
+// every thread then only touches its own elements.  f32 mode: f32
+// throughout, plain FFMA (no TF32).
+//
+// bf16 mode (the JAX kernel's scratch_dtype="bf16"): the Block-ELL blocks
+// and the Horner buffers H0 / H1 are bf16; x (U / V, x0), b, D^-1, the
+// weight table and the update are f32.  Each Horner step sums its SpMV in
+// f32, adds den[D-m] x in f32 and rounds the partial sum once to bf16
+// (stored, or kept in a register by the last step); x_prev enters the
+// update rounded to bf16, as the TPU kernel kept it in bf16 scratch.  The
+// first SpMV reads x itself (h_0 = den[D] x is folded into it), so h_0 is
+// never rounded.  x_prev is the previous x, which the U / V rotation keeps
+// in f32 anyway: a separate bf16 copy would only add a buffer.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -51,15 +61,15 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-template <int NB>
+template <int NB, typename T>
 __global__ void __launch_bounds__(repro::kThreads)
-jacobi_sweep_kernel(const float* __restrict__ blocks,
+jacobi_sweep_kernel(const T* __restrict__ blocks,
                     const int* __restrict__ indices,
                     const float* __restrict__ rhs,
                     const float* __restrict__ inv_d, long long d_stride,
                     const float* __restrict__ x0,
                     const float* __restrict__ table, float* U, float* V,
-                    float* H0, float* H1, int nrb, int slots, int br, int bc,
+                    T* H0, T* H1, int nrb, int slots, int br, int bc,
                     long long n, int B, int n_iters, int D) {
   extern __shared__ float smem[];
   cg::grid_group grid = cg::this_grid();
@@ -74,19 +84,22 @@ jacobi_sweep_kernel(const float* __restrict__ blocks,
     const float* xp = t <= 1 ? x0 : ((t & 1) ? V : U);
     float* dst = (t & 1) ? V : U;      // == xp's buffer from round 2 on
     const float w = ws[2 * t], s = ws[2 * t + 1];
-    const float* src = x;              // what the next SpMV reads
+    const T* src = nullptr;            // the Horner buffer the SpMV reads
     for (int m = (D == 0 ? 0 : 1); m <= D; ++m) {
       const bool last = m == D;
-      float* hdst = (m & 1) ? H0 : H1;
+      T* hdst = (m & 1) ? H0 : H1;
       const float scale = m == 1 ? den[D] : 1.f;
       const float c = den[D - m];
       for (long long item = blockIdx.x; item < items; item += gridDim.x) {
         const int rb = static_cast<int>(item / n_tiles);
         const int b0 = static_cast<int>(item % n_tiles) * tb;
         float pt[NB];
-        if (D > 0)
-          repro::spmv_tile<NB>(blocks, indices, src, slots, br, bc, n, B,
-                               rb, b0, smem, pt);
+        if (m == 1)  // h_0 = den[D] x: the SpMV reads x
+          repro::spmv_tile<NB, T, float>(blocks, indices, x, slots, br, bc,
+                                         n, B, rb, b0, smem, pt);
+        else if (m > 1)
+          repro::spmv_tile<NB, T, T>(blocks, indices, src, slots, br, bc, n,
+                                     B, rb, b0, smem, pt);
         const long long row =
             static_cast<long long>(rb) * br + threadIdx.x % br;
 #pragma unroll
@@ -96,11 +109,13 @@ jacobi_sweep_kernel(const float* __restrict__ blocks,
           const long long off = b * n + row;
           const float xv = x[off];
           // Horner step m (with D = 0: h = den[0] x, no SpMV)
-          const float h = D > 0 ? scale * pt[i] + c * xv : c * xv;
+          const T hs = repro::from_f32<T>(D > 0 ? scale * pt[i] + c * xv
+                                                 : c * xv);
           if (!last) {
-            hdst[off] = h;
+            hdst[off] = hs;
           } else {
-            const float xpv = xp[off];
+            const float h = repro::to_f32(hs);
+            const float xpv = repro::round_to<T>(xp[off]);
             dst[off] = w * (xv + inv_d[b * d_stride + row] * (rhs[off] - h)) -
                        s * xpv;
           }
@@ -113,10 +128,10 @@ jacobi_sweep_kernel(const float* __restrict__ blocks,
   }
 }
 
-template <int NB>
-int launch(const float* blocks, const int* indices, const float* rhs,
+template <int NB, typename T>
+int launch(const T* blocks, const int* indices, const float* rhs,
            const float* inv_d, long long d_stride, const float* x0,
-           const float* table, float* U, float* V, float* H0, float* H1,
+           const float* table, float* U, float* V, T* H0, T* H1,
            int nrb, int slots, int br, int bc, long long n, int B,
            int n_iters, int D, cudaStream_t stream, int* grid_out) {
   const int per_pass = repro::kThreads / br;
@@ -131,7 +146,7 @@ int launch(const float* blocks, const int* indices, const float* rhs,
   if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, jacobi_sweep_kernel<NB>, repro::kThreads, smem);
+        &per_sm, jacobi_sweep_kernel<NB, T>, repro::kThreads, smem);
   if (err == cudaSuccess && per_sm < 1)
     err = cudaErrorCooperativeLaunchTooLarge;
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -144,11 +159,38 @@ int launch(const float* blocks, const int* indices, const float* rhs,
                   &table, &U, &V, &H0, &H1, &nrb, &slots, &br, &bc,
                   &n, &B, &n_iters, &D};
   err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(jacobi_sweep_kernel<NB>),
+      reinterpret_cast<const void*>(jacobi_sweep_kernel<NB, T>),
       dim3(static_cast<unsigned>(g)), dim3(repro::kThreads), args, smem,
       stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int sweep(const void* blocks, const void* indices, const void* rhs,
+          const void* inv_d, long long d_stride, const void* x0,
+          const void* table, void* U, void* V, void* H0, void* H1, int nrb,
+          int slots, int br, int bc, int B, int n_iters, int D, void* stream,
+          void* grid_out) {
+  const int per_pass = repro::kThreads / br;
+  const long long n = static_cast<long long>(nrb) * br;
+  auto* bl = static_cast<const T*>(blocks);
+  auto* ix = static_cast<const int*>(indices);
+  auto* r = static_cast<const float*>(rhs);
+  auto* d = static_cast<const float*>(inv_d);
+  auto* x = static_cast<const float*>(x0);
+  auto* tab = static_cast<const float*>(table);
+  auto* u = static_cast<float*>(U);
+  auto* v = static_cast<float*>(V);
+  auto* h0 = static_cast<T*>(H0);
+  auto* h1 = static_cast<T*>(H1);
+  auto s = static_cast<cudaStream_t>(stream);
+  auto* g = static_cast<int*>(grid_out);
+  if (B > per_pass)
+    return launch<2>(bl, ix, r, d, d_stride, x, tab, u, v, h0, h1, nrb,
+                     slots, br, bc, n, B, n_iters, D, s, g);
+  return launch<1>(bl, ix, r, d, d_stride, x, tab, u, v, h0, h1, nrb, slots,
+                   br, bc, n, B, n_iters, D, s, g);
 }
 
 }  // namespace
@@ -161,36 +203,33 @@ const char* error_string(int err) {
 
 // blocks (nrb, slots, br, bc), indices (nrb, slots), rhs and x0 (B, n)
 // with n = nrb * br = ncb * bc, inv_d (B, n) with d_stride = n or (n,) with
-// d_stride = 0, table = [den (D + 1), (w_t, s_t) (n_iters, 2)] f32, U, V,
-// H0, H1 (B, n) scratch.  n_iters >= 1.  After the launch x lives in U
-// when n_iters is odd and in V when it is even.  Writes the grid size used
-// to *grid_out.  Returns the launch's cudaError_t: a cooperative launch
-// the card refuses is reported, never run partially or retried another way.
+// d_stride = 0, table = [den (D + 1), (w_t, s_t) (n_iters, 2)] f32, U, V
+// (B, n) f32 scratch, H0, H1 (B, n) scratch.  blocks, H0 and H1 are f32 in
+// jacobi_sweep_f32 and bf16 in jacobi_sweep_bf16; everything else is f32
+// in both.  n_iters >= 1.  After the launch x lives in U when n_iters is
+// odd and in V when it is even.  Writes the grid size used to *grid_out.
+// Returns the launch's cudaError_t: a cooperative launch the card refuses
+// is reported, never run partially or retried another way.
 int jacobi_sweep_f32(const void* blocks, const void* indices,
                      const void* rhs, const void* inv_d, long long d_stride,
                      const void* x0, const void* table, void* U, void* V,
                      void* H0, void* H1, int nrb, int slots, int br, int bc,
                      int B, int n_iters, int D, void* stream,
                      void* grid_out) {
-  const int per_pass = repro::kThreads / br;
-  const long long n = static_cast<long long>(nrb) * br;
-  auto* bl = static_cast<const float*>(blocks);
-  auto* ix = static_cast<const int*>(indices);
-  auto* r = static_cast<const float*>(rhs);
-  auto* d = static_cast<const float*>(inv_d);
-  auto* x = static_cast<const float*>(x0);
-  auto* tab = static_cast<const float*>(table);
-  auto* u = static_cast<float*>(U);
-  auto* v = static_cast<float*>(V);
-  auto* h0 = static_cast<float*>(H0);
-  auto* h1 = static_cast<float*>(H1);
-  auto s = static_cast<cudaStream_t>(stream);
-  auto* g = static_cast<int*>(grid_out);
-  if (B > per_pass)
-    return launch<2>(bl, ix, r, d, d_stride, x, tab, u, v, h0, h1, nrb,
-                     slots, br, bc, n, B, n_iters, D, s, g);
-  return launch<1>(bl, ix, r, d, d_stride, x, tab, u, v, h0, h1, nrb, slots,
-                   br, bc, n, B, n_iters, D, s, g);
+  return sweep<float>(blocks, indices, rhs, inv_d, d_stride, x0, table, U,
+                      V, H0, H1, nrb, slots, br, bc, B, n_iters, D, stream,
+                      grid_out);
+}
+
+int jacobi_sweep_bf16(const void* blocks, const void* indices,
+                      const void* rhs, const void* inv_d, long long d_stride,
+                      const void* x0, const void* table, void* U, void* V,
+                      void* H0, void* H1, int nrb, int slots, int br, int bc,
+                      int B, int n_iters, int D, void* stream,
+                      void* grid_out) {
+  return sweep<__nv_bfloat16>(blocks, indices, rhs, inv_d, d_stride, x0,
+                              table, U, V, H0, H1, nrb, slots, br, bc, B,
+                              n_iters, D, stream, grid_out);
 }
 
 }  // extern "C"

@@ -8,12 +8,14 @@ in and cropped back to the logical N on the way out.  By default `apply`
 and `apply_gram` send the whole K-order recurrence to the single-launch
 `cheb_sweep` kernel, guarded by the L2 footprint model with a logged
 per-order fallback (``sweep=False`` / ``l2_budget=`` at plan time control
-it); `apply_adjoint` runs one batched SpMV launch per order.  The plan's
-matvec is tagged with its Block-ELL structure (``_mv.block_ell``) and its
-L2 budget, so that `ops.fused_cheb_recurrence` over it engages the sweep
-and `plan.solve`'s Jacobi methods reach `ops.fused_jacobi_sweep` (one
-`jacobi_sweep` launch per solve), as the JAX package's 'pallas' backend
-tags its own.
+it); `apply_adjoint` runs one batched SpMV launch per order.
+``sweep_dtype="bf16"`` runs both sweeps in their mixed-precision mode
+(bf16 blocks and iterates, f32 accumulation).  The plan's matvec is
+tagged with its Block-ELL structure (``_mv.block_ell``), its L2 budget
+and its sweep dtype, so that `ops.fused_cheb_recurrence` over it engages
+the sweep and `plan.solve`'s Jacobi methods reach
+`ops.fused_jacobi_sweep` (one `jacobi_sweep` launch per solve), as the
+JAX package's 'pallas' backend tags its own.
 
 On a CUDA device every kernel launches (or raises); with
 ``device="cpu"`` the same code runs the kernels' plain PyTorch versions.
@@ -27,7 +29,7 @@ import torch
 from ...core import chebyshev as cheb
 from ...core import graph as graphmod
 from ...kernels import ops
-from ...kernels.cheb_sweep import BF16_ROADMAP
+from ...kernels.cheb_sweep import check_scratch_dtype
 from . import register_backend, resolve_device
 
 Tensor = torch.Tensor
@@ -43,10 +45,8 @@ def build(op, *, mesh=None, partition=None, device=None,
     del mesh, partition  # single-device backend
     if options:
         raise TypeError(f"cuda backend takes no options {sorted(options)}")
-    if sweep_dtype == "bf16":
-        raise NotImplementedError(BF16_ROADMAP)
-    if sweep_dtype not in (None, "f32"):
-        raise ValueError(f"sweep_dtype must be 'f32', got {sweep_dtype!r}")
+    sweep_dtype = sweep_dtype or "f32"
+    check_scratch_dtype(sweep_dtype)
     if callable(op.P):
         raise ValueError("cuda backend needs a dense P to build Block-ELL")
     dev = resolve_device(device)
@@ -71,10 +71,12 @@ def build(op, *, mesh=None, partition=None, device=None,
         # Jacobi methods take the single-launch sweeps
         _mv.block_ell = A
         _mv.l2_budget = l2_budget
+        _mv.sweep_dtype = sweep_dtype
 
     def apply(f) -> Tensor:
         out = ops.fused_cheb_apply(A, _pad(f), coeffs, lmax, sweep=sweep,
-                                   l2_budget=l2_budget)
+                                   l2_budget=l2_budget,
+                                   scratch_dtype=sweep_dtype)
         return out[..., :n]
 
     def apply_adjoint(a) -> Tensor:
@@ -84,7 +86,8 @@ def build(op, *, mesh=None, partition=None, device=None,
     def apply_gram(f) -> Tensor:
         d = cheb.gram_coeffs(coeffs)
         out = ops.fused_cheb_apply(A, _pad(f), d[None], lmax, sweep=sweep,
-                                   l2_budget=l2_budget)
+                                   l2_budget=l2_budget,
+                                   scratch_dtype=sweep_dtype)
         return out[..., 0, :n]
 
     def matvec_runner(fn, signals, consts=()):
@@ -105,8 +108,9 @@ def build(op, *, mesh=None, partition=None, device=None,
             "padded_n": total,
             "nnz_blocks": nnz_blocks,
             "flops_per_matvec": nnz_blocks * 2 * block[0] * block[1],
-            "sweep_dtype": "f32",
-            "sweep_l2_bytes": ops.cheb_sweep_l2_bytes(total, op.eta),
+            "sweep_dtype": sweep_dtype,
+            "sweep_l2_bytes": ops.cheb_sweep_l2_bytes(
+                total, op.eta, scratch_dtype=sweep_dtype),
             "sweep_l2_budget": (ops.DEFAULT_SWEEP_L2_BUDGET
                                 if l2_budget is None else l2_budget),
             "block_ell": A,

@@ -38,7 +38,9 @@ Single-launch fast path: a runner matvec tagged with ``mv.block_ell`` (the
 `cuda` backend's Block-ELL product) collapses a whole Jacobi /
 accelerated-Jacobi solve into ONE `jacobi_sweep` kernel launch (the
 Chebyshev method rides the same upgrade inside `ops.fused_cheb_recurrence`),
-guarded by the L2 footprint model with a logged per-round fallback.  The
+guarded by the L2 footprint model with a logged per-round fallback; a
+plan built with ``sweep_dtype="bf16"`` runs it in the sweep's bf16 mode,
+as the JAX package's `solve` passes its matvec's ``sweep_dtype``.  The
 JAX package also fell back when rounds x deg(den) exceeded 256 SpMVs,
 because its TPU kernel unrolled the Horner chain at trace time; the CUDA
 kernel loops at run time, so the port has no such unroll budget.
@@ -242,7 +244,7 @@ def _with_budget(mv, l2_budget):
     """Re-tag a runner matvec with a per-solve sweep L2 budget.
 
     The single-launch paths read the ``mv.block_ell`` / ``mv.l2_budget``
-    tags (see `kernels.ops.fused_cheb_recurrence`); a per-call
+    / ``mv.sweep_dtype`` tags (see `kernels.ops.fused_cheb_recurrence`); a per-call
     ``l2_budget=`` must reach them *without* mutating the backend's shared
     matvec object, so wrap the callable and stamp the override on the
     wrapper.  No-op for untagged matvecs.
@@ -255,6 +257,7 @@ def _with_budget(mv, l2_budget):
 
     wrapped.block_ell = mv.block_ell
     wrapped.l2_budget = int(l2_budget)
+    wrapped.sweep_dtype = getattr(mv, "sweep_dtype", None)
     return wrapped
 
 
@@ -579,7 +582,8 @@ def _solve_jacobi(plan, runner, y, num, den, K, method, rho, den_diag, x0,
                   if method == "cheb_jacobi" else _jacobi.jacobi_weights(K))
             return kops.fused_jacobi_sweep(
                 A_local, b, inv_dl, den, ws, x0=x0l,
-                l2_budget=getattr(mv, "l2_budget", None))
+                l2_budget=getattr(mv, "l2_budget", None),
+                scratch_dtype=getattr(mv, "sweep_dtype", None))
 
         a_mv = _poly_matvec_protocol(mv, den)
         if method == "jacobi":

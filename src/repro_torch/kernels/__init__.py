@@ -4,8 +4,9 @@ from . import ops
 from .bcsr_spmv import block_ell_spmv
 from .cheb_step import cheb_step
 from .cheb_sweep import cheb_sweep, jacobi_sweep
+from .flash_attention import flash_attention
 from .jacobi_step import jacobi_step
 from .soft_threshold import ista_shrink
 
 __all__ = ["ops", "block_ell_spmv", "cheb_step", "cheb_sweep",
-           "ista_shrink", "jacobi_step", "jacobi_sweep"]
+           "flash_attention", "ista_shrink", "jacobi_step", "jacobi_sweep"]

@@ -4,8 +4,9 @@ Everything above this module — the `cuda` execution backend, the solvers,
 the lasso, the tests, ``chip_smoke.py`` — calls these functions; the
 kernel wrappers (`bcsr_spmv.block_ell_spmv`, `cheb_step.cheb_step`,
 `cheb_sweep.cheb_sweep`, `cheb_sweep.jacobi_sweep`,
-`jacobi_step.jacobi_step`, `soft_threshold.ista_shrink`) pick the CUDA
-kernel for a CUDA tensor and their plain PyTorch version for a CPU tensor.
+`jacobi_step.jacobi_step`, `soft_threshold.ista_shrink`,
+`flash_attention.flash_attention`) pick the CUDA kernel for a CUDA tensor
+and their plain PyTorch version for a CPU tensor.
 
 Single-launch sweep dispatch: a matvec tagged with ``mv.block_ell = A``
 (a local Block-ELL product) routes the whole K-order loop of
@@ -16,7 +17,10 @@ takes the per-order path (one SpMV launch and one `cheb_step` launch per
 order), logged at INFO.  `plan.solve`'s Jacobi methods take the same
 route to :func:`fused_jacobi_sweep` (one `jacobi_sweep` launch per solve,
 guarded by :func:`jacobi_sweep_l2_bytes`, with a logged per-round
-fallback).
+fallback).  Both sweeps take the JAX package's ``scratch_dtype="bf16"``
+mode (a matvec tagged ``mv.sweep_dtype = "bf16"``); the guards count its
+bf16 buffers at 2 bytes, and over budget the fallback is the f32
+per-order (per-round) path, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -30,7 +34,9 @@ from ..core.chebyshev import _stateful_matvec
 from ..core.graph import BlockELL
 from .bcsr_spmv import block_ell_spmv
 from .cheb_step import cheb_step
-from .cheb_sweep import BF16_ROADMAP, cheb_sweep, jacobi_sweep
+from .cheb_sweep import check_scratch_dtype, cheb_sweep, jacobi_sweep
+# the LM's attn_impl="flash" (models.layers.attention) calls it from here
+from .flash_attention import flash_attention  # noqa: F401
 from .jacobi_step import jacobi_step
 from .soft_threshold import ista_shrink
 
@@ -52,8 +58,17 @@ def spmv(A: BlockELL, x: Tensor) -> Tensor:
     return block_ell_spmv(A.blocks, A.indices, x)
 
 
+def _scratch_itemsize(scratch_dtype: Optional[str], itemsize: int) -> int:
+    """Bytes per element of a sweep's scratch buffers: 2 under the bf16
+    mode, the wide `itemsize` otherwise (the JAX package's
+    `_scratch_itemsize`)."""
+    check_scratch_dtype(scratch_dtype or "f32")
+    return 2 if scratch_dtype == "bf16" else itemsize
+
+
 def cheb_sweep_l2_bytes(n: int, eta: int, batch: int = 1,
-                        itemsize: int = 4) -> int:
+                        itemsize: int = 4,
+                        scratch_dtype: Optional[str] = None) -> int:
     """L2 footprint model for one `cheb_sweep` launch on Hopper.
 
     The sweep keeps nothing on chip across its grid barriers: the iterates
@@ -63,14 +78,17 @@ def cheb_sweep_l2_bytes(n: int, eta: int, batch: int = 1,
     t_k) and the (B, eta, n) accumulator that every order reads and
     writes back:
 
-        (3 + eta) * B * n * itemsize bytes.
+        3 * B * n * s + eta * B * n * itemsize bytes,
 
-    The Block-ELL blocks stream through once per order either way and are
-    not counted.  When the working set fits in the 50 MiB L2
-    (:data:`DEFAULT_SWEEP_L2_BUDGET`), orders after the first find it on
-    chip.
+    with s the scratch width (2 under ``scratch_dtype="bf16"``, else
+    `itemsize`; the accumulator stays wide) — the iterate term of the JAX
+    package's `cheb_sweep_vmem_bytes`.  The Block-ELL blocks stream
+    through once per order either way and are not counted.  When the
+    working set fits in the 50 MiB L2 (:data:`DEFAULT_SWEEP_L2_BUDGET`),
+    orders after the first find it on chip.
     """
-    return (3 + eta) * batch * n * itemsize
+    sb = _scratch_itemsize(scratch_dtype, itemsize)
+    return 3 * batch * n * sb + eta * batch * n * itemsize
 
 
 def _per_order_cheb(A: BlockELL, x: Tensor, coeffs, lmax: float) -> Tensor:
@@ -94,12 +112,12 @@ def fused_cheb_sweep(
     :func:`cheb_sweep_l2_bytes` against `l2_budget` (default
     :data:`DEFAULT_SWEEP_L2_BUDGET`): a working set over the budget takes
     the per-order path, logged at INFO.  K < 2 takes the per-order path
-    too (there is no recurrence to fuse).
+    too (there is no recurrence to fuse).  scratch_dtype: None / "f32" or
+    "bf16", the sweep's mixed-precision mode; the guard counts its bf16
+    buffers at 2 bytes, and the per-order fallback is f32.
     """
-    if scratch_dtype not in (None, "f32"):
-        if scratch_dtype == "bf16":
-            raise NotImplementedError(BF16_ROADMAP)
-        raise ValueError(f"scratch_dtype must be 'f32', got {scratch_dtype!r}")
+    sdt = scratch_dtype or "f32"
+    check_scratch_dtype(sdt)
     c = np.atleast_2d(np.asarray(coeffs))
     eta, K1 = c.shape
     K = K1 - 1
@@ -108,7 +126,8 @@ def fused_cheb_sweep(
     budget = DEFAULT_SWEEP_L2_BUDGET if l2_budget is None else int(l2_budget)
     n = x.shape[-1]
     batch = max(1, x.numel() // n)
-    need = cheb_sweep_l2_bytes(n, eta, batch, x.element_size())
+    need = cheb_sweep_l2_bytes(n, eta, batch, x.element_size(),
+                               scratch_dtype=sdt)
     if need > budget:
         logger.info(
             "cheb_sweep: L2 working set %d B exceeds budget %d B "
@@ -116,7 +135,7 @@ def fused_cheb_sweep(
             "cheb_step path", need, budget, n, eta, K, batch)
         return _per_order_cheb(A, x, c, lmax)
     return cheb_sweep(A.blocks, A.indices, x.contiguous(), c,
-                      alpha=float(lmax) / 2.0)
+                      alpha=float(lmax) / 2.0, scratch_dtype=sdt)
 
 
 def fused_cheb_recurrence(matvec, x: Tensor, coeffs, lmax: float) -> Tensor:
@@ -125,7 +144,9 @@ def fused_cheb_recurrence(matvec, x: Tensor, coeffs, lmax: float) -> Tensor:
     A matvec tagged with ``mv.block_ell = A`` (a purely local Block-ELL
     product) routes the whole loop to :func:`fused_cheb_sweep`, padding x
     to A's size and cropping the result; an optional ``mv.l2_budget``
-    overrides the sweep budget.  Any other matvec runs the per-order loop.
+    overrides the sweep budget and an optional ``mv.sweep_dtype``
+    ("bf16") selects the sweep's mixed-precision mode.  Any other matvec
+    runs the per-order loop.
 
     x: (..., n); coeffs: (eta, K+1) (or (K+1,), treated as eta=1).
     Returns (..., eta, n).
@@ -135,7 +156,8 @@ def fused_cheb_recurrence(matvec, x: Tensor, coeffs, lmax: float) -> Tensor:
         n_logical = x.shape[-1]
         out = fused_cheb_sweep(
             A_local, pad_trailing(x, A_local.padded_n), coeffs, lmax,
-            l2_budget=getattr(matvec, "l2_budget", None))
+            l2_budget=getattr(matvec, "l2_budget", None),
+            scratch_dtype=getattr(matvec, "sweep_dtype", None))
         return out[..., :n_logical]
     return _cheb_recurrence_loop(matvec, x, coeffs, lmax)
 
@@ -185,7 +207,8 @@ def fused_cheb_apply(
     sweep: None (default) routes through the single-launch
     :func:`fused_cheb_sweep` (which guards on the L2 budget and falls
     back to the per-order path); False forces the per-order SpMV +
-    `cheb_step` loop.
+    `cheb_step` loop.  scratch_dtype: the sweep's mixed-precision mode
+    ("bf16"), ignored on the per-order path.
     """
     if sweep is None or sweep:
         return fused_cheb_sweep(A, x, coeffs, lmax, l2_budget=l2_budget,
@@ -207,7 +230,8 @@ def jacobi_update(qx: Tensor, x: Tensor, x_prev: Tensor, y: Tensor,
     return jacobi_step(qx, x, x_prev, y, inv_d, w=w, s=s)
 
 
-def jacobi_sweep_l2_bytes(n: int, batch: int = 1, itemsize: int = 4) -> int:
+def jacobi_sweep_l2_bytes(n: int, batch: int = 1, itemsize: int = 4,
+                          scratch_dtype: Optional[str] = None) -> int:
     """L2 footprint model for one `jacobi_sweep` launch on Hopper.
 
     The counterpart of the JAX package's `jacobi_sweep_vmem_bytes`: what
@@ -215,12 +239,18 @@ def jacobi_sweep_l2_bytes(n: int, batch: int = 1, itemsize: int = 4) -> int:
     the two Horner buffers (h and the SpMV product q), the right-hand
     side b and D^{-1}:
 
-        6 * B * n * itemsize bytes.
+        (4 * itemsize + 2 * s) * B * n bytes,
 
-    The Block-ELL blocks stream through once per SpMV either way and are
-    not counted, as in :func:`cheb_sweep_l2_bytes`.
+    with s the scratch width of the two Horner buffers (2 under
+    ``scratch_dtype="bf16"``, else `itemsize`).  x_prev counts at the
+    wide `itemsize` in both modes: the kernel keeps it in the f32 buffer
+    of the previous x and rounds it to bf16 as it reads it, where the JAX
+    kernel held a bf16 copy (its model has 3 * s + 3 * itemsize).  The
+    Block-ELL blocks stream through once per SpMV either way and are not
+    counted, as in :func:`cheb_sweep_l2_bytes`.
     """
-    return 6 * batch * n * itemsize
+    sb = _scratch_itemsize(scratch_dtype, itemsize)
+    return (4 * itemsize + 2 * sb) * batch * n
 
 
 def _per_round_jacobi(A: BlockELL, b: Tensor, inv_d: Tensor, den, ws,
@@ -246,6 +276,7 @@ def fused_jacobi_sweep(
     *,
     x0: Optional[Tensor] = None,
     l2_budget: Optional[int] = None,
+    scratch_dtype: Optional[str] = None,
 ) -> Tensor:
     """Whole (accelerated-)Jacobi solve of den(P) x = b, one launch.
 
@@ -258,8 +289,11 @@ def fused_jacobi_sweep(
     `cheb_jacobi_weights`).  Guarded by :func:`jacobi_sweep_l2_bytes`
     against `l2_budget` (default :data:`DEFAULT_SWEEP_L2_BUDGET`): a
     working set over the budget takes the per-round path (SpMV and
-    `jacobi_step` launches), logged at INFO.
+    `jacobi_step` launches, f32), logged at INFO.  scratch_dtype: None /
+    "f32" or "bf16", the sweep's mixed-precision mode.
     """
+    sdt = scratch_dtype or "f32"
+    check_scratch_dtype(sdt)
     n_logical = b.shape[-1]
     total = A.padded_n
     bp = pad_trailing(b, total)
@@ -269,7 +303,8 @@ def fused_jacobi_sweep(
     ws = np.asarray(weights, dtype=np.float64)
     budget = DEFAULT_SWEEP_L2_BUDGET if l2_budget is None else int(l2_budget)
     batch = max(1, torch.broadcast_shapes(bp.shape, x0p.shape)[:-1].numel())
-    need = jacobi_sweep_l2_bytes(total, batch, bp.element_size())
+    need = jacobi_sweep_l2_bytes(total, batch, bp.element_size(),
+                                 scratch_dtype=sdt)
     if need > budget:
         logger.info(
             "jacobi_sweep: L2 working set %d B exceeds budget %d B "
@@ -277,7 +312,8 @@ def fused_jacobi_sweep(
             "path", need, budget, total, batch)
         out = _per_round_jacobi(A, bp, invdp, den, ws, x0p)
     else:
-        out = jacobi_sweep(A.blocks, A.indices, bp, invdp, ws, x0p, den=den)
+        out = jacobi_sweep(A.blocks, A.indices, bp, invdp, ws, x0p, den=den,
+                           scratch_dtype=sdt)
     return out[..., :n_logical]
 
 

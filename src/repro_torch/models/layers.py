@@ -1,0 +1,162 @@
+"""Neural primitives of the dense LM forward: norms, rotary embeddings,
+FFNs and attention (the JAX package's `models/layers.py`).
+
+Attention has the JAX package's three implementations: 'ref'
+(materialised logits), 'chunked' (a loop over query chunks) and 'flash'
+(the hand-written kernel, `kernels.ops.flash_attention`), chosen by
+:func:`attention` under the JAX package's exact conditions.  Tensors keep
+its layouts: activations (B, S, D), heads (B, H, S, hd).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from ..kernels import ops as kops
+
+Tensor = torch.Tensor
+
+_NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+def rms_norm(x: Tensor, scale: Tensor, eps: float = 1e-6) -> Tensor:
+    dt = x.dtype
+    x = x.float()
+    var = (x * x).mean(-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps) * scale.float()).to(dt)
+
+
+def layer_norm(x: Tensor, scale: Tensor, bias: Tensor,
+               eps: float = 1e-5) -> Tensor:
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(-1, keepdim=True)
+    var = x.var(-1, keepdim=True, unbiased=False)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+def rope_freqs(head_dim: int, theta: float = 10_000.0,
+               device=None) -> Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: Tensor, positions: Tensor,
+               theta: float = 10_000.0) -> Tensor:
+    """x: (B, H, S, hd); positions: (B, S) absolute token positions."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, device=x.device)              # (d/2,)
+    ang = positions[:, None, :, None].float() * freqs           # (B,1,S,d/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention math
+# ---------------------------------------------------------------------------
+def _window_mask(rows: Tensor, cols: Tensor, causal: bool,
+                 window: int) -> Tensor:
+    ok = torch.ones(torch.broadcast_shapes(rows.shape, cols.shape),
+                    dtype=torch.bool, device=rows.device)
+    if causal:
+        ok = ok & (cols <= rows)
+    if window > 0:
+        ok = ok & (cols > rows - window)
+    return ok
+
+
+def attention_ref(q, k, v, *, causal=True, window=0, scale=None,
+                  kv_valid: Optional[Tensor] = None) -> Tensor:
+    """Materialised-logits attention; q (B, Hq, Sq, hd), k / v
+    (B, Hkv, Sk, hd).  The causal mask is bottom-right aligned (row i of
+    the queries is position Sk - Sq + i).  Products take the operands in
+    their storage dtype with f32 accumulation (here: operands widened to
+    f32, which is exact, then an f32 product), the probabilities are cast
+    to v's dtype before P V, and the output to q's dtype.
+    kv_valid: optional (B, Sk) bool mask of valid key slots."""
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    group = hq // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    qg = q.reshape(b, hkv, group, sq, d).to(k.dtype).float()
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * scale
+    dev = q.device
+    rows = (torch.arange(sk - sq, sk, device=dev) if causal
+            else torch.arange(sq, device=dev))[:, None]
+    cols = torch.arange(sk, device=dev)[None, :]
+    mask = _window_mask(rows, cols, causal, window)
+    if kv_valid is not None:
+        mask = (mask[None] & kv_valid[:, None, :])[:, None, None]
+    s = torch.where(mask, s, torch.full_like(s, _NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", p.to(v.dtype).float(), v.float())
+    return out.reshape(b, hq, sq, v.shape[-1]).to(q.dtype)
+
+
+def attention_chunked(q, k, v, *, causal=True, window=0, scale=None,
+                      chunk: int = 1024) -> Tensor:
+    """A loop over query chunks: working set O(chunk * Sk) instead of
+    O(Sq * Sk), f32 throughout, causal mask top-left aligned per chunk
+    (as the JAX package's scan).  Short or non-chunk-multiple sequences
+    take :func:`attention_ref`."""
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    if sq <= chunk or sq % chunk != 0:
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             scale=scale)
+    group = hq // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    kf, vf = k.float(), v.float()
+    cols = torch.arange(sk, device=q.device)[None, :]
+    qg = q.reshape(b, hkv, group, sq, d)
+    outs = []
+    for i in range(sq // chunk):
+        qi = qg[..., i * chunk:(i + 1) * chunk, :].float()
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qi, kf) * scale
+        rows = i * chunk + torch.arange(chunk, device=q.device)[:, None]
+        mask = _window_mask(rows, cols, causal, window)
+        s = torch.where(mask, s, torch.full_like(s, _NEG_INF))
+        p = torch.softmax(s, dim=-1)
+        outs.append(torch.einsum("bhgqk,bhkd->bhgqd", p, vf).to(q.dtype))
+    return torch.cat(outs, dim=-2).reshape(b, hq, sq, v.shape[-1])
+
+
+def attention(q, k, v, *, impl="chunked", causal=True, window=0, scale=None,
+              chunk: int = 1024, kv_valid=None) -> Tensor:
+    """The JAX package's dispatch rule: the flash kernel for
+    ``impl="flash"`` with no window, no kv_valid mask and equal q / v head
+    dims; the chunked loop for ``impl="chunked"`` without kv_valid; the
+    materialised reference otherwise."""
+    if (impl == "flash" and window == 0 and kv_valid is None
+            and q.shape[-1] == v.shape[-1]):
+        return kops.flash_attention(q, k, v, causal=causal, scale=scale)
+    if impl == "chunked" and kv_valid is None:
+        return attention_chunked(q, k, v, causal=causal, window=window,
+                                 scale=scale, chunk=chunk)
+    return attention_ref(q, k, v, causal=causal, window=window, scale=scale,
+                         kv_valid=kv_valid)
+
+
+# ---------------------------------------------------------------------------
+# FFNs
+# ---------------------------------------------------------------------------
+def ffn_swiglu(x, w_gate, w_up, w_down):
+    h = torch.nn.functional.silu(x @ w_gate) * (x @ w_up)
+    return h @ w_down
+
+
+def ffn_gelu(x, w_in, b_in, w_out, b_out):
+    h = torch.nn.functional.gelu(x @ w_in + b_in, approximate="tanh")
+    return h @ w_out + b_out

@@ -1,6 +1,7 @@
 """Card-only tests: each Hopper kernel against its plain PyTorch version on
 a CUDA device, and the main path, the Section-V solvers, the lasso and SSL
-against float64 dense.
+against float64 dense; the flash-attention kernel and the reduced dense LM
+forward through it; the bf16 instances of the two sweeps.
 
 They carry the `gpu` marker and skip without a card (decided inside the
 `cuda` fixture, never at import).  The machine with the card has no JAX,
@@ -14,6 +15,11 @@ Tolerances: the kernels redo the plain versions' f32 arithmetic in another
 summation order — 1e-5 relative for the SpMV, 1e-6 for the elementwise
 kernels (Chebyshev step, Jacobi step, ISTA shrink), 1e-4 for the sweeps
 (9 orders, or up to 20 Jacobi rounds) and for every path against float64.
+Flash attention against its plain version: 2e-5 in f32 and 2e-2 in bf16
+(the JAX package's kernel tolerances, tests/test_kernels.py:69).  The
+bf16 sweeps against their plain bf16 versions: 3e-2 (the JAX package's
+bf16 sweep tolerance; the same roundings, which may fall differently
+where the f32 sums run in another order).
 """
 import numpy as np
 import pytest
@@ -25,14 +31,18 @@ from repro_torch.core import jacobi as tjacobi
 from repro_torch.core import lasso as tlasso
 from repro_torch.core import ssl as tssl
 from repro_torch.core import wavelets as twav
+from repro_torch.configs import get_config
 from repro_torch.dist import METHODS, GraphOperator
 from repro_torch.kernels.bcsr_spmv import block_ell_spmv, block_ell_spmv_plain
 from repro_torch.kernels.cheb_step import cheb_step, cheb_step_plain
 from repro_torch.kernels.cheb_sweep import (cheb_sweep, cheb_sweep_plain,
                                             jacobi_sweep, jacobi_sweep_plain)
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
 from repro_torch.kernels.jacobi_step import jacobi_step, jacobi_step_plain
 from repro_torch.kernels.soft_threshold import (ista_shrink,
                                                 ista_shrink_plain)
+from repro_torch.models import RunConfig, forward, init_params, lm_loss
 
 pytestmark = pytest.mark.gpu
 
@@ -251,3 +261,130 @@ def test_lasso_and_ssl_match_float64_dense(solver_graph):
                                         device="cuda")
     assert _rel(res.scores.double(), ref.scores) < 1e-4
     assert tssl.accuracy(res, labels, mask) > 0.8
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d", [
+    (1, 2, 2, 128, 128, 64), (2, 4, 2, 256, 256, 64), (1, 8, 1, 256, 256, 128),
+    (2, 4, 2, 100, 100, 16), (1, 6, 3, 1000, 1000, 32), (1, 4, 1, 64, 300, 128),
+    (2, 24, 2, 512, 512, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(cuda, b, hq, hkv, sq, sk, d,
+                                              causal, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn(b, hq, sq, d, generator=gen, device=cuda).to(dtype)
+    k = torch.randn(b, hkv, sk, d, generator=gen, device=cuda).to(dtype)
+    v = torch.randn(b, hkv, sk, d, generator=gen, device=cuda).to(dtype)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    want = flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_flash_attention_kernel_reads_strided_heads(cuda):
+    """The (B, S, H, hd) views of a fused projection reach the kernel
+    without a copy and give the contiguous result."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    qkv = torch.randn(2, 200, (8 + 2 * 2) * 64, generator=gen, device=cuda)
+    q = qkv[..., :512].view(2, 200, 8, 64).transpose(1, 2)
+    k = qkv[..., 512:640].view(2, 200, 2, 64).transpose(1, 2)
+    v = qkv[..., 640:].view(2, 200, 2, 64).transpose(1, 2)
+    got = flash_attention(q, k, v, causal=True, scale=0.1)
+    want = flash_attention_plain(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), causal=True, scale=0.1)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-3b", "deepseek-7b"])
+def test_reduced_lm_forward_through_flash_kernel(cuda, arch):
+    """Two reduced layers in f32: one kernel launch per layer, logits
+    within 1e-4 of the same forward through the plain chunked attention."""
+    cfg = get_config(arch).reduced()
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 200), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    before = flash_attention.launches
+    got = forward(cfg, params, toks, RunConfig("flash"))
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + cfg.n_layers
+    want = forward(cfg, params, toks, RunConfig("ref"))
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    assert abs(float(lm_loss(got, toks)) - float(lm_loss(want, toks))) < 1e-4
+
+
+@pytest.mark.parametrize("batch_shape", [(), (64,), (2, 3), (128,)])
+def test_cheb_sweep_bf16_kernel_matches_plain(structure, batch_shape):
+    At, lmax = structure
+    gen = torch.Generator(device=At.device).manual_seed(2)
+    x = torch.randn(batch_shape + (At.padded_n,), generator=gen,
+                    device=At.device)
+    coeffs = np.random.RandomState(0).randn(3, 10)
+    before = cheb_sweep.launches
+    got = cheb_sweep(At.blocks, At.indices, x, coeffs, alpha=lmax / 2,
+                     scratch_dtype="bf16")
+    want = cheb_sweep_plain(At.blocks, At.indices, x, coeffs, alpha=lmax / 2,
+                            scratch_dtype="bf16")
+    torch.cuda.synchronize()
+    assert cheb_sweep.launches == before + 1
+    assert got.dtype == torch.float32
+    assert _rel(got, want) < 3e-2
+    f32 = cheb_sweep_plain(At.blocks, At.indices, x, coeffs, alpha=lmax / 2)
+    assert _rel(got, f32) < 3e-2
+
+
+@pytest.mark.parametrize("den", [(0.5,), (0.5, 1.0), (0.5, 0.0, 1.0)])
+@pytest.mark.parametrize("batch_shape", [(), (64,)])
+def test_jacobi_sweep_bf16_kernel_matches_plain(cuda, batch_shape, den):
+    g = tgraph.connected_sensor_graph(np.random.RandomState(1), n=500,
+                                      theta=0.075, kappa=0.075)
+    Ln = g.laplacian("normalized")
+    At = tgraph.to_block_ell(Ln, (8, 128)).to(cuda)
+    n = At.padded_n
+    P = Ln.double()
+    d = sum(c * torch.linalg.matrix_power(P, m).diagonal()
+            for m, c in enumerate(den))
+    inv_d = torch.zeros(n, device=cuda)
+    inv_d[:500] = (1.0 / d).float()
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    b = torch.randn(batch_shape + (n,), generator=gen, device=cuda)
+    b[..., 500:] = 0
+    x0 = torch.zeros_like(b)
+    ws = tjacobi.cheb_jacobi_weights(0.9, 10)
+    before = jacobi_sweep.launches
+    got = jacobi_sweep(At.blocks, At.indices, b, inv_d, ws, x0, den=den,
+                       scratch_dtype="bf16")
+    want = jacobi_sweep_plain(At.blocks, At.indices, b, inv_d, ws, x0,
+                              den=den, scratch_dtype="bf16")
+    torch.cuda.synchronize()
+    assert jacobi_sweep.launches == before + 1
+    assert _rel(got, want) < 3e-2
+
+
+def test_bf16_plan_matches_float64_dense(solver_graph):
+    """plan("cuda", sweep_dtype="bf16"): apply and the Jacobi solve within
+    3e-2 of float64 dense, each one bf16 sweep launch."""
+    L, lmax = solver_graph.laplacian(), solver_graph.lambda_max_bound()
+    op = twav.sgwt_operator(L, lmax, J=6, K=20)
+    dense = GraphOperator(P=L.double(), multipliers=op.multipliers,
+                          lmax=lmax, K=20).plan("dense", device="cuda")
+    plan = op.plan("cuda", sweep_dtype="bf16")
+    F = torch.randn(64, 1000, device="cuda")
+    before = cheb_sweep.launches
+    got = plan.apply(F)
+    assert cheb_sweep.launches == before + 1
+    assert _rel(got.double(), dense.apply(F.double())) < 3e-2
+    Ln = solver_graph.laplacian("normalized")
+    mult = [tfilters.ssl_multiplier(tfilters.power_kernel(1), 0.5)]
+    kw = dict(tau=0.5, r=1, n_iters=20)
+    before = jacobi_sweep.launches
+    got = GraphOperator(P=Ln, multipliers=mult, lmax=2.0, K=20).plan(
+        "cuda", sweep_dtype="bf16").solve(F, "jacobi", **kw)
+    assert jacobi_sweep.launches == before + 1
+    want = GraphOperator(P=Ln.double(), multipliers=mult, lmax=2.0,
+                         K=20).plan("dense", device="cuda").solve(
+        F.double(), "jacobi", **kw)
+    assert _rel(got.x.double(), want.x) < 3e-2

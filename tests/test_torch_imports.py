@@ -29,7 +29,13 @@ def test_port_files_found():
                    "core/ssl.py", "dist/solvers.py",
                    "kernels/jacobi_step.py", "kernels/soft_threshold.py"):
         assert f"src/repro_torch/{module}" in names, module
-    assert len(names) >= 27
+    # the dense LM forward and the flash kernel
+    for module in ("kernels/flash_attention.py", "configs/base.py",
+                   "configs/__init__.py", "configs/starcoder2_3b.py",
+                   "models/params.py", "models/layers.py", "models/model.py",
+                   "models/steps.py"):
+        assert f"src/repro_torch/{module}" in names, module
+    assert len(names) >= 39
 
 
 @pytest.mark.parametrize("path", FILES,

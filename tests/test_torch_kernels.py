@@ -137,14 +137,24 @@ def test_wrappers_raise_on_devices_they_do_not_take(block_ell_500):
 
 
 def test_bf16_sweep_names_its_roadmap_item(block_ell_500):
-    _, At, lmax = block_ell_500
-    x = torch.zeros(At.padded_n)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cheb_sweep(At.blocks, At.indices, x, np.ones((1, 4)), alpha=1.0,
-                   scratch_dtype="bf16")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.fused_cheb_sweep(At, x, np.ones((1, 4)), lmax,
-                             scratch_dtype="bf16")
+    """The bf16 sweep mode (ROADMAP queue 2, items 2 and 4) is ported: the
+    wrapper and the dispatch give the same bf16 result, within the JAX
+    package's bf16 tolerance (3e-2 of the max, tests/test_sweep.py:135)
+    of the f32 oracle, over the batch shapes of this file.  The fuller
+    bf16 parity tests are in tests/test_torch_bf16_sweep.py."""
+    A, At, lmax = block_ell_500
+    coeffs = np.random.RandomState(0).randn(ETA, K + 1).astype(np.float32)
+    for i, shape in enumerate(BATCH_SHAPES):
+        x = _randn(20 + i, shape + (At.padded_n,))
+        want = np.asarray(jref.cheb_sweep_ref(
+            A.blocks, A.indices, jnp.asarray(x), jnp.asarray(coeffs),
+            alpha=lmax / 2))
+        got = cheb_sweep(At.blocks, At.indices, torch.from_numpy(x), coeffs,
+                         alpha=lmax / 2, scratch_dtype="bf16")
+        via_ops = ops.fused_cheb_sweep(At, torch.from_numpy(x), coeffs, lmax,
+                                       scratch_dtype="bf16")
+        assert torch.equal(got, via_ops)
+        assert np.abs(got.numpy() - want).max() / np.abs(want).max() < 3e-2
 
 
 def test_l2_guard_model_and_smoke_shape():
