@@ -8,7 +8,10 @@ Run from the root of a checkout on a machine with a CUDA card.  It
 1. builds every CUDA kernel of the port from ``src/repro_torch/csrc``;
 2. holds each kernel against its plain PyTorch version on the card, at
    the shapes of the paths below, and times both (plus one PyTorch library
-   call computing the same product, where there is one);
+   call computing the same product, where there is one): the sliced-ELL
+   SpMV at B = 1, 64 and 448 (also against the Block-ELL plain version on
+   the same P), the Chebyshev and Jacobi steps, both sweeps, the ISTA
+   shrink and both flash-attention kernels;
 3. drives the main path — ``GraphOperator(...).plan("cuda")`` `apply`,
    `apply_adjoint`, `apply_gram` and the ``sweep=False`` apply — on the
    Section IV-D random sensor network at n = 16384 sensors, the SGWT union
@@ -32,21 +35,25 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    depth (30 layers, d_model 3072, 24 query and 2 KV heads of 128) on
    B = 2 sequences of S = 4096 tokens in bf16, weights drawn from a
    seeded torch.Generator, with ``RunConfig(attn_impl="flash")``: one
-   flash-attention launch per layer.  Its logits and loss are held against
-   the same forward whose attention is the kernel's plain f32 version, and
-   the kernel against its plain version at the layer shape, at a small
-   f32 shape and at a ragged S = 1000; `scaled_dot_product_attention` is
-   timed beside it as the library yardstick (the port never calls it);
+   launch of the bf16 tensor-core flash kernel per layer.  Its logits and
+   loss are held against the same forward whose attention is the plain
+   f32 version; a reduced f32 forward (two layers, S = 1000) takes the
+   FFMA flash kernel and is held against the materialised attention.
+   The tensor-core kernel is held against its plain version at the layer
+   shape and a ragged S = 1000, the FFMA kernel at a small and a ragged
+   f32 shape; `scaled_dot_product_attention` is timed beside each as the
+   library yardstick (the port never calls it);
 8. shows through the kernels' launch counters that every path ran through
    its kernels: each path is driven once with the counts set to 0 just
    before it and read just after.
 
 Kernel times are CUDA events around back-to-back calls of each wrapper
 (``ms``) and, where torch.profiler traces the card, the device time per
-launch (``device_ms``).  It prints one JSON line ``{"paths": [...]}``, the
-card's name and power limit, one JSON line ``{"kernels": [...]}`` and,
-last, ``{"ok": true, "device": {...}}``.  Any failed check
-raises and exits non-zero without the last line.  It needs no network,
+launch (``device_ms``; for a library call, ``library_device_ms``, the
+device time of all its kernels).  It prints one JSON line
+``{"paths": [...]}``, the card's name and power limit, one JSON line
+``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
+Any failed check raises and exits non-zero without the last line.  It needs no network,
 imports nothing of JAX, and has no CPU fallback: without a card (or
 outside a checkout) it exits with code 2.
 """
@@ -105,6 +112,9 @@ TOL_FLASH = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # A mask or head-mapping fault moves the logits by O(1).
 TOL_LM_LOGITS = 5e-2     # max |d logits| / max |logits|
 TOL_LM_LOSS = 1e-2       # |d loss| (the loss is ~ln 49152 = 10.8)
+# The reduced f32 forward against the same forward through the
+# materialised attention: f32 sums in another order over two layers.
+TOL_LM_F32 = 1e-4
 # H100 SXM bf16 tensor-core peak (dense): the bound of bf16 work.
 PEAK_BF16_FLOPS = 989e12
 # Per-round final iterate vs the sweep's (the same f32 arithmetic, P h
@@ -172,6 +182,30 @@ def device_ms(fn, iters: int, kernel: str):
     total = sum(getattr(e, "device_time_total", 0.0) for e in rows)
     count = sum(e.count for e in rows)
     return total / count / 1e3 if count and total > 0 else None
+
+
+def all_device_ms(fn, iters: int):
+    """Mean device time per call of every CUDA kernel that `fn` launches,
+    from a torch.profiler trace of `iters` calls: the library yardsticks,
+    whose kernels' names are the library's.  None when the trace holds no
+    device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA)
+    except (RuntimeError, AssertionError) as exc:  # cannot trace the card
+        print(f"profiler: no trace: {exc}")
+        return None
+    return total / iters / 1e3 if total > 0 else None
 
 
 def device_breakdown(fn, groups):
@@ -245,15 +279,16 @@ def main() -> int:
     from repro_torch.core import filters, graph, jacobi, lasso, ssl, wavelets
     from repro_torch.dist import METHODS, GraphOperator
     from repro_torch.kernels import _build, ops
-    from repro_torch.kernels.bcsr_spmv import (block_ell_spmv,
-                                               block_ell_spmv_plain)
+    from repro_torch.kernels.bcsr_spmv import (block_ell_spmv_plain,
+                                               sliced_ell_spmv,
+                                               sliced_ell_spmv_plain)
     from repro_torch.configs import get_config
     from repro_torch.kernels.cheb_step import cheb_step, cheb_step_plain
     from repro_torch.kernels.cheb_sweep import (cheb_sweep, cheb_sweep_plain,
                                                 jacobi_sweep,
                                                 jacobi_sweep_plain)
-    from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_plain)
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_ffma, flash_attention_plain, flash_attention_wgmma)
     from repro_torch.kernels.jacobi_step import jacobi_step, jacobi_step_plain
     from repro_torch.kernels.soft_threshold import (ista_shrink,
                                                     ista_shrink_plain)
@@ -287,6 +322,7 @@ def main() -> int:
     plan = op.plan("cuda")
     plan_po = op.plan("cuda", sweep=False)
     A = plan.info["block_ell"]
+    SL = A.sliced
     eta = op.eta
     nrb, slots, br, bc = A.blocks.shape
     nnz = int((A.blocks != 0).sum())
@@ -303,6 +339,13 @@ def main() -> int:
           f"{A.blocks.numel() * 4 / 2**20:.1f} MiB of blocks, "
           f"nnz={nnz}, fill={fill:.4f}; L_norm: "
           f"{A_n.blocks.shape[1]} slots, nnz={nnz_n}")
+    print(f"sliced-ell: {SL.n_slices} slices of 32 rows, {SL.stored} stored "
+          f"entries, stored_per_nnz={SL.stored_per_nnz:.4f} (Block-ELL "
+          f"{A.blocks.numel() / nnz:.2f}), "
+          f"{SL.stored * 8 / 2**20:.2f} MiB of values and columns; "
+          f"plan.info stored_per_nnz={plan.info['stored_per_nnz']:.4f}")
+    check(SL.nnz == nnz and plan.info["flops_per_matvec"] == 2 * SL.stored,
+          "the sliced-ELL layout must hold every non-zero")
     check(op.K == K and eta == J + 1, "operator shape")
     check(A_n.blocks.shape == A.blocks.shape
           and bool(torch.equal(A_n.indices, A.indices)),
@@ -320,30 +363,39 @@ def main() -> int:
     # -- kernel phases: each kernel against its plain version ----------------
     L_csr = L.to(dev).to_sparse_csr()
     spmv_rows = {}
-    for B in (1, BATCH):
+    for B in (1, BATCH, BATCH * eta):      # 448: the adjoint's streams
         x = randn(B, N)
         xt = x.t().contiguous()
-        got = block_ell_spmv(A.blocks, A.indices, x)
-        want = block_ell_spmv_plain(A.blocks, A.indices, x)
+        got = sliced_ell_spmv(SL, x)
+        want = sliced_ell_spmv_plain(SL, x)
+        want_bell = block_ell_spmv_plain(A.blocks, A.indices, x)
         torch.cuda.synchronize()
         err, rel = rel_err(got, want)
-        check(rel <= TOL_SPMV, f"block_ell_spmv B={B}: rel err {rel:.3e}")
-        ms = time_ms(lambda: block_ell_spmv(A.blocks, A.indices, x), 20)
-        plain_ms = time_ms(
-            lambda: block_ell_spmv_plain(A.blocks, A.indices, x), 5)
+        err_bell, rel_bell = rel_err(got, want_bell)
+        check(max(rel, rel_bell) <= TOL_SPMV,
+              f"sliced_ell_spmv B={B}: rel err {rel:.3e} (plain), "
+              f"{rel_bell:.3e} (Block-ELL plain)")
+        del want, want_bell
+        ms = time_ms(lambda: sliced_ell_spmv(SL, x), 20)
+        plain_ms = time_ms(lambda: sliced_ell_spmv_plain(SL, x), 5)
         lib_ms = time_ms(lambda: torch.sparse.mm(L_csr, xt), 20)
-        dev_ms = device_ms(lambda: block_ell_spmv(A.blocks, A.indices, x),
-                           20, "block_ell_spmv_kernel")
+        dev_ms = device_ms(lambda: sliced_ell_spmv(SL, x), 20,
+                           "sliced_ell_spmv_kernel")
+        lib_dev = all_device_ms(lambda: torch.sparse.mm(L_csr, xt), 20)
         b_ms, b_by = bound(nnz * 8 + 2 * B * N * 4, 2 * nnz * B)
-        spmv_rows[B] = dict(max_abs_err=err, rel_err=rel, ms=ms,
+        spmv_rows[B] = dict(max_abs_err=err, rel_err=rel,
+                            max_abs_err_vs_block_ell=err_bell, ms=ms,
                             plain_ms=plain_ms, library_ms=lib_ms,
-                            bound_ms=b_ms, bound_by=b_by, device_ms=dev_ms)
-        print(f"kernel block_ell_spmv B={B}: max_abs_err={err:.3e} "
-              f"rel={rel:.3e} (tol {TOL_SPMV}) ms={ms:.4f} "
-              f"device_ms={dev_ms} plain_ms={plain_ms:.4f} "
+                            library_device_ms=lib_dev, bound_ms=b_ms,
+                            bound_by=b_by, device_ms=dev_ms)
+        print(f"kernel sliced_ell_spmv B={B}: max_abs_err={err:.3e} "
+              f"rel={rel:.3e} vs Block-ELL plain {err_bell:.3e} "
+              f"(tol {TOL_SPMV}) ms={ms:.4f} device_ms={dev_ms} "
+              f"plain_ms={plain_ms:.4f} "
               f"library_ms(torch.sparse.mm CSR)={lib_ms:.4f} "
-              f"bound_ms={b_ms:.5f} ({b_by})")
-    del L_csr
+              f"library_device_ms={lib_dev} bound_ms={b_ms:.5f} ({b_by}) "
+              f"stored_per_nnz={SL.stored_per_nnz:.4f}")
+    del L_csr, x, xt, got
 
     pt, t1, t2 = randn(BATCH, N), randn(BATCH, N), randn(BATCH, N)
     acc = randn(BATCH, eta, N)
@@ -551,64 +603,82 @@ def main() -> int:
               f"bound_ms={b_ms:.5f} ({b_by}) grid={grid()} blocks")
     del bj, x0j, sweep_cases, got, want, x
 
-    # flash attention at the LM layer shape (bf16), a small f32 shape and
-    # a ragged S, each against its plain version
+    # flash attention: the tensor-core kernel at the LM layer shape and a
+    # ragged S (bf16), the FFMA kernel at a small and a ragged f32 shape,
+    # each against its plain version; each kernel timed at one of them
     cfg = get_config(LM_ARCH)
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     flash_cases = {
-        "layer": (LM_B, hq, hkv, LM_S, hd, torch.bfloat16),
-        "small_f32": (2, 4, 2, 256, 64, torch.float32),
-        "ragged_f32": (1, hq, hkv, 1000, hd, torch.float32),
+        "layer": (LM_B, hq, hkv, LM_S, hd, torch.bfloat16,
+                  flash_attention_wgmma),
+        "ragged_bf16": (1, hq, hkv, 1000, hd, torch.bfloat16,
+                        flash_attention_wgmma),
+        "small_f32": (2, 4, 2, 256, 64, torch.float32, flash_attention_ffma),
+        "ragged_f32": (1, hq, hkv, 1000, hd, torch.float32,
+                       flash_attention_ffma),
     }
+    timed = {"layer": ("flash_attention_wgmma_kernel", PEAK_BF16_FLOPS),
+             "ragged_f32": ("flash_attention_kernel", PEAK_F32_FLOPS)}
     flash_rows = {}
-    for case, (b, h1, h2, S, d, dt) in flash_cases.items():
+    for case, (b, h1, h2, S, d, dt, kern) in flash_cases.items():
         q = randn(b, h1, S, d).to(dt)
         k, v = randn(b, h2, S, d).to(dt), randn(b, h2, S, d).to(dt)
-        got = flash_attention(q, k, v, causal=True)
+        before = kern.launches
+        got = kern(q, k, v, causal=True)
         want = flash_attention_plain(q, k, v, causal=True)
         torch.cuda.synchronize()
+        check(kern.launches == before + 1, f"{kern.__name__} {case} did not "
+              f"launch")
         tol = TOL_FLASH[dt]
         err, rel = rel_err(got, want)
         excess = float(((got.float() - want.float()).abs()
                         - tol * want.float().abs()).max())
         check(got.dtype == dt and excess <= tol,
-              f"flash_attention {case}: |err| - rtol |ref| = {excess:.3e} "
+              f"{kern.__name__} {case}: |err| - rtol |ref| = {excess:.3e} "
               f"> atol {tol}")
-        row = dict(shape=[b, h1, h2, S, d], dtype=str(dt).split(".")[-1],
-                   max_abs_err=err, rel_err=rel, tol=tol)
-        msg = (f"kernel flash_attention {case} (B, Hq, Hkv, S, D)="
+        row = dict(kernel=kern.__name__, shape=[b, h1, h2, S, d],
+                   dtype=str(dt).split(".")[-1], max_abs_err=err,
+                   rel_err=rel, tol=tol)
+        msg = (f"kernel {kern.__name__} {case} (B, Hq, Hkv, S, D)="
                f"{(b, h1, h2, S, d)} {row['dtype']} causal: max_abs_err="
                f"{err:.3e} (atol = rtol = {tol})")
-        if case == "layer":
-            def call(q=q, k=k, v=v):
-                return flash_attention(q, k, v, causal=True)
+        if case in timed:
+            kname, peak = timed[case]
+
+            def call(q=q, k=k, v=v, kern=kern):
+                return kern(q, k, v, causal=True)
+
+            def sdpa(q=q, k=k, v=v):
+                return torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True)
 
             ms = time_ms(call, 10)
-            dev_ms = device_ms(call, 5, "flash_attention_kernel")
+            dev_ms = device_ms(call, 5, kname)
             plain_ms = time_ms(lambda: flash_attention_plain(q, k, v), 3,
                                warmup=1)
-            lib_ms = time_ms(lambda: torch.nn.functional
-                             .scaled_dot_product_attention(
-                                 q, k, v, is_causal=True, enable_gqa=True), 10)
+            lib_ms = time_ms(sdpa, 10)
+            lib_dev = all_device_ms(sdpa, 5)
             pairs = S * (S + 1) // 2           # causal (row, col) pairs
             flops = 4 * b * h1 * d * pairs
-            nbytes = 2 * (2 * b * h1 * S * d + 2 * b * h2 * S * d)
-            b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
-            f32_ms = bound(nbytes, flops)[0]
+            nbytes = q.element_size() * (2 * b * h1 * S * d
+                                         + 2 * b * h2 * S * d)
+            b_ms, b_by = bound(nbytes, flops, peak)
             row.update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                       library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                       bound_f32_ms=f32_ms, flops=flops, bytes=nbytes)
+                       library_ms=lib_ms, library_device_ms=lib_dev,
+                       bound_ms=b_ms, bound_by=b_by, flops=flops,
+                       bytes=nbytes)
             msg += (f" ms={ms:.4f} device_ms={dev_ms} plain_ms={plain_ms:.4f}"
                     f" library_ms(scaled_dot_product_attention)={lib_ms:.4f}"
-                    f" bound_ms={b_ms:.5f} ({b_by}, bf16 tensor peak) "
-                    f"bound_f32_ms={f32_ms:.5f} (CUDA-core f32 peak)")
+                    f" library_device_ms={lib_dev} bound_ms={b_ms:.5f} "
+                    f"({b_by}, {row['dtype']} peak)")
         flash_rows[case] = row
         print(msg)
     del q, k, v, got, want
 
     # -- counted paths ----------------------------------------------------------
-    counters = (block_ell_spmv, cheb_step, cheb_sweep, jacobi_step,
-                jacobi_sweep, ista_shrink, flash_attention)
+    counters = (sliced_ell_spmv, cheb_step, cheb_sweep, jacobi_step,
+                jacobi_sweep, ista_shrink, flash_attention_wgmma,
+                flash_attention_ffma)
     names = [k.__name__ for k in counters]
     path_launches = dict.fromkeys(names, 0)
     bf16_launches = dict.fromkeys(names, 0)   # the bf16 sweep paths
@@ -656,10 +726,10 @@ def main() -> int:
     check(calls["apply_gram"]["cheb_sweep"] == 1
           and sum(calls["apply_gram"].values()) == 1,
           "apply_gram must be one sweep")
-    check(calls["apply_adjoint"]["block_ell_spmv"] == K
+    check(calls["apply_adjoint"]["sliced_ell_spmv"] == K
           and sum(calls["apply_adjoint"].values()) == K,
           "apply_adjoint must be K SpMV launches")
-    check(calls["apply[sweep=False]"]["block_ell_spmv"] == K
+    check(calls["apply[sweep=False]"]["sliced_ell_spmv"] == K
           and calls["apply[sweep=False]"]["cheb_step"] == K - 1,
           "the per-order apply must be K SpMV and K-1 step launches")
 
@@ -697,7 +767,7 @@ def main() -> int:
     expect = {"jacobi": {"jacobi_sweep": 1},
               "cheb_jacobi": {"jacobi_sweep": 1},
               "chebyshev": {"cheb_sweep": 1},
-              "arma": {"block_ell_spmv": ROUNDS_A}}
+              "arma": {"sliced_ell_spmv": ROUNDS_A}}
     kw_a = dict(tau=TAU, r=1, n_iters=ROUNDS_A)
     solved = {}
     for method in METHODS:
@@ -720,7 +790,7 @@ def main() -> int:
         "solve[jacobi, history=True] (a)",
         lambda: plan_n.solve(Y, "jacobi", history=True, **kw_a))
     check(counts["jacobi_step"] == ROUNDS_A
-          and counts["block_ell_spmv"] == ROUNDS_A
+          and counts["sliced_ell_spmv"] == ROUNDS_A
           and counts["jacobi_sweep"] == 0,
           f"the per-round path must be {ROUNDS_A} jacobi_step and SpMV "
           f"launches, got {counts}")
@@ -782,7 +852,7 @@ def main() -> int:
         steady_iters=1)
     check(counts["ista_shrink"] == LASSO_ITERS
           and counts["cheb_sweep"] == LASSO_ITERS + 1
-          and counts["block_ell_spmv"] == (LASSO_ITERS + 1) * K,
+          and counts["sliced_ell_spmv"] == (LASSO_ITERS + 1) * K,
           f"solve_lasso launches {counts}")
     ref = dense.solve_lasso(Y.double(), MU, gamma=gamma, n_iters=LASSO_ITERS)
     print(f"  gamma={gamma:.6f}, non-zero coefficients "
@@ -837,9 +907,9 @@ def main() -> int:
         f"lm_forward[{LM_ARCH}, B={LM_B}, S={LM_S}]",
         lambda: forward(cfg, params, tokens, run_flash))
     check({k: v for k, v in counts.items() if v}
-          == {"flash_attention": cfg.n_layers},
-          f"the LM forward must be {cfg.n_layers} flash launches, got "
-          f"{counts}")
+          == {"flash_attention_wgmma": cfg.n_layers},
+          f"the LM forward must be {cfg.n_layers} tensor-core flash "
+          f"launches, got {counts}")
     lm_row = path_rows[-1]
     lm_row["tokens_per_s"] = LM_B * LM_S / (lm_row["steady_ms"] / 1e3)
     print(f"  tokens/s {lm_row['tokens_per_s']:.1f} (steady)")
@@ -859,11 +929,30 @@ def main() -> int:
                   loss_ref=loss_ref)
     lm_row["profile"] = device_breakdown(
         lambda: forward(cfg, params, tokens, run_flash),
-        {"flash_attention": ("flash_attention_kernel",),
+        {"flash_attention": ("flash_attention_wgmma_kernel",),
          "matmul": ("gemm", "cutlass", "xmma", "nvjet")})
     print(f"  device time by kernel group, one forward under torch.profiler "
           f"(ms): {lm_row['profile']}")
     del params, logits, logits_ref
+
+    # the f32 forward takes the FFMA kernel: starcoder2-3b reduced to two
+    # layers of four heads of 16 (f32), B = 2, a ragged S = 1000, held
+    # against the same forward through the materialised attention
+    cfg32 = cfg.reduced()
+    gen32 = torch.Generator(device=dev).manual_seed(SEED)
+    params32 = init_params(cfg32, gen32, device=dev)
+    toks32 = torch.randint(0, cfg32.vocab_size, (LM_B, 1000), device=dev,
+                           generator=gen32)
+    logits32, counts = run_path(
+        f"lm_forward[{LM_ARCH} reduced, f32, B={LM_B}, S=1000]",
+        lambda: forward(cfg32, params32, toks32, run_flash))
+    check({k: v for k, v in counts.items() if v}
+          == {"flash_attention_ffma": cfg32.n_layers},
+          f"the f32 forward must be {cfg32.n_layers} FFMA flash launches, "
+          f"got {counts}")
+    rel_check(logits32, forward(cfg32, params32, toks32, RunConfig("ref")),
+              TOL_LM_F32, "f32 LM logits vs the materialised attention")
+    del params32, logits32
 
     print(f"path launches (all counted runs): {path_launches}; bf16 sweep "
           f"paths: {bf16_launches}")
@@ -873,7 +962,6 @@ def main() -> int:
 
     # -- the records ----------------------------------------------------------
     s64 = spmv_rows[BATCH]
-    s1 = spmv_rows[1]
 
     def row(name, source, replaces, r, **extra):
         return {"name": name, "route": "cuda",
@@ -892,10 +980,11 @@ def main() -> int:
                      bound_ms=sweep_b[0], bound_by=sweep_b[1],
                      device_ms=sweep_dev)
     kernels = [
-        row("block_ell_spmv", "block_ell_spmv.cu",
+        row("sliced_ell_spmv", "sliced_ell_spmv.cu",
             "src/repro/kernels/bcsr_spmv.py:106", s64,
             also_replaces="src/repro/kernels/bcsr_spmv.py:56",
-            batch=BATCH, b1=s1),
+            batch=BATCH, stored_per_nnz=SL.stored_per_nnz,
+            b1=spmv_rows[1], b448=spmv_rows[BATCH * eta]),
         row("cheb_step", "cheb_step.cu", "src/repro/kernels/cheb_step.py:66",
             step_row),
         row("cheb_sweep", "cheb_sweep.cu",
@@ -909,9 +998,15 @@ def main() -> int:
         row("ista_shrink", "ista_shrink.cu",
             "src/repro/kernels/soft_threshold.py:28", ist_rows["scale"],
             forms=ist_rows),
-        row("flash_attention", "flash_attention.cu",
+        row("flash_attention_wgmma", "flash_attention.cu",
             "src/repro/kernels/flash_attention.py:77", flash_rows["layer"],
-            checks=flash_rows),
+            checks={k: v for k, v in flash_rows.items()
+                    if v["kernel"] == "flash_attention_wgmma"}),
+        row("flash_attention_ffma", "flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:77",
+            flash_rows["ragged_f32"],
+            checks={k: v for k, v in flash_rows.items()
+                    if v["kernel"] == "flash_attention_ffma"}),
         dict(row("cheb_sweep", "cheb_sweep.cu",
                  "src/repro/kernels/cheb_sweep.py:121",
                  bf16_rows["cheb_sweep"], scratch_dtype="bf16"),

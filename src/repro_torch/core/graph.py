@@ -9,8 +9,10 @@ Section IV-D.
 Weight matrices and Laplacians are dense float32 torch tensors on the
 host.  Block-ELL packing (`to_block_ell`) stays host numpy, vectorised so
 that n = 16384 packs in seconds; its output is bitwise equal to the JAX
-package's loop.  The sensor-network generator builds W in row chunks, so
-a large n never holds n^2 float64 temporaries.
+package's loop.  The sliced-ELL row layout (`to_sliced_ell`) that the
+card's SpMV reads is packed the same way, beside the Block-ELL.  The
+sensor-network generator builds W in row chunks, so a large n never
+holds n^2 float64 temporaries.
 """
 from __future__ import annotations
 
@@ -201,12 +203,16 @@ class BlockELL:
                padded slots hold zero blocks at column block 0
       mask:    (n_row_blocks, max_slots) bool slot validity
       n:       logical (unpadded) dimension
+      sliced:  the same matrix in the sliced-ELL layout at `padded_n`, which
+               the SpMV reads (:meth:`sliced_ell` packs it on first use)
     """
 
     blocks: Tensor
     indices: Tensor
     mask: Tensor
     n: int
+    sliced: Optional["SlicedELL"] = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     @property
     def block_shape(self) -> Tuple[int, int]:
@@ -231,7 +237,18 @@ class BlockELL:
     def to(self, device) -> "BlockELL":
         return BlockELL(blocks=self.blocks.to(device),
                         indices=self.indices.to(device),
-                        mask=self.mask.to(device), n=self.n)
+                        mask=self.mask.to(device), n=self.n,
+                        sliced=(None if self.sliced is None
+                                else self.sliced.to(device)))
+
+    def sliced_ell(self) -> "SlicedELL":
+        """The sliced-ELL form of this matrix on its device.  Packed from the
+        blocks on the host the first time it is asked for and kept (the
+        one field that is filled in after construction: a cache)."""
+        if self.sliced is None:
+            S = to_sliced_ell(self).to(self.device)
+            object.__setattr__(self, "sliced", S)
+        return self.sliced
 
 
 def to_block_ell(
@@ -271,6 +288,159 @@ def to_block_ell(
     return BlockELL(blocks=torch.from_numpy(blocks),
                     indices=torch.from_numpy(indices),
                     mask=torch.from_numpy(mask), n=n)
+
+
+# ---------------------------------------------------------------------------
+# Sliced-ELL row layout (the card's SpMV)
+# ---------------------------------------------------------------------------
+#: Rows per slice: one warp's 32 lanes, one row each.
+SLICE_ROWS = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class SlicedELL:
+    """Sparse matrix in slices of 32 rows, each as wide as its widest row.
+
+    Slice s holds its rows' entries slot-major from ``offsets[s]``: slot j
+    of lane r (row ``32 s + r``) sits at ``offsets[s] + 32 j + r``, so one
+    slot of a slice is 32 consecutive values and 32 consecutive columns.
+    A row's entries keep increasing column order; the slots past a row's
+    last entry hold value 0 at the row's own index (in bounds; the lanes
+    past `padded_n` in a last, partly filled slice point at column 0).
+
+      values:  (stored,) float32, the matrix's exact values
+      columns: (stored,) int32 column per entry
+      offsets: (n_slices,) int32 first entry of each slice (multiples of 32)
+      widths:  (n_slices,) int32 slots of each slice
+      n:       logical dimension; rows and columns run to `padded_n`, the
+               rows past n empty; n_slices = ceil(padded_n / 32)
+      nnz:     non-zeros stored (the rest of `stored` is padding)
+    """
+
+    values: Tensor
+    columns: Tensor
+    offsets: Tensor
+    widths: Tensor
+    n: int
+    padded_n: int
+    nnz: int
+
+    @property
+    def n_slices(self) -> int:
+        return self.widths.shape[0]
+
+    @property
+    def stored(self) -> int:
+        """Entries the SpMV reads and multiplies, padding included."""
+        return self.values.shape[0]
+
+    @property
+    def stored_per_nnz(self) -> float:
+        return self.stored / max(self.nnz, 1)
+
+    @property
+    def device(self) -> torch.device:
+        return self.values.device
+
+    def __repr__(self) -> str:
+        return (f"SlicedELL(n={self.n}, padded_n={self.padded_n}, "
+                f"nnz={self.nnz}, stored={self.stored}, "
+                f"device={self.device})")
+
+    def to(self, device) -> "SlicedELL":
+        return dataclasses.replace(
+            self, values=self.values.to(device),
+            columns=self.columns.to(device), offsets=self.offsets.to(device),
+            widths=self.widths.to(device))
+
+    def entry_rows(self) -> Tensor:
+        """(stored,) int64 row of every entry."""
+        slices = torch.repeat_interleave(
+            torch.arange(self.n_slices, device=self.device),
+            self.widths.long() * SLICE_ROWS)
+        lanes = torch.arange(self.stored, device=self.device) % SLICE_ROWS
+        return slices * SLICE_ROWS + lanes
+
+
+def _coo_rows(M: np.ndarray, chunk: int = 2048):
+    """(rows, cols, vals) of the non-zeros of a dense matrix, row-major, a
+    chunk of rows at a time."""
+    parts = []
+    for r0 in range(0, M.shape[0], chunk):
+        r, c = np.nonzero(M[r0:r0 + chunk])
+        parts.append((r + r0, c, M[r0 + r, c]))
+    if not parts:
+        return (np.zeros(0, np.int64),) * 2 + (np.zeros(0, M.dtype),)
+    return tuple(np.concatenate(p) for p in zip(*parts))
+
+
+def _coo_block_ell(A: BlockELL):
+    """(rows, cols, vals) of the non-zeros of a Block-ELL matrix, sorted
+    by row, then column."""
+    blocks = A.blocks.numpy(force=True)
+    indices = A.indices.numpy(force=True)
+    br, bc = A.block_shape
+    flat = np.flatnonzero(blocks != 0)
+    rb, s, i, j = np.unravel_index(flat, blocks.shape)
+    rows = rb.astype(np.int64) * br + i
+    cols = indices[rb, s].astype(np.int64) * bc + j
+    # C order visits a row's slots in increasing column-block order, so a
+    # stable sort by row leaves each row's columns increasing
+    order = np.argsort(rows, kind="stable")
+    return rows[order], cols[order], blocks.ravel()[flat][order]
+
+
+def to_sliced_ell(
+    M: Union[Tensor, np.ndarray, BlockELL],
+    padded_n: Optional[int] = None,
+) -> SlicedELL:
+    """Pack a dense (sparse-in-content) square matrix, or a `BlockELL`,
+    into the sliced-ELL layout (:class:`SlicedELL`), on the host.
+
+    Rows are cut into slices of :data:`SLICE_ROWS` (one warp); each slice
+    is as wide as its widest row, so a row layout pads far less than
+    Block-ELL on a graph whose rows spread over many column blocks.
+    `padded_n` (default: a BlockELL's own padded size, else n) is the
+    length of the signals the SpMV takes and returns, at least n; the rows
+    past n are empty, so a padded output feeds straight back in.
+    """
+    if isinstance(M, BlockELL):
+        n = M.n
+        padded_n = M.padded_n if padded_n is None else padded_n
+        rows, cols, vals = _coo_block_ell(M)
+    else:
+        M = M.numpy(force=True) if isinstance(M, Tensor) else np.asarray(M)
+        n = M.shape[0]
+        rows, cols, vals = _coo_rows(M)
+    if padded_n is None:
+        padded_n = n
+    if padded_n < n:
+        raise ValueError(f"padded_n {padded_n} is below n = {n}")
+    vals = vals.astype(np.float32)
+    n_slices = -(-padded_n // SLICE_ROWS)
+    counts = np.bincount(rows, minlength=n_slices * SLICE_ROWS)
+    widths = counts.reshape(n_slices, SLICE_ROWS).max(axis=1)
+    sizes = widths * SLICE_ROWS
+    offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+    stored = int(sizes.sum())
+    if stored >= 2**31:
+        raise ValueError(f"{stored} stored entries do not fit int32 offsets")
+    # padding: value 0 at the row's own index (column 0 past padded_n)
+    slice_of = np.repeat(np.arange(n_slices), sizes)
+    pos = np.arange(stored)
+    columns = slice_of * SLICE_ROWS + pos % SLICE_ROWS
+    columns = np.where(columns < padded_n, columns, 0).astype(np.int32)
+    values = np.zeros(stored, dtype=np.float32)
+    row_start = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    slot = np.arange(rows.size) - row_start[rows]
+    dest = offsets[rows // SLICE_ROWS] + slot * SLICE_ROWS + rows % SLICE_ROWS
+    values[dest] = vals
+    columns[dest] = cols
+    return SlicedELL(values=torch.from_numpy(values),
+                     columns=torch.from_numpy(columns),
+                     offsets=torch.from_numpy(offsets.astype(np.int32)),
+                     widths=torch.from_numpy(widths.astype(np.int32)),
+                     n=int(n), padded_n=int(padded_n), nnz=int(rows.size))
 
 
 def spatial_sort(graph: Graph) -> Tuple[Graph, np.ndarray]:

@@ -1,14 +1,16 @@
-"""'cuda' execution backend: Block-ELL SpMV, fused Chebyshev-step and
+"""'cuda' execution backend: sliced-ELL SpMV, fused Chebyshev-step and
 whole-recurrence sweep kernels written for Hopper.
 
 The counterpart of the JAX package's 'pallas' backend, with its contract:
-the dense P is packed once into Block-ELL at plan time and moved to the
-plan's device; signals are padded to the Block-ELL padded size on the way
-in and cropped back to the logical N on the way out.  By default `apply`
-and `apply_gram` send the whole K-order recurrence to the single-launch
-`cheb_sweep` kernel, guarded by the L2 footprint model with a logged
-per-order fallback (``sweep=False`` / ``l2_budget=`` at plan time control
-it); `apply_adjoint` runs one batched SpMV launch per order.
+the dense P is packed once at plan time into Block-ELL (the sweeps' tile)
+and, beside it, into the sliced-ELL row layout that every stand-alone
+SpMV reads, and both are moved to the plan's device; signals are padded
+to the Block-ELL padded size on the way in and cropped back to the
+logical N on the way out.  By default `apply` and `apply_gram` send the
+whole K-order recurrence to the single-launch `cheb_sweep` kernel,
+guarded by the L2 footprint model with a logged per-order fallback
+(``sweep=False`` / ``l2_budget=`` at plan time control it);
+`apply_adjoint` runs one batched sliced-ELL SpMV launch per order.
 ``sweep_dtype="bf16"`` runs both sweeps in their mixed-precision mode
 (bf16 blocks and iterates, f32 accumulation).  The plan's matvec is
 tagged with its Block-ELL structure (``_mv.block_ell``), its L2 budget
@@ -51,7 +53,9 @@ def build(op, *, mesh=None, partition=None, device=None,
         raise ValueError("cuda backend needs a dense P to build Block-ELL")
     dev = resolve_device(device)
     L = torch.as_tensor(op.P).to(torch.float32).numpy(force=True)
-    A = graphmod.to_block_ell(L, block).to(dev)
+    A = graphmod.to_block_ell(L, block)
+    S = A.sliced_ell()      # the SpMV's layout, packed on the host
+    A = A.to(dev)
     n = L.shape[0]
     del L
     total = A.padded_n
@@ -62,8 +66,8 @@ def build(op, *, mesh=None, partition=None, device=None,
         return ops.pad_trailing(torch.as_tensor(x, device=dev), total)
 
     def _mv(t: Tensor) -> Tensor:
-        # batched Block-ELL SpMV: leading dims (batch, eta streams, ...)
-        # ride one sweep of the sparsity structure
+        # batched sliced-ELL SpMV: leading dims (batch, eta streams, ...)
+        # ride one pass over the sparsity structure
         return ops.spmv(A, t.contiguous())
 
     if sweep is None or sweep:
@@ -91,7 +95,7 @@ def build(op, *, mesh=None, partition=None, device=None,
         return out[..., 0, :n]
 
     def matvec_runner(fn, signals, consts=()):
-        # run the iteration body against the Block-ELL SpMV on the padded
+        # run the iteration body against the sliced-ELL SpMV on the padded
         # domain; every output's trailing vertex axis is cropped back to n
         outs = fn(_mv, *(_pad(s) for s in signals), *consts)
         if isinstance(outs, (tuple, list)):
@@ -107,7 +111,10 @@ def build(op, *, mesh=None, partition=None, device=None,
             "block": block,
             "padded_n": total,
             "nnz_blocks": nnz_blocks,
-            "flops_per_matvec": nnz_blocks * 2 * block[0] * block[1],
+            "nnz": S.nnz,
+            # the stand-alone SpMV multiplies every stored sliced-ELL entry
+            "stored_per_nnz": S.stored_per_nnz,
+            "flops_per_matvec": 2 * S.stored,
             "sweep_dtype": sweep_dtype,
             "sweep_l2_bytes": ops.cheb_sweep_l2_bytes(
                 total, op.eta, scratch_dtype=sweep_dtype),

@@ -29,7 +29,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("block_ell_spmv", "cheb_step", "cheb_sweep", "jacobi_step",
+SOURCES = ("sliced_ell_spmv", "cheb_step", "cheb_sweep", "jacobi_step",
            "jacobi_sweep", "ista_shrink", "flash_attention")
 
 _lock = threading.Lock()

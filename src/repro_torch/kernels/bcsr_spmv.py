@@ -1,15 +1,22 @@
-"""Block-ELL sparse matvec — the Algorithm 1 hot loop — for Hopper.
+"""Sparse matvec — the Algorithm 1 hot loop — for Hopper.
 
-The paper's per-order cost is one sparse matvec with P (Section IV-A).  P
-is stored in Block-ELL (`core.graph.BlockELL`): every row block keeps a
-fixed number of (br, bc) column-block slots.  `block_ell_spmv` is one
-wrapper for any batch: Y = A X^T on (..., ncb * bc) signals, every block
-read once per tile of up to 64 signals by the hand-written CUDA kernel
-``csrc/block_ell_spmv.cu`` (which replaces both `block_ell_spmv` and
-`block_ell_spmv_batched` of the JAX package).
+The paper's per-order cost is one sparse matvec with P (Section IV-A).
+The JAX package stores P in Block-ELL for the TPU's (8, 128) tiles; on a
+strip-sorted sensor graph that layout stores ~40 entries per non-zero.
+The card's SpMV reads the sliced-ELL row layout instead
+(`core.graph.SlicedELL`: slices of 32 rows, each as wide as its widest
+row, ~1.4 stored entries per non-zero).  `sliced_ell_spmv` is one wrapper
+for any batch: Y = A X^T on (..., padded_n) signals, by the hand-written
+CUDA kernel ``csrc/sliced_ell_spmv.cu``, which replaces both
+`block_ell_spmv` and `block_ell_spmv_batched` of the JAX package.
+
+The Block-ELL plain version (`block_ell_spmv_plain`) stays: it is the
+SpMV inside the sweeps' plain versions, and the bridge the parity tests
+hold against the JAX kernels; `check_block_ell` guards the sweeps, which
+keep the Block-ELL tile.
 
 Dispatch: a tensor on the CPU takes the plain PyTorch version
-(`block_ell_spmv_plain`); a CUDA tensor launches the kernel or raises.
+(`sliced_ell_spmv_plain`); a CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -18,13 +25,14 @@ import math
 
 import torch
 
+from ..core.graph import SLICE_ROWS, SlicedELL
 from . import _build
 
 Tensor = torch.Tensor
 
 #: Shared memory one thread block of the kernel may use without opting in.
 SMEM_LIMIT = 48 * 1024
-#: Threads per block of the Block-ELL kernels (csrc/block_ell_tile.cuh).
+#: Threads per block of the Block-ELL sweeps (csrc/block_ell_tile.cuh).
 THREADS = 256
 
 
@@ -42,7 +50,7 @@ def block_ell_spmv_plain(blocks: Tensor, indices: Tensor, x: Tensor) -> Tensor:
 
 
 def tile_smem_bytes(br: int, bc: int, batch: int) -> int:
-    """Shared memory of one thread block of the Block-ELL kernels: the
+    """Shared memory of one thread block of the Block-ELL sweeps: the
     (br, bc) matrix block and the iterate tile, rows padded to bc + 1."""
     per_pass = THREADS // br
     tb = (2 if batch > per_pass else 1) * per_pass
@@ -78,41 +86,74 @@ def check_block_ell(blocks: Tensor, indices: Tensor, x: Tensor) -> None:
                          f"{SMEM_LIMIT} B of shared memory")
 
 
+def sliced_ell_spmv_plain(S: SlicedELL, x: Tensor) -> Tensor:
+    """y = A @ x in plain PyTorch for sliced-ELL A and x (..., padded_n)
+    with any leading batch dims: every stored entry's product gathered,
+    then summed into its row (padding entries add 0)."""
+    _check_width(S, x)
+    prod = S.values.to(x.dtype) * x[..., S.columns.long()]
+    y = torch.zeros(x.shape[:-1] + (S.n_slices * SLICE_ROWS,),
+                    dtype=x.dtype, device=x.device)
+    y.index_add_(y.ndim - 1, S.entry_rows(), prod)
+    return y[..., :S.padded_n]
+
+
+def _check_width(S: SlicedELL, x: Tensor) -> None:
+    if x.shape[-1] != S.padded_n:
+        raise ValueError(f"signal length {x.shape[-1]} != the layout's "
+                         f"padded n {S.padded_n}")
+
+
 def _lib() -> ctypes.CDLL:
-    lib = _build.library("block_ell_spmv")
-    fn = lib.block_ell_spmv_f32
+    lib = _build.library("sliced_ell_spmv")
+    fn = lib.sliced_ell_spmv_f32
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                       + [ctypes.c_longlong, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int]
+                       + [ctypes.c_longlong] + [ctypes.c_int]
+                       + [ctypes.c_void_p])
     return lib
 
 
-def block_ell_spmv(blocks: Tensor, indices: Tensor, x: Tensor) -> Tensor:
-    """Y = A @ X^T for Block-ELL A and signals x (..., ncb * bc).
+def sliced_ell_spmv(S: SlicedELL, x: Tensor) -> Tensor:
+    """Y = A @ X^T for sliced-ELL A and signals x (..., padded_n).
 
-    Returns (..., nrb * br).  CPU tensors take the plain version; CUDA
-    tensors launch ``csrc/block_ell_spmv.cu`` (counted in
-    ``block_ell_spmv.launches``).
+    Returns (..., padded_n).  CPU tensors take the plain version; CUDA
+    tensors launch ``csrc/sliced_ell_spmv.cu`` (counted in
+    ``sliced_ell_spmv.launches``).
     """
     if x.device.type == "cpu":
-        return block_ell_spmv_plain(blocks, indices, x)
-    check_block_ell(blocks, indices, x)
-    nrb, slots, br, bc = blocks.shape
+        return sliced_ell_spmv_plain(S, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"sliced_ell_spmv runs on CUDA tensors, got "
+                         f"{x.device}")
+    _check_width(S, x)
+    if S.device != x.device:
+        raise ValueError(f"layout on {S.device}, signals on {x.device}")
+    if x.dtype != torch.float32 or S.values.dtype != torch.float32:
+        raise TypeError("sliced_ell_spmv takes float32 values and signals")
+    if S.columns.dtype != torch.int32 or S.offsets.dtype != torch.int32 \
+            or S.widths.dtype != torch.int32:
+        raise TypeError("sliced-ELL columns, offsets and widths are int32")
+    if not x.is_contiguous():
+        raise ValueError("sliced_ell_spmv takes contiguous signals")
     lead = x.shape[:-1]
     B = math.prod(lead)
-    y = torch.empty(lead + (nrb * br,), dtype=x.dtype, device=x.device)
+    y = torch.empty(lead + (S.padded_n,), dtype=x.dtype, device=x.device)
     if B == 0:
         return y
+    if B >= 2**31 // 16:
+        raise ValueError(f"batch {B} too large for one launch")
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.block_ell_spmv_f32(
-            blocks.data_ptr(), indices.data_ptr(), x.data_ptr(),
-            y.data_ptr(), nrb, slots, br, bc, B, x.shape[-1], stream)
-    _build.check(lib, err, "block_ell_spmv")
-    block_ell_spmv.launches += 1
+        err = lib.sliced_ell_spmv_f32(
+            S.values.data_ptr(), S.columns.data_ptr(), S.offsets.data_ptr(),
+            S.widths.data_ptr(), x.data_ptr(), y.data_ptr(), S.n_slices,
+            S.padded_n, B, stream)
+    _build.check(lib, err, "sliced_ell_spmv")
+    sliced_ell_spmv.launches += 1
     return y
 
 
-block_ell_spmv.launches = 0
+sliced_ell_spmv.launches = 0

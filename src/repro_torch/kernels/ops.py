@@ -2,11 +2,16 @@
 
 Everything above this module — the `cuda` execution backend, the solvers,
 the lasso, the tests, ``chip_smoke.py`` — calls these functions; the
-kernel wrappers (`bcsr_spmv.block_ell_spmv`, `cheb_step.cheb_step`,
+kernel wrappers (`bcsr_spmv.sliced_ell_spmv`, `cheb_step.cheb_step`,
 `cheb_sweep.cheb_sweep`, `cheb_sweep.jacobi_sweep`,
 `jacobi_step.jacobi_step`, `soft_threshold.ista_shrink`,
 `flash_attention.flash_attention`) pick the CUDA kernel for a CUDA tensor
 and their plain PyTorch version for a CPU tensor.
+
+Every SpMV this module serves (:func:`spmv`: the plan's matvec for the
+adjoint, the Gram's and ARMA's runners and the lasso, the per-order and
+per-round paths) reads the sliced-ELL layout that the Block-ELL matrix
+carries (`BlockELL.sliced_ell`); the sweeps keep the Block-ELL tile.
 
 Single-launch sweep dispatch: a matvec tagged with ``mv.block_ell = A``
 (a local Block-ELL product) routes the whole K-order loop of
@@ -32,7 +37,7 @@ import torch
 
 from ..core.chebyshev import _stateful_matvec
 from ..core.graph import BlockELL
-from .bcsr_spmv import block_ell_spmv
+from .bcsr_spmv import sliced_ell_spmv
 from .cheb_step import cheb_step
 from .cheb_sweep import check_scratch_dtype, cheb_sweep, jacobi_sweep
 # the LM's attn_impl="flash" (models.layers.attention) calls it from here
@@ -50,12 +55,13 @@ DEFAULT_SWEEP_L2_BUDGET = 50 * 1024 * 1024
 
 
 def spmv(A: BlockELL, x: Tensor) -> Tensor:
-    """Block-ELL y = A @ x on padded signals (..., padded_n).
+    """y = A @ x on padded signals (..., padded_n), through A's sliced-ELL
+    layout (packed from the blocks on first use if the plan did not).
 
     One call per Chebyshev order; leading batch dims (batch signals, eta
-    streams) ride one sweep of the sparsity structure.
+    streams) ride one pass over the sparsity structure.
     """
-    return block_ell_spmv(A.blocks, A.indices, x)
+    return sliced_ell_spmv(A.sliced_ell(), x)
 
 
 def _scratch_itemsize(scratch_dtype: Optional[str], itemsize: int) -> int:

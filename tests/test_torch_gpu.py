@@ -1,7 +1,8 @@
 """Card-only tests: each Hopper kernel against its plain PyTorch version on
 a CUDA device, and the main path, the Section-V solvers, the lasso and SSL
-against float64 dense; the flash-attention kernel and the reduced dense LM
-forward through it; the bf16 instances of the two sweeps.
+against float64 dense; both flash-attention kernels (tensor cores for
+bf16 at D = 64 and 128, FFMA otherwise) and the reduced dense LM forward
+through them; the bf16 instances of the two sweeps.
 
 They carry the `gpu` marker and skip without a card (decided inside the
 `cuda` fixture, never at import).  The machine with the card has no JAX,
@@ -33,12 +34,16 @@ from repro_torch.core import ssl as tssl
 from repro_torch.core import wavelets as twav
 from repro_torch.configs import get_config
 from repro_torch.dist import METHODS, GraphOperator
-from repro_torch.kernels.bcsr_spmv import block_ell_spmv, block_ell_spmv_plain
+from repro_torch.kernels.bcsr_spmv import (block_ell_spmv_plain,
+                                           sliced_ell_spmv,
+                                           sliced_ell_spmv_plain)
 from repro_torch.kernels.cheb_step import cheb_step, cheb_step_plain
 from repro_torch.kernels.cheb_sweep import (cheb_sweep, cheb_sweep_plain,
                                             jacobi_sweep, jacobi_sweep_plain)
 from repro_torch.kernels.flash_attention import (flash_attention,
-                                                 flash_attention_plain)
+                                                 flash_attention_ffma,
+                                                 flash_attention_plain,
+                                                 flash_attention_wgmma)
 from repro_torch.kernels.jacobi_step import jacobi_step, jacobi_step_plain
 from repro_torch.kernels.soft_threshold import (ista_shrink,
                                                 ista_shrink_plain)
@@ -67,17 +72,40 @@ def _rel(got, want):
     return float((got - want).abs().max() / want.abs().max())
 
 
-@pytest.mark.parametrize("batch_shape", [(), (5,), (64,), (100,), (2, 3)])
+@pytest.mark.parametrize("batch_shape", [(), (5,), (64,), (100,), (2, 3),
+                                         (448,), (64, 7)])
 def test_block_ell_spmv_kernel_matches_plain(structure, batch_shape):
+    """The SpMV that replaces the Block-ELL kernels (the sliced-ELL kernel,
+    B = 1 to the adjoint's 448 streams) against its plain version and the
+    Block-ELL plain version on the same P."""
     At, _ = structure
+    S = At.sliced_ell()
     gen = torch.Generator(device=At.device).manual_seed(0)
     x = torch.randn(batch_shape + (At.padded_n,), generator=gen,
                     device=At.device)
-    before = block_ell_spmv.launches
-    got = block_ell_spmv(At.blocks, At.indices, x)
+    before = sliced_ell_spmv.launches
+    got = sliced_ell_spmv(S, x)
     torch.cuda.synchronize()
-    assert block_ell_spmv.launches == before + 1
+    assert sliced_ell_spmv.launches == before + 1
+    assert _rel(got, sliced_ell_spmv_plain(S, x)) < 1e-5
     assert _rel(got, block_ell_spmv_plain(At.blocks, At.indices, x)) < 1e-5
+
+
+@pytest.mark.parametrize("B", [1, 5, 37, 64])
+@pytest.mark.parametrize("n", [203, 1000, 45])
+def test_sliced_ell_spmv_kernel_ragged_n(cuda, n, B):
+    """Any n (a last slice partly filled) and each signal tile (1, 2 and
+    8 signals per thread), a ragged last tile of signals included."""
+    g = tgraph.sensor_graph(np.random.RandomState(3), n=n, theta=0.1,
+                            kappa=0.15)
+    S = tgraph.to_sliced_ell(g.laplacian()).to(cuda)
+    x = torch.randn(B, n, generator=torch.Generator(device=cuda)
+                    .manual_seed(1), device=cuda)
+    got = sliced_ell_spmv(S, x)
+    want = x @ g.laplacian().to(cuda).T
+    torch.cuda.synchronize()
+    assert _rel(got, sliced_ell_spmv_plain(S, x)) < 1e-5
+    assert _rel(got, want) < 1e-5
 
 
 @pytest.mark.parametrize("n", [500, 16384])
@@ -263,10 +291,18 @@ def test_lasso_and_ssl_match_float64_dense(solver_graph):
     assert tssl.accuracy(res, labels, mask) > 0.8
 
 
+def _flash_kernel(dtype, d):
+    """The kernel `flash_attention` dispatches to: tensor cores for bf16
+    at D = 64 and 128, the FFMA kernel otherwise."""
+    return (flash_attention_wgmma if dtype == torch.bfloat16
+            and d in (64, 128) else flash_attention_ffma)
+
+
 @pytest.mark.parametrize("b,hq,hkv,sq,sk,d", [
     (1, 2, 2, 128, 128, 64), (2, 4, 2, 256, 256, 64), (1, 8, 1, 256, 256, 128),
     (2, 4, 2, 100, 100, 16), (1, 6, 3, 1000, 1000, 32), (1, 4, 1, 64, 300, 128),
-    (2, 24, 2, 512, 512, 128)])
+    (2, 24, 2, 512, 512, 128), (1, 2, 1, 300, 200, 64),
+    (1, 3, 1, 1000, 1000, 128), (2, 12, 1, 129, 383, 128)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(cuda, b, hq, hkv, sq, sk, d,
@@ -275,28 +311,41 @@ def test_flash_attention_kernel_matches_plain(cuda, b, hq, hkv, sq, sk, d,
     q = torch.randn(b, hq, sq, d, generator=gen, device=cuda).to(dtype)
     k = torch.randn(b, hkv, sk, d, generator=gen, device=cuda).to(dtype)
     v = torch.randn(b, hkv, sk, d, generator=gen, device=cuda).to(dtype)
-    before = flash_attention.launches
+    kern = _flash_kernel(dtype, d)
+    before = kern.launches
     got = flash_attention(q, k, v, causal=causal)
     want = flash_attention_plain(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert flash_attention.launches == before + 1
+    assert kern.launches == before + 1
     assert got.dtype == dtype and got.shape == q.shape
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
-def test_flash_attention_kernel_reads_strided_heads(cuda):
-    """The (B, S, H, hd) views of a fused projection reach the kernel
-    without a copy and give the contiguous result."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_kernel_reads_strided_heads(cuda, dtype, d):
+    """The (B, S, H, hd) views of a fused projection, and head slices of a
+    larger (B, H, S, hd) tensor, give the contiguous result."""
     gen = torch.Generator(device=cuda).manual_seed(8)
-    qkv = torch.randn(2, 200, (8 + 2 * 2) * 64, generator=gen, device=cuda)
-    q = qkv[..., :512].view(2, 200, 8, 64).transpose(1, 2)
-    k = qkv[..., 512:640].view(2, 200, 2, 64).transpose(1, 2)
-    v = qkv[..., 640:].view(2, 200, 2, 64).transpose(1, 2)
-    got = flash_attention(q, k, v, causal=True, scale=0.1)
-    want = flash_attention_plain(q.contiguous(), k.contiguous(),
-                                 v.contiguous(), causal=True, scale=0.1)
-    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    qkv = torch.randn(2, 200, (8 + 2 * 2) * d, generator=gen,
+                      device=cuda).to(dtype)
+    q = qkv[..., :8 * d].view(2, 200, 8, d).transpose(1, 2)
+    k = qkv[..., 8 * d:10 * d].view(2, 200, 2, d).transpose(1, 2)
+    v = qkv[..., 10 * d:].view(2, 200, 2, d).transpose(1, 2)
+    heads = torch.randn(2, 12, 200, d, generator=gen, device=cuda).to(dtype)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    kern = _flash_kernel(dtype, d)
+    for q, k, v in ((q, k, v), (heads[:, :8], heads[:, 8:10],
+                                heads[:, 10:])):
+        before = kern.launches
+        got = flash_attention(q, k, v, causal=True, scale=0.1)
+        want = flash_attention_plain(q.contiguous(), k.contiguous(),
+                                     v.contiguous(), causal=True, scale=0.1)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 1
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
 
 
 @pytest.mark.parametrize("arch", ["starcoder2-3b", "deepseek-7b"])
@@ -307,10 +356,10 @@ def test_reduced_lm_forward_through_flash_kernel(cuda, arch):
     params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
     toks = torch.randint(0, cfg.vocab_size, (2, 200), device=cuda,
                          generator=torch.Generator(device=cuda).manual_seed(1))
-    before = flash_attention.launches
+    before = flash_attention_ffma.launches
     got = forward(cfg, params, toks, RunConfig("flash"))
     torch.cuda.synchronize()
-    assert flash_attention.launches == before + cfg.n_layers
+    assert flash_attention_ffma.launches == before + cfg.n_layers
     want = forward(cfg, params, toks, RunConfig("ref"))
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
     assert abs(float(lm_loss(got, toks)) - float(lm_loss(want, toks))) < 1e-4

@@ -28,7 +28,9 @@ from repro.kernels.bcsr_spmv import block_ell_spmv_batched as jspmv_batched
 from repro.kernels.cheb_step import cheb_step as jcheb_step
 from repro_torch.convert import block_ell_from_numpy
 from repro_torch.kernels import ops
-from repro_torch.kernels.bcsr_spmv import block_ell_spmv, block_ell_spmv_plain
+from repro_torch.kernels.bcsr_spmv import (block_ell_spmv_plain,
+                                           sliced_ell_spmv,
+                                           sliced_ell_spmv_plain)
 from repro_torch.kernels.cheb_step import cheb_step, cheb_step_plain
 from repro_torch.kernels.cheb_sweep import cheb_sweep, cheb_sweep_plain
 
@@ -106,10 +108,10 @@ def test_cpu_tensors_take_plain_versions_uncounted(block_ell_500):
     """A CPU tensor runs the plain version and launches nothing."""
     _, At, lmax = block_ell_500
     x = torch.from_numpy(_randn(6, (4, At.padded_n)))
-    counts = (block_ell_spmv.launches, cheb_step.launches,
+    counts = (sliced_ell_spmv.launches, cheb_step.launches,
               cheb_sweep.launches)
-    assert torch.equal(block_ell_spmv(At.blocks, At.indices, x),
-                       block_ell_spmv_plain(At.blocks, At.indices, x))
+    S = At.sliced_ell()
+    assert torch.equal(sliced_ell_spmv(S, x), sliced_ell_spmv_plain(S, x))
     acc = torch.zeros(4, 2, At.padded_n)
     coef = torch.ones(2)
     got = cheb_step(x, x, x, acc, coef, alpha=2.0)
@@ -119,7 +121,7 @@ def test_cpu_tensors_take_plain_versions_uncounted(block_ell_500):
     assert torch.equal(cheb_sweep(At.blocks, At.indices, x, c, alpha=3.0),
                        cheb_sweep_plain(At.blocks, At.indices, x, c,
                                         alpha=3.0))
-    assert (block_ell_spmv.launches, cheb_step.launches,
+    assert (sliced_ell_spmv.launches, cheb_step.launches,
             cheb_sweep.launches) == counts
 
 
@@ -128,7 +130,7 @@ def test_wrappers_raise_on_devices_they_do_not_take(block_ell_500):
     _, At, _ = block_ell_500
     x = torch.empty(2, At.padded_n, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
-        block_ell_spmv(At.blocks, At.indices, x)
+        sliced_ell_spmv(At.sliced_ell(), x)
     with pytest.raises(ValueError, match="CUDA"):
         cheb_sweep(At.blocks, At.indices, x, np.ones((1, 3)), alpha=1.0)
     with pytest.raises(ValueError, match="CUDA"):

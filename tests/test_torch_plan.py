@@ -134,9 +134,15 @@ def test_plan_info_and_metadata(ops120):
                "sweep_vmem_budget": "sweep_l2_budget"}
     for key in jinfo:
         assert renamed.get(key, key) in info, key
-    for key in ("block", "padded_n", "nnz_blocks", "flops_per_matvec",
-                "sweep_dtype"):
+    for key in ("block", "padded_n", "nnz_blocks", "sweep_dtype"):
         assert info[key] == jinfo[key], key
+    # the port's SpMV multiplies the stored sliced-ELL entries, not the
+    # Block-ELL tiles the reference's flops_per_matvec counts
+    S = info["block_ell"].sliced
+    assert info["flops_per_matvec"] == 2 * S.stored
+    assert info["stored_per_nnz"] == S.stored / S.nnz
+    assert info["nnz"] == S.nnz == int(np.count_nonzero(np.asarray(
+        top.P)))
     assert info["sweep_l2_bytes"] == (3 + 3) * 128 * 4
     assert plan.backend == "cuda" and plan.device == torch.device("cpu")
     assert (plan.eta, plan.K, plan.lmax) == (jop.eta, jop.K, jop.lmax)

@@ -367,7 +367,7 @@ def test_cuda_plan_routes_solves_through_the_kernels(solver_setup,
     """On the cuda plan a Jacobi solve is one jacobi_sweep call, a history
     solve one jacobi_step per round, an ARMA solve one SpMV per round."""
     _, _, top, y, _, rho = solver_setup
-    calls = {"jacobi_sweep": 0, "jacobi_step": 0, "block_ell_spmv": 0}
+    calls = {"jacobi_sweep": 0, "jacobi_step": 0, "sliced_ell_spmv": 0}
     for name in calls:
         real = getattr(ops, name)
 
@@ -381,12 +381,12 @@ def test_cuda_plan_routes_solves_through_the_kernels(solver_setup,
     plan.solve(y32, "jacobi", tau=TAU, n_iters=9)
     plan.solve(y32, "cheb_jacobi", tau=TAU, n_iters=9, rho=rho * 1.0001)
     assert calls == {"jacobi_sweep": 2, "jacobi_step": 0,
-                     "block_ell_spmv": 0}
+                     "sliced_ell_spmv": 0}
     plan.solve(y32, "jacobi", tau=TAU, r=2, n_iters=9, history=True)
     assert calls == {"jacobi_sweep": 2, "jacobi_step": 9,
-                     "block_ell_spmv": 18}
+                     "sliced_ell_spmv": 18}
     plan.solve(y32, "arma", tau=TAU, n_iters=9)
-    assert calls["block_ell_spmv"] == 27
+    assert calls["sliced_ell_spmv"] == 27
 
 
 def test_solve_l2_budget_forces_logged_fallback(solver_setup, caplog):
