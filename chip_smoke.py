@@ -105,6 +105,18 @@ LM_ARCH, LM_B, LM_S = "starcoder2-3b", 2, 4096
 # Flash kernel vs plain version: the JAX package's kernel tolerances
 # (tests/test_kernels.py:69), atol = rtol; bf16 outputs round to 8 bits.
 TOL_FLASH = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# The bf16 tensor-core kernel is also held row by row, where atol = 2e-2
+# cannot see a fault: a late row of causal attention over random inputs
+# averages thousands of values, so its outputs are ~0.8 sqrt(e / (i + 1))
+# (0.02 at row 4095).  Against the plain version in f32 from the same
+# bf16 inputs, each element's error less its output rounding (2^-8 of
+# |ref|) over its row's rms must stay under TOL_FLASH_ROW: rounding P to
+# bf16 moves single elements by up to ~1e-2 of the rms.  Dropping one K
+# tile of 128 keys from the last 128 rows at S = 4096 moves them by ~0.2
+# of the rms (single elements by more); the script checks that the
+# statistic sees that at FLASH_FAULT_MARGIN times the limit.
+TOL_FLASH_ROW = 2e-2
+FLASH_FAULT_MARGIN = 10
 # LM logits / loss against the same bf16 forward through the plain f32
 # attention: the two attentions round their outputs to bf16 after summing
 # in other orders, so single elements differ by a bf16 ulp, and 30
@@ -240,6 +252,30 @@ def device_breakdown(fn, groups):
     return dict(out, device_ms=busy, wall_ms=wall_ms, busy_share=busy / wall_ms)
 
 
+def flash_row_err(got, ref32, rms) -> float:
+    """max over elements of (|got - ref32| - 2^-8 |ref32|) / the rms of
+    ref32's row: bf16 output error beyond its own rounding, on the scale
+    of its row."""
+    err = (got.float() - ref32).abs() - 2.0**-8 * ref32.abs()
+    return float((err / rms).max())
+
+
+def attention_dropping_a_tile(q, k, v):
+    """Causal attention (f32, 1 / sqrt(D)) for the last 128 q rows that
+    skips the K tile of keys S - 256 .. S - 129, rounded to bf16: the
+    output of a kernel that drops one tile for late rows."""
+    S, d = q.shape[2], q.shape[3]
+    group = q.shape[1] // k.shape[1]
+    kk = k.float().repeat_interleave(group, dim=1)
+    vv = v.float().repeat_interleave(group, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q[:, :, -128:].float(), kk)
+    rows = torch.arange(S - 128, S, device=q.device)[:, None]
+    cols = torch.arange(S, device=q.device)[None, :]
+    skip = (cols > rows) | ((cols >= S - 256) & (cols < S - 128))
+    p = torch.softmax((s / math.sqrt(d)).masked_fill(skip, -1e30), dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vv).to(q.dtype)
+
+
 def bound(nbytes: float, flops: float, peak: float = PEAK_F32_FLOPS):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
     the operations over `peak` (default the f32 peak)."""
@@ -322,7 +358,7 @@ def main() -> int:
     plan = op.plan("cuda")
     plan_po = op.plan("cuda", sweep=False)
     A = plan.info["block_ell"]
-    SL = A.sliced
+    SL = A.sliced_ell()
     eta = op.eta
     nrb, slots, br, bc = A.blocks.shape
     nnz = int((A.blocks != 0).sum())
@@ -642,6 +678,33 @@ def main() -> int:
         msg = (f"kernel {kern.__name__} {case} (B, Hq, Hkv, S, D)="
                f"{(b, h1, h2, S, d)} {row['dtype']} causal: max_abs_err="
                f"{err:.3e} (atol = rtol = {tol})")
+        if dt == torch.bfloat16:
+            ref32 = flash_attention_plain(q.float(), k.float(), v.float(),
+                                          causal=True)
+            rms = ref32.pow(2).mean(-1, keepdim=True).sqrt()
+            row_err = flash_row_err(got, ref32, rms)
+            late = ref32[:, :, S // 2:]
+            typical = float(late.abs().median())
+            late_err = float((got[:, :, S // 2:].float() - late).abs().max())
+            check(row_err <= TOL_FLASH_ROW,
+                  f"{kern.__name__} {case}: row-scaled error {row_err:.3e} "
+                  f"> {TOL_FLASH_ROW}")
+            row.update(row_err=row_err, row_tol=TOL_FLASH_ROW,
+                       typical_ref_late=typical, max_abs_err_late=late_err)
+            msg += (f"; row-scaled err={row_err:.3e} (tol {TOL_FLASH_ROW}); "
+                    f"rows >= S/2: median |ref| {typical:.3e}, max |err| "
+                    f"{late_err:.3e}")
+            if S >= 512:
+                fault = flash_row_err(
+                    attention_dropping_a_tile(q, k, v), ref32[:, :, -128:],
+                    rms[:, :, -128:])
+                check(fault >= FLASH_FAULT_MARGIN * TOL_FLASH_ROW,
+                      f"the row-scaled check misses a dropped K tile "
+                      f"({fault:.3e})")
+                row.update(row_err_dropped_tile=fault)
+                msg += (f"; a K tile dropped from the last 128 rows gives "
+                        f"{fault:.3e}")
+            del ref32, rms, late
         if case in timed:
             kname, peak = timed[case]
 

@@ -10,7 +10,7 @@ Weight matrices and Laplacians are dense float32 torch tensors on the
 host.  Block-ELL packing (`to_block_ell`) stays host numpy, vectorised so
 that n = 16384 packs in seconds; its output is bitwise equal to the JAX
 package's loop.  The sliced-ELL row layout (`to_sliced_ell`) that the
-card's SpMV reads is packed the same way, beside the Block-ELL.  The
+card's SpMV reads is packed the same way, from the Block-ELL.  The
 sensor-network generator builds W in row chunks, so a large n never
 holds n^2 float64 temporaries.
 """
@@ -193,7 +193,7 @@ def path_graph(n: int, weight: float = 1.0) -> Graph:
 # ---------------------------------------------------------------------------
 # Block-ELL static sparse format
 # ---------------------------------------------------------------------------
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass
 class BlockELL:
     """Static block-sparse matrix: a fixed number of column-block slots per
     row block.
@@ -203,8 +203,9 @@ class BlockELL:
                padded slots hold zero blocks at column block 0
       mask:    (n_row_blocks, max_slots) bool slot validity
       n:       logical (unpadded) dimension
-      sliced:  the same matrix in the sliced-ELL layout at `padded_n`, which
-               the SpMV reads (:meth:`sliced_ell` packs it on first use)
+      sliced:  a cache: the same matrix in the sliced-ELL layout at
+               `padded_n`, which the SpMV reads; None until
+               :meth:`sliced_ell` first packs it
     """
 
     blocks: Tensor
@@ -242,13 +243,27 @@ class BlockELL:
                                 else self.sliced.to(device)))
 
     def sliced_ell(self) -> "SlicedELL":
-        """The sliced-ELL form of this matrix on its device.  Packed from the
-        blocks on the host the first time it is asked for and kept (the
-        one field that is filled in after construction: a cache)."""
+        """The sliced-ELL form of this matrix on its device, packed from
+        the blocks on the host the first time it is asked for and kept in
+        `sliced`."""
         if self.sliced is None:
-            S = to_sliced_ell(self).to(self.device)
-            object.__setattr__(self, "sliced", S)
+            self.sliced = to_sliced_ell(self).to(self.device)
         return self.sliced
+
+    def sliced_ell_size(self) -> Tuple[int, int]:
+        """(nnz, stored) of :meth:`sliced_ell`'s layout, counted from the
+        blocks on their device without packing it: each slice of
+        :data:`SLICE_ROWS` rows stores its widest row's count per row."""
+        if self.sliced is not None:
+            return self.sliced.nnz, self.sliced.stored
+        # a slot at a time: the count's int64 temporary stays one slot's
+        degree = sum((self.blocks[:, j] != 0).sum(dim=-1)
+                     for j in range(self.blocks.shape[1])).reshape(-1)
+        n_slices = -(-degree.numel() // SLICE_ROWS)
+        widths = torch.nn.functional.pad(
+            degree, (0, n_slices * SLICE_ROWS - degree.numel()))
+        widths = widths.reshape(n_slices, SLICE_ROWS).amax(dim=1)
+        return int(degree.sum()), SLICE_ROWS * int(widths.sum())
 
 
 def to_block_ell(

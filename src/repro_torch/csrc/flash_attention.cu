@@ -791,9 +791,9 @@ int flash_attention_fwd(int bf16, int D, const void* q, const void* k,
 
 // The bf16 tensor-core kernel: q (B, Hq, Sq, D), k and v (B, Hkv, Sk, D),
 // o (B, Hq, Sq, D), addressed as above, D in {64, 128}.  Every (batch,
-// head, seq) stride is a multiple of 8 elements, the seq strides are at
-// least D and q, k, v start on 16 bytes (TMA's rules; the caller checks).
-// scale > 0.  Returns the launch's cudaError_t (cudaErrorInvalidValue
+// head, seq) stride of q, k and v is a positive multiple of 8 elements,
+// in any order, and q, k, v start on 16 bytes (TMA's rules; the caller
+// checks); scale > 0.  Returns the launch's cudaError_t (cudaErrorInvalidValue
 // when a tensor map cannot be made).
 int flash_attention_wgmma_fwd(int D, const void* q, const void* k,
                               const void* v, void* o,

@@ -3,8 +3,9 @@ whole-recurrence sweep kernels written for Hopper.
 
 The counterpart of the JAX package's 'pallas' backend, with its contract:
 the dense P is packed once at plan time into Block-ELL (the sweeps' tile)
-and, beside it, into the sliced-ELL row layout that every stand-alone
-SpMV reads, and both are moved to the plan's device; signals are padded
+and moved to the plan's device; the sliced-ELL row layout that every
+stand-alone SpMV reads is packed from it at the plan's first SpMV (a plan
+that runs only sweeps never packs it); signals are padded
 to the Block-ELL padded size on the way in and cropped back to the
 logical N on the way out.  By default `apply` and `apply_gram` send the
 whole K-order recurrence to the single-launch `cheb_sweep` kernel,
@@ -53,9 +54,7 @@ def build(op, *, mesh=None, partition=None, device=None,
         raise ValueError("cuda backend needs a dense P to build Block-ELL")
     dev = resolve_device(device)
     L = torch.as_tensor(op.P).to(torch.float32).numpy(force=True)
-    A = graphmod.to_block_ell(L, block)
-    S = A.sliced_ell()      # the SpMV's layout, packed on the host
-    A = A.to(dev)
+    A = graphmod.to_block_ell(L, block).to(dev)
     n = L.shape[0]
     del L
     total = A.padded_n
@@ -103,6 +102,7 @@ def build(op, *, mesh=None, partition=None, device=None,
         return outs[..., :n]
 
     nnz_blocks = int(A.mask.sum())
+    nnz, stored = A.sliced_ell_size()
     return ExecutionPlan(
         op=op, backend="cuda", device=dev,
         apply=apply, apply_adjoint=apply_adjoint, apply_gram=apply_gram,
@@ -111,10 +111,10 @@ def build(op, *, mesh=None, partition=None, device=None,
             "block": block,
             "padded_n": total,
             "nnz_blocks": nnz_blocks,
-            "nnz": S.nnz,
+            "nnz": nnz,
             # the stand-alone SpMV multiplies every stored sliced-ELL entry
-            "stored_per_nnz": S.stored_per_nnz,
-            "flops_per_matvec": 2 * S.stored,
+            "stored_per_nnz": stored / max(nnz, 1),
+            "flops_per_matvec": 2 * stored,
             "sweep_dtype": sweep_dtype,
             "sweep_l2_bytes": ops.cheb_sweep_l2_bytes(
                 total, op.eta, scratch_dtype=sweep_dtype),

@@ -125,13 +125,12 @@ def takes_tensor_cores(q: Tensor, k: Tensor, v: Tensor,
 
 
 def _tma_ready(t: Tensor) -> bool:
-    """TMA reads a (batch, head, seq, D) bf16 view in place when it starts
-    on 16 bytes, its (batch, head, seq) strides are multiples of 8
-    elements, D is contiguous and the strides grow from seq to batch."""
+    """TMA reads a (batch, head, seq, D) bf16 view in place, its strides
+    in any order, when it starts on 16 bytes, D is contiguous and its
+    (batch, head, seq) strides are positive multiples of 8 elements."""
     sb, sh, ss, sd = t.stride()
     return (sd == 1 and t.data_ptr() % 16 == 0
-            and all(x % 8 == 0 for x in (sb, sh, ss))
-            and t.shape[-1] <= ss <= sh <= sb)
+            and all(x > 0 and x % 8 == 0 for x in (sb, sh, ss)))
 
 
 def flash_attention_wgmma(q: Tensor, k: Tensor, v: Tensor, *,

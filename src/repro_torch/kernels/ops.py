@@ -56,7 +56,7 @@ DEFAULT_SWEEP_L2_BUDGET = 50 * 1024 * 1024
 
 def spmv(A: BlockELL, x: Tensor) -> Tensor:
     """y = A @ x on padded signals (..., padded_n), through A's sliced-ELL
-    layout (packed from the blocks on first use if the plan did not).
+    layout (packed from the blocks at the first call, then kept on A).
 
     One call per Chebyshev order; leading batch dims (batch signals, eta
     streams) ride one pass over the sparsity structure.

@@ -108,6 +108,31 @@ def test_flash_rejects_what_it_does_not_take():
         flash_attention(meta, meta, meta)
 
 
+@pytest.mark.parametrize("arch", ["starcoder2-3b", "deepseek-7b"])
+def test_tensor_core_flash_reads_lm_head_views_in_place(arch):
+    """The head-split views of the fused QKV projection (head stride hd,
+    below the seq stride) meet TMA's rules as they are, so the bf16
+    tensor-core kernel reads them with no copy; views that start off 16
+    bytes or have a strided last axis do not."""
+    from repro_torch.kernels.flash_attention import _tma_ready
+    from repro_torch.models import model as tmodel
+
+    cfg = get_config(arch)
+    width = (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.hd
+    p = {"wqkv": torch.zeros(cfg.d_model, width, dtype=torch.bfloat16),
+         "bqkv": torch.zeros(width, dtype=torch.bfloat16)}
+    x = torch.zeros(2, 16, cfg.d_model, dtype=torch.bfloat16)
+    q, k, v = tmodel._qkv(cfg, x, p)
+    assert q.shape[1:] == (cfg.n_heads, 16, 128)
+    assert q.stride(1) < q.stride(2)           # heads inside a token
+    assert all(_tma_ready(t) for t in (q, k, v))
+    flat = torch.zeros(2 * 16 * 2 * cfg.hd + 4, dtype=torch.bfloat16)
+    shifted = flat[1:1 + q.numel() // cfg.n_heads * 2].view(2, 2, 16, cfg.hd)
+    assert not _tma_ready(shifted)                       # 2-byte start
+    assert not _tma_ready(q[..., 1:cfg.hd - 7])          # 2-byte start
+    assert not _tma_ready(q.transpose(2, 3))             # D not contiguous
+
+
 # ---------------------------------------------------------------------------
 # layer functions
 # ---------------------------------------------------------------------------

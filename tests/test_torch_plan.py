@@ -138,7 +138,7 @@ def test_plan_info_and_metadata(ops120):
         assert info[key] == jinfo[key], key
     # the port's SpMV multiplies the stored sliced-ELL entries, not the
     # Block-ELL tiles the reference's flops_per_matvec counts
-    S = info["block_ell"].sliced
+    S = info["block_ell"].sliced_ell()
     assert info["flops_per_matvec"] == 2 * S.stored
     assert info["stored_per_nnz"] == S.stored / S.nnz
     assert info["nnz"] == S.nnz == int(np.count_nonzero(np.asarray(

@@ -197,11 +197,18 @@ def counted(monkeypatch):
 
 
 def test_plan_packs_the_sliced_layout(ops120):
+    """The plan counts the layout's entries without packing it; its first
+    SpMV packs it once and keeps it on the Block-ELL, and a sweep-only
+    path (apply) never packs it."""
     _, top = ops120
     plan = top.plan("cuda", device="cpu")
     A = plan.info["block_ell"]
+    plan.apply(_randn(5, (2, 120)))
+    assert A.sliced is None
+    plan.apply_adjoint(_randn(6, (2, top.eta, 120)))
     S = A.sliced
     assert S is not None and S.padded_n == A.padded_n == 128
+    assert plan.info["nnz"] == S.nnz
     assert plan.info["stored_per_nnz"] == S.stored_per_nnz
     assert plan.info["flops_per_matvec"] == 2 * S.stored
     assert A.sliced_ell() is S
