@@ -10,8 +10,9 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    the shapes of the paths below, and times both (plus one PyTorch library
    call computing the same product, where there is one): the sliced-ELL
    SpMV at B = 1, 64 and 448 (also against the Block-ELL plain version on
-   the same P), the Chebyshev and Jacobi steps, both sweeps, the ISTA
-   shrink and both flash-attention kernels;
+   the same P), the Chebyshev and Jacobi steps, both sweeps (which read
+   the same sliced-ELL layout as the SpMV; the Chebyshev sweep in both
+   accumulator forms), the ISTA shrink and both flash-attention kernels;
 3. drives the main path — ``GraphOperator(...).plan("cuda")`` `apply`,
    `apply_adjoint`, `apply_gram` and the ``sweep=False`` apply — on the
    Section IV-D random sensor network at n = 16384 sensors, the SGWT union
@@ -136,6 +137,19 @@ PEAK_BF16_FLOPS = 989e12
 TOL_ROUNDS = 1e-5
 TOL_GUARD = 1e-6
 PRED_MARGIN = 1e-3
+
+# The sweeps' device ms per launch before they read the sliced-ELL layout
+# (the (8, 128) Block-ELL tile kernels), as PERF.md's kernel table records
+# them for an H100 80GB HBM3 at 700 W: shown beside this run's times as
+# text, not measured here.
+EARLIER = {
+    "cheb_sweep": "8.5809 ms device (Block-ELL tile kernel, PERF.md)",
+    "cheb_sweep_bf16": "8.6630 ms device (Block-ELL tile kernel, PERF.md)",
+    "jacobi_sweep": "8.0820 ms device in setting (a), 8.0662 in (b) "
+                    "(Block-ELL tile kernel, PERF.md)",
+    "jacobi_sweep_bf16": "7.9574 ms device (Block-ELL tile kernel, "
+                         "PERF.md)",
+}
 
 ROOT = Path(__file__).resolve().parent
 
@@ -284,6 +298,38 @@ def bound(nbytes: float, flops: float, peak: float = PEAK_F32_FLOPS):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def cheb_sweep_history(build, S, x, coeffs, alpha: float,
+                       scratch_dtype: str, fn_name: str, tb: int):
+    """The Chebyshev sweep in its other accumulator form, launched through
+    its C entry point: every t_k kept in a (K, B / tb, n, tb) scratch and
+    the (B, eta, n) accumulator formed once after the last order."""
+    import ctypes
+
+    lib = build.library("cheb_sweep")
+    fn = getattr(lib, fn_name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_longlong]
+                   + [ctypes.c_int] * 3
+                   + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
+    c = torch.as_tensor(coeffs, dtype=torch.float32, device=x.device)
+    eta, K = c.shape[0], c.shape[1] - 1
+    coefT = c.t().contiguous()
+    B, n = x.shape
+    bf16 = scratch_dtype == "bf16"
+    acc = torch.empty(B, eta, n, device=x.device)
+    hs = torch.empty(K * -(-B // tb) * n * tb, device=x.device,
+                     dtype=torch.bfloat16 if bf16 else torch.float32)
+    values = S.values_bf16 if bf16 else S.values
+    grid = ctypes.c_int(0)
+    err = fn(values.data_ptr(), S.columns.data_ptr(), S.offsets.data_ptr(),
+             S.widths.data_ptr(), x.data_ptr(), coefT.data_ptr(),
+             acc.data_ptr(), hs.data_ptr(), S.n_slices, n, B, K, eta,
+             float(alpha), torch.cuda.current_stream().cuda_stream,
+             ctypes.addressof(grid))
+    build.check(lib, err, fn_name)
+    return acc
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -358,7 +404,14 @@ def main() -> int:
     plan = op.plan("cuda")
     plan_po = op.plan("cuda", sweep=False)
     A = plan.info["block_ell"]
-    SL = A.sliced_ell()
+    torch.cuda.synchronize()
+    t_pack = time.perf_counter()
+    SL = A.sliced_ell()              # packed on the card from the blocks
+    torch.cuda.synchronize()
+    pack_first = (time.perf_counter() - t_pack) * 1e3
+    pack_ms = time_ms(lambda: graph.BlockELL(
+        blocks=A.blocks, indices=A.indices, mask=A.mask,
+        n=A.n).sliced_ell(), 3, warmup=1)
     eta = op.eta
     nrb, slots, br, bc = A.blocks.shape
     nnz = int((A.blocks != 0).sum())
@@ -379,17 +432,24 @@ def main() -> int:
           f"entries, stored_per_nnz={SL.stored_per_nnz:.4f} (Block-ELL "
           f"{A.blocks.numel() / nnz:.2f}), "
           f"{SL.stored * 8 / 2**20:.2f} MiB of values and columns; "
-          f"plan.info stored_per_nnz={plan.info['stored_per_nnz']:.4f}")
+          f"plan.info stored_per_nnz={plan.info['stored_per_nnz']:.4f}; "
+          f"packed on the card from the blocks in {pack_first:.2f} ms "
+          f"(first, host clock), {pack_ms:.3f} ms (steady, CUDA events)")
     check(SL.nnz == nnz and plan.info["flops_per_matvec"] == 2 * SL.stored,
           "the sliced-ELL layout must hold every non-zero")
     check(op.K == K and eta == J + 1, "operator shape")
     check(A_n.blocks.shape == A.blocks.shape
           and bool(torch.equal(A_n.indices, A.indices)),
           "L_norm must share the Block-ELL structure of L")
-    check(plan.info["sweep_l2_bytes"] * BATCH <= plan.info["sweep_l2_budget"],
+    check(ops.cheb_sweep_l2_bytes(N, eta, BATCH, stored=SL.stored)
+          <= plan.info["sweep_l2_budget"],
           "the smoke shape must take the sweep")
-    check(ops.jacobi_sweep_l2_bytes(N, BATCH) <= ops.DEFAULT_SWEEP_L2_BUDGET,
+    check(ops.jacobi_sweep_l2_bytes(N, BATCH, stored=SL.stored)
+          <= ops.DEFAULT_SWEEP_L2_BUDGET,
           "the smoke shape must take the Jacobi sweep")
+    check(SL.stored_per_nnz <= 1.5,
+          f"the sweeps' layout stores {SL.stored_per_nnz:.4f} entries per "
+          f"non-zero")
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
@@ -460,18 +520,40 @@ def main() -> int:
 
     x = randn(BATCH, N)
     c = op.coeffs
-    got = cheb_sweep(A.blocks, A.indices, x, c, alpha=alpha)
-    want = cheb_sweep_plain(A.blocks, A.indices, x, c, alpha=alpha)
+    got = cheb_sweep(SL, x, c, alpha=alpha)
+    want = cheb_sweep_plain(SL, x, c, alpha=alpha)
     torch.cuda.synchronize()
     err_sw, rel_sw = rel_err(got, want)
     check(rel_sw <= TOL_SWEEP, f"cheb_sweep: rel err {rel_sw:.3e}")
-    sweep_ms = time_ms(lambda: cheb_sweep(A.blocks, A.indices, x, c,
-                                          alpha=alpha), 5)
-    sweep_plain = time_ms(lambda: cheb_sweep_plain(A.blocks, A.indices, x, c,
-                                                   alpha=alpha), 2, warmup=1)
-    sweep_dev = device_ms(lambda: cheb_sweep(A.blocks, A.indices, x, c,
-                                             alpha=alpha), 3,
+    sweep_ms = time_ms(lambda: cheb_sweep(SL, x, c, alpha=alpha), 5)
+    sweep_plain = time_ms(lambda: cheb_sweep_plain(SL, x, c, alpha=alpha), 2,
+                          warmup=1)
+    sweep_dev = device_ms(lambda: cheb_sweep(SL, x, c, alpha=alpha), 3,
                           "cheb_sweep_kernel")
+    # the other accumulator form (every t_k kept, acc formed once at the
+    # end), held to the same plain version
+    hist_rows = {}
+    for sdt, fn_name, tb, tol in (("f32", "cheb_sweep_history_f32", 8,
+                                   TOL_SWEEP),
+                                  ("bf16", "cheb_sweep_history_bf16", 16,
+                                   TOL_BF16)):
+        def hist_call(sdt=sdt, fn_name=fn_name, tb=tb):
+            return cheb_sweep_history(_build, SL, x, c, alpha, sdt, fn_name,
+                                      tb)
+        got_h = hist_call()
+        want_h = want if sdt == "f32" else cheb_sweep_plain(
+            SL, x, c, alpha=alpha, scratch_dtype="bf16")
+        torch.cuda.synchronize()
+        err_h, rel_h = rel_err(got_h, want_h)
+        check(rel_h <= tol, f"cheb_sweep history form {sdt}: rel err "
+              f"{rel_h:.3e}")
+        hist_rows[sdt] = dict(
+            max_abs_err=err_h, rel_err=rel_h,
+            device_ms=device_ms(hist_call, 3, "cheb_sweep_history_kernel"))
+        print(f"kernel cheb_sweep, other accumulator form (t_1..t_K kept, "
+              f"acc formed once) {sdt}: max_abs_err={err_h:.3e} "
+              f"rel={rel_h:.3e} device_ms={hist_rows[sdt]['device_ms']}")
+        del got_h, want_h
     sweep_b = bound(nnz * 8 + 4 * BATCH * N + 4 * BATCH * eta * N
                     + 4 * (K + 1) * eta,
                     K * (2 * nnz * BATCH + 4 * BATCH * N)
@@ -480,7 +562,8 @@ def main() -> int:
           f"{err_sw:.3e} rel={rel_sw:.3e} (tol {TOL_SWEEP}) ms={sweep_ms:.4f} "
           f"device_ms={sweep_dev} plain_ms={sweep_plain:.4f} "
           f"bound_ms={sweep_b[0]:.5f} ({sweep_b[1]}) "
-          f"grid={cheb_sweep.last_grid} blocks")
+          f"grid={cheb_sweep.last_grid} blocks, "
+          f"stored_per_nnz={SL.stored_per_nnz:.4f} (sliced-ELL)")
     del pt, t1, t2, acc, got, want
 
     # jacobi_step: y and inv_d batched, shared (n,), and as the per-round
@@ -563,14 +646,13 @@ def main() -> int:
     x0j = torch.zeros_like(bj)
     for case, (Aj, den, rounds, inv_d, nz) in sweep_cases.items():
         ws = jacobi.jacobi_weights(rounds)
+        Sj = Aj.sliced_ell()
 
-        def call(Aj=Aj, den=den, ws=ws, inv_d=inv_d):
-            return jacobi_sweep(Aj.blocks, Aj.indices, bj, inv_d, ws, x0j,
-                                den=den)
+        def call(Sj=Sj, den=den, ws=ws, inv_d=inv_d):
+            return jacobi_sweep(Sj, bj, inv_d, ws, x0j, den=den)
 
-        def plain(Aj=Aj, den=den, ws=ws, inv_d=inv_d):
-            return jacobi_sweep_plain(Aj.blocks, Aj.indices, bj, inv_d, ws,
-                                      x0j, den=den)
+        def plain(Sj=Sj, den=den, ws=ws, inv_d=inv_d):
+            return jacobi_sweep_plain(Sj, bj, inv_d, ws, x0j, den=den)
 
         got, want = call(), plain()
         torch.cuda.synchronize()
@@ -591,21 +673,21 @@ def main() -> int:
               f"(tol {TOL_SWEEP}) ms={ms:.4f} device_ms={dev_ms} "
               f"plain_ms={plain_ms:.4f} "
               f"bound_ms={b_ms:.5f} ({b_by}) grid={jacobi_sweep.last_grid} "
-              f"blocks")
+              f"blocks, stored_per_nnz={Sj.stored_per_nnz:.4f} (sliced-ELL)")
 
     # the bf16 mode of both sweeps at the same shapes: cheb_sweep on the
     # SGWT union, jacobi_sweep in setting (a)
     bf16_rows = {}
     x = randn(BATCH, N)
     Aj, den, rounds, inv_d, nz = sweep_cases["a"]
+    Sj = Aj.sliced_ell()
     ws_a = jacobi.jacobi_weights(rounds)
     bf16_calls = {
         "cheb_sweep": (
-            lambda: cheb_sweep(A.blocks, A.indices, x, c, alpha=alpha,
-                               scratch_dtype="bf16"),
-            lambda: cheb_sweep_plain(A.blocks, A.indices, x, c, alpha=alpha,
+            lambda: cheb_sweep(SL, x, c, alpha=alpha, scratch_dtype="bf16"),
+            lambda: cheb_sweep_plain(SL, x, c, alpha=alpha,
                                      scratch_dtype="bf16"),
-            # bf16 blocks (value 2 B + column 4 B per non-zero), bf16 x in,
+            # bf16 values (value 2 B + column 4 B per non-zero), bf16 x in,
             # f32 acc out; the same FMAs as the f32 sweep, at the bf16 peak
             bound(nnz * 6 + 2 * BATCH * N + 4 * BATCH * eta * N
                   + 4 * (K + 1) * eta,
@@ -613,10 +695,10 @@ def main() -> int:
                   + 2 * (K + 1) * BATCH * eta * N, PEAK_BF16_FLOPS),
             lambda: cheb_sweep.last_grid),
         "jacobi_sweep": (
-            lambda: jacobi_sweep(Aj.blocks, Aj.indices, bj, inv_d, ws_a, x0j,
-                                 den=den, scratch_dtype="bf16"),
-            lambda: jacobi_sweep_plain(Aj.blocks, Aj.indices, bj, inv_d, ws_a,
-                                       x0j, den=den, scratch_dtype="bf16"),
+            lambda: jacobi_sweep(Sj, bj, inv_d, ws_a, x0j, den=den,
+                                 scratch_dtype="bf16"),
+            lambda: jacobi_sweep_plain(Sj, bj, inv_d, ws_a, x0j, den=den,
+                                       scratch_dtype="bf16"),
             bound(nz * 6 + 4 * (3 * BATCH * N + N),
                   rounds * (2 * nz * BATCH + 2 * BATCH * N + 6 * BATCH * N),
                   PEAK_BF16_FLOPS),
@@ -812,7 +894,7 @@ def main() -> int:
     # -- the guard: sweep vs per-order on both sides of the L2 budget --------
     for B in (BATCH, 2 * BATCH):
         xg = randn(B, N)
-        need = ops.cheb_sweep_l2_bytes(N, eta, B)
+        need = ops.cheb_sweep_l2_bytes(N, eta, B, stored=SL.stored)
         sw = time_ms(lambda: ops.fused_cheb_apply(
             A, xg, c, lmax, l2_budget=2**62), 3, warmup=1)
         po = time_ms(lambda: ops.fused_cheb_apply(
@@ -886,9 +968,11 @@ def main() -> int:
     plan16 = op.plan("cuda", sweep_dtype="bf16")
     plan_n16 = op_n.plan("cuda", sweep_dtype="bf16")
     check(plan16.info["sweep_dtype"] == "bf16"
-          and plan16.info["sweep_l2_bytes"] * BATCH
+          and ops.cheb_sweep_l2_bytes(N, eta, BATCH, scratch_dtype="bf16",
+                                      stored=SL.stored)
           <= plan16.info["sweep_l2_budget"]
-          and ops.jacobi_sweep_l2_bytes(N, BATCH, scratch_dtype="bf16")
+          and ops.jacobi_sweep_l2_bytes(N, BATCH, scratch_dtype="bf16",
+                                        stored=SL.stored)
           <= ops.DEFAULT_SWEEP_L2_BUDGET,
           "the bf16 plans must take the sweeps at the smoke shape")
     out16, counts = run_path("apply[bf16]", lambda: plan16.apply(F),
@@ -1042,6 +1126,11 @@ def main() -> int:
     sweep_row = dict(max_abs_err=err_sw, ms=sweep_ms, plain_ms=sweep_plain,
                      bound_ms=sweep_b[0], bound_by=sweep_b[1],
                      device_ms=sweep_dev)
+
+    def forms(sdt, rmw):
+        return {"read_modify_write_device_ms": rmw,
+                "iterates_kept_device_ms": hist_rows[sdt]["device_ms"],
+                "iterates_kept_max_abs_err": hist_rows[sdt]["max_abs_err"]}
     kernels = [
         row("sliced_ell_spmv", "sliced_ell_spmv.cu",
             "src/repro/kernels/bcsr_spmv.py:106", s64,
@@ -1051,13 +1140,16 @@ def main() -> int:
         row("cheb_step", "cheb_step.cu", "src/repro/kernels/cheb_step.py:66",
             step_row),
         row("cheb_sweep", "cheb_sweep.cu",
-            "src/repro/kernels/cheb_sweep.py:121", sweep_row),
+            "src/repro/kernels/cheb_sweep.py:121", sweep_row,
+            earlier=EARLIER["cheb_sweep"], stored_per_nnz=SL.stored_per_nnz,
+            accumulator_forms=forms("f32", sweep_dev)),
         row("jacobi_step", "jacobi_step.cu",
             "src/repro/kernels/jacobi_step.py:50", js_rows["path"],
             forms=js_rows),
         row("jacobi_sweep", "jacobi_sweep.cu",
             "src/repro/kernels/cheb_sweep.py:222", jsw_rows["a"],
-            settings=jsw_rows),
+            settings=jsw_rows, earlier=EARLIER["jacobi_sweep"],
+            stored_per_nnz=A_n.sliced_ell().stored_per_nnz),
         row("ista_shrink", "ista_shrink.cu",
             "src/repro/kernels/soft_threshold.py:28", ist_rows["scale"],
             forms=ist_rows),
@@ -1072,11 +1164,15 @@ def main() -> int:
                     if v["kernel"] == "flash_attention_ffma"}),
         dict(row("cheb_sweep", "cheb_sweep.cu",
                  "src/repro/kernels/cheb_sweep.py:121",
-                 bf16_rows["cheb_sweep"], scratch_dtype="bf16"),
+                 bf16_rows["cheb_sweep"], scratch_dtype="bf16",
+                 earlier=EARLIER["cheb_sweep_bf16"],
+                 accumulator_forms=forms(
+                     "bf16", bf16_rows["cheb_sweep"]["device_ms"])),
              name="cheb_sweep_bf16", launches=bf16_launches["cheb_sweep"]),
         dict(row("jacobi_sweep", "jacobi_sweep.cu",
                  "src/repro/kernels/cheb_sweep.py:222",
-                 bf16_rows["jacobi_sweep"], scratch_dtype="bf16"),
+                 bf16_rows["jacobi_sweep"], scratch_dtype="bf16",
+                 earlier=EARLIER["jacobi_sweep_bf16"]),
              name="jacobi_sweep_bf16",
              launches=bf16_launches["jacobi_sweep"]),
     ]

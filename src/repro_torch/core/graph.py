@@ -10,7 +10,9 @@ Weight matrices and Laplacians are dense float32 torch tensors on the
 host.  Block-ELL packing (`to_block_ell`) stays host numpy, vectorised so
 that n = 16384 packs in seconds; its output is bitwise equal to the JAX
 package's loop.  The sliced-ELL row layout (`to_sliced_ell`) that the
-card's SpMV reads is packed the same way, from the Block-ELL.  The
+card's SpMV and sweeps read is packed the same way on the host, from a
+dense P or a Block-ELL; `BlockELL.sliced_ell` builds the same layout in
+torch ops on the blocks' own device.  The
 sensor-network generator builds W in row chunks, so a large n never
 holds n^2 float64 temporaries.
 """
@@ -204,7 +206,7 @@ class BlockELL:
       mask:    (n_row_blocks, max_slots) bool slot validity
       n:       logical (unpadded) dimension
       sliced:  a cache: the same matrix in the sliced-ELL layout at
-               `padded_n`, which the SpMV reads; None until
+               `padded_n`, which the SpMV and the sweeps read; None until
                :meth:`sliced_ell` first packs it
     """
 
@@ -243,11 +245,12 @@ class BlockELL:
                                 else self.sliced.to(device)))
 
     def sliced_ell(self) -> "SlicedELL":
-        """The sliced-ELL form of this matrix on its device, packed from
-        the blocks on the host the first time it is asked for and kept in
-        `sliced`."""
+        """The sliced-ELL form of this matrix, packed from the blocks on
+        their own device (torch ops, no host copy) the first time it is
+        asked for and kept in `sliced`.  Bitwise equal to
+        ``to_sliced_ell(self)``."""
         if self.sliced is None:
-            self.sliced = to_sliced_ell(self).to(self.device)
+            self.sliced = _sliced_from_blocks(self)
         return self.sliced
 
     def sliced_ell_size(self) -> Tuple[int, int]:
@@ -324,6 +327,8 @@ class SlicedELL:
     past `padded_n` in a last, partly filled slice point at column 0).
 
       values:  (stored,) float32, the matrix's exact values
+      values_bf16: (stored,) bfloat16, the values rounded once, which the
+               sweeps' bf16 mode reads
       columns: (stored,) int32 column per entry
       offsets: (n_slices,) int32 first entry of each slice (multiples of 32)
       widths:  (n_slices,) int32 slots of each slice
@@ -333,6 +338,7 @@ class SlicedELL:
     """
 
     values: Tensor
+    values_bf16: Tensor
     columns: Tensor
     offsets: Tensor
     widths: Tensor
@@ -365,6 +371,7 @@ class SlicedELL:
     def to(self, device) -> "SlicedELL":
         return dataclasses.replace(
             self, values=self.values.to(device),
+            values_bf16=self.values_bf16.to(device),
             columns=self.columns.to(device), offsets=self.offsets.to(device),
             widths=self.widths.to(device))
 
@@ -451,11 +458,54 @@ def to_sliced_ell(
     dest = offsets[rows // SLICE_ROWS] + slot * SLICE_ROWS + rows % SLICE_ROWS
     values[dest] = vals
     columns[dest] = cols
-    return SlicedELL(values=torch.from_numpy(values),
+    values = torch.from_numpy(values)
+    return SlicedELL(values=values, values_bf16=values.to(torch.bfloat16),
                      columns=torch.from_numpy(columns),
                      offsets=torch.from_numpy(offsets.astype(np.int32)),
                      widths=torch.from_numpy(widths.astype(np.int32)),
                      n=int(n), padded_n=int(padded_n), nnz=int(rows.size))
+
+
+def _sliced_from_blocks(A: BlockELL) -> SlicedELL:
+    """:func:`to_sliced_ell` of a Block-ELL matrix in torch ops on the
+    blocks' own device: the same layout, bit for bit, without copying the
+    blocks to the host."""
+    dev = A.device
+    br, bc = A.block_shape
+    padded_n = A.padded_n
+    # non-zeros in (row block, row, slot, column) order: by row, then by
+    # column, since a row block's slots run in increasing column block
+    nz = (A.blocks != 0).permute(0, 2, 1, 3).nonzero()
+    rb, i, s, j = nz.unbind(1)
+    rows = rb * br + i
+    cols = A.indices.long()[rb, s] * bc + j
+    vals = A.blocks[rb, s, i, j]
+    n_slices = -(-padded_n // SLICE_ROWS)
+    counts = torch.bincount(rows, minlength=n_slices * SLICE_ROWS)
+    widths = counts.reshape(n_slices, SLICE_ROWS).amax(dim=1)
+    sizes = widths * SLICE_ROWS
+    offsets = torch.cumsum(sizes, 0) - sizes
+    stored = int(sizes.sum())
+    if stored >= 2**31:
+        raise ValueError(f"{stored} stored entries do not fit int32 offsets")
+    # padding: value 0 at the row's own index (column 0 past padded_n)
+    pos = torch.arange(stored, device=dev)
+    columns = (torch.repeat_interleave(
+        torch.arange(n_slices, device=dev), sizes) * SLICE_ROWS
+        + pos % SLICE_ROWS)
+    columns = torch.where(columns < padded_n, columns, 0)
+    values = torch.zeros(stored, dtype=torch.float32, device=dev)
+    row_start = torch.cumsum(counts, 0) - counts
+    slot = torch.arange(rows.numel(), device=dev) - row_start[rows]
+    dest = (offsets[rows // SLICE_ROWS] + slot * SLICE_ROWS
+            + rows % SLICE_ROWS)
+    values[dest] = vals.to(torch.float32)
+    columns[dest] = cols
+    return SlicedELL(values=values, values_bf16=values.to(torch.bfloat16),
+                     columns=columns.to(torch.int32),
+                     offsets=offsets.to(torch.int32),
+                     widths=widths.to(torch.int32), n=int(A.n),
+                     padded_n=int(padded_n), nnz=int(rows.numel()))
 
 
 def spatial_sort(graph: Graph) -> Tuple[Graph, np.ndarray]:

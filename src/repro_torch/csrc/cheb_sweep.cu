@@ -5,106 +5,138 @@
 //     t_1  = P x / alpha - x,
 //     t_k  = (2/alpha) P t_{k-1} - 2 t_{k-1} - t_{k-2},
 //
-// for a (B, n) batch x, Block-ELL P and an order-major (K+1, eta)
-// coefficient table, into a (B, eta, n) accumulator.
+// for a (B, n) batch x, P in the sliced-ELL row layout
+// (core/graph.py::SlicedELL) and an order-major (K+1, eta) coefficient
+// table, into a (B, eta, n) accumulator.
 //
 // Replaces: src/repro/kernels/cheb_sweep.py::cheb_sweep (body
 // _cheb_sweep_kernel, in-kernel SpMV _spmv_into).  The TPU kernel ran the
-// order loop on one core with the iterates pinned in VMEM.  Here each
-// order's SpMV reads all of t_{k-1}, written by every SM in the order
-// before, so orders are separated by a grid-wide barrier
-// (cooperative_groups::this_grid().sync()) and the iterates live in
-// device memory, where the 50 MB L2 decides whether they stay on chip
-// (the footprint guard in repro_torch/kernels/ops.py).
+// order loop on one core with the iterates pinned in VMEM and multiplied
+// (8, 128) Block-ELL tiles.  Here each order's SpMV reads all of t_{k-1},
+// written by every SM in the order before, so orders are separated by a
+// grid-wide barrier (cooperative_groups::this_grid().sync()) and the
+// iterates live in device memory, where the 50 MB L2 decides whether they
+// stay on chip (the footprint guard in repro_torch/kernels/ops.py).
 //
-// What bounds it on this card: per order, the same as the per-order SpMV
-// (block_ell_spmv.cu): the Block-ELL blocks streamed from device memory
-// and the shared-memory-bound FMA loop over mostly-zero (8, 128) blocks.
-// What the sweep saves against the per-order path is 2K - 1 launches and
-// the round trip of P t_{k-1} through device memory: the product stays in
-// registers and feeds the fused update directly.
+// What bounds it on this card: per order, the SpMV's gathers and the
+// accumulator's traffic.  The least work is the structure read once
+// (8 B per non-zero), x read and acc written once, and 2 nnz B + 4 B n +
+// 2 (K+1) B eta n operations: 0.019 ms at n = 16384, B = 64, eta = 7,
+// K = 20 (operations, at the 67 TFLOP/s f32 peak).  In practice each
+// order gathers 8-32 bytes per stored entry and signal tile from the L2,
+// reads and writes the (B, eta, n) accumulator (58.7 MB at that shape)
+// and waits at one barrier.
 //
-// Design: the grid is sized to the number of blocks that can be resident
-// at once (occupancy x SM count) and walks the (row block, batch tile)
-// work items with a grid-stride loop, the same items in every order.
-// Within order k a thread block computes its rows of P t_{k-1}, then
-// applies the update to those same rows: t_k is written into the buffer
-// of t_{k-2}, and acc += c_k (x) t_k.  Only the block's own rows of
-// t_{k-2} are read in that order, and they are read by the same thread
-// just before it overwrites them; every other row any block reads in
-// order k belongs to t_{k-1}, which nobody writes in order k.  So three
-// (B, n) buffers — x (t_0, read only), U and V — rotate in place with ONE
-// barrier per order: t_1 -> U, t_2 -> V, then t_k -> buffer of t_{k-2}.
+// What the design does about it:
+//   - the SpMV reads the sliced-ELL layout (~1.4 stored entries per
+//     non-zero where the (8, 128) tile stored ~44): a warp owns a
+//     32-row slice, one coalesced load of values and one of columns per
+//     slot, each pair reused for TB signals held in registers; no shared
+//     memory and no block barrier;
+//   - the iterates are the kernel's own scratch, stored signal-minor
+//     (sliced_ell_sweep.cuh), so a gather of one column for TB signals
+//     is one vector load; order 1 gathers x in the caller's layout;
+//   - a fixed work decomposition (sliced_ell_sweep.cuh::Walk) gives each
+//     warp the same (slice, signal tile) items in every order; a warp
+//     writes t_k only into the rows of t_{k-2} it has just read itself,
+//     and every row anyone else reads in order k belongs to t_{k-1},
+//     which nobody writes in order k.  So three buffers — x (t_0, read
+//     only, caller layout), U and V — rotate in place with ONE barrier
+//     per order: t_1 -> U, t_2 -> V, then t_k -> buffer of t_{k-2};
+//   - the accumulator is read, updated and written back in place by the
+//     lane that owns its row (coalesced), right after t_k is formed.
 // f32 mode: f32 throughout, plain FFMA (no TF32).
 //
-// bf16 mode (the JAX kernel's scratch_dtype="bf16"): x, the Block-ELL
-// blocks and the iterates U / V are bf16, the coefficient table and the
-// (B, eta, n) accumulator f32.  The SpMV widens each staged element to
-// f32 and sums in f32; each new iterate is computed in f32 from that sum
-// and the bf16 iterates and rounded once to bf16 where it is stored, and
-// the accumulator adds the stored (rounded) value.  The TPU kernel rounded
-// the SpMV product to bf16 in scratch as well and ran the update in bf16
-// arithmetic; here the product never leaves registers, so it is not
-// rounded on its own.  Same kernel template, T = __nv_bfloat16.
+// bf16 mode (the JAX kernel's scratch_dtype="bf16"): the layout's bf16
+// values copy, x read as bf16 and the iterates U / V bf16; the
+// coefficient table and the (B, eta, n) accumulator f32.  The SpMV
+// widens each element to f32 and sums in f32; each new iterate is
+// computed in f32 from that sum and the bf16 iterates and rounded once to
+// bf16 where it is stored, and the accumulator adds the stored (rounded)
+// value.  The TPU kernel rounded the SpMV product to bf16 in scratch as
+// well and ran the update in bf16 arithmetic; here the product never
+// leaves registers, so it is not rounded on its own.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-#include "block_ell_tile.cuh"
+#include "sliced_ell_sweep.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-template <int NB, typename T>
+using repro::CallerRows;
+using repro::MinorRows;
+
+template <typename T, int TB>
 __global__ void __launch_bounds__(repro::kThreads)
-cheb_sweep_kernel(const T* __restrict__ blocks,
-                  const int* __restrict__ indices,
-                  const T* __restrict__ x,
+cheb_sweep_kernel(const T* __restrict__ values,
+                  const int* __restrict__ columns,
+                  const int* __restrict__ offsets,
+                  const int* __restrict__ widths,
+                  const float* __restrict__ x,
                   const float* __restrict__ coefT, float* __restrict__ acc,
-                  T* U, T* V, int nrb, int slots, int br, int bc,
-                  long long n, int B, int K, int eta, float alpha) {
-  extern __shared__ float smem[];
+                  T* U, T* V, int n_slices, long long n, int B, int K,
+                  int eta, float alpha) {
   cg::grid_group grid = cg::this_grid();
-  const int per_pass = repro::kThreads / br;
-  const int tb = NB * per_pass;
-  const int n_tiles = (B + tb - 1) / tb;
-  const long long items = static_cast<long long>(nrb) * n_tiles;
+  const int n_tiles = (B + TB - 1) / TB;
+  const repro::Walk walk(n_slices, n_tiles);
+  const int lane = threadIdx.x % 32;
   const float two_over_alpha = 2.f / alpha;
-  const T* tm1 = x;        // t_{k-1}
-  const T* tm2 = nullptr;  // t_{k-2}
-  T* dst = U;              // where t_k goes
+  // t_{k-1} (order 1: x, in the caller's layout); t_{k-2} is x in
+  // order 2 and then the buffer t_k overwrites
+  const T* tm1 = nullptr;
+  T* dst = U;  // where t_k goes
   for (int k = 1; k <= K; ++k) {
-    for (long long item = blockIdx.x; item < items; item += gridDim.x) {
-      const int rb = static_cast<int>(item / n_tiles);
-      const int b0 = static_cast<int>(item % n_tiles) * tb;
-      float pt[NB];
-      repro::spmv_tile<NB, T, T>(blocks, indices, tm1, slots, br, bc, n, B,
-                                 rb, b0, smem, pt);
-      const long long row = static_cast<long long>(rb) * br +
-                            threadIdx.x % br;
-      const float* ck = coefT + static_cast<long long>(k) * eta;
+    const float* ck = coefT + static_cast<long long>(k) * eta;
+    for (long long item = walk.warp; item < walk.items;
+         item += walk.n_warps) {
+      const int slice = static_cast<int>(item % n_slices);
+      const int bt = static_cast<int>(item / n_slices);
+      const int b0 = bt * TB;
+      const int nb = B - b0 < TB ? B - b0 : TB;
+      const long long tile = static_cast<long long>(bt) * n * TB;
+      float pt[TB];
+      if (k == 1)
+        repro::slice_spmv<TB>(values, columns, offsets[slice],
+                              widths[slice], lane,
+                              CallerRows<T, TB>{x + b0 * n, n, nb}, pt);
+      else
+        repro::slice_spmv<TB>(values, columns, offsets[slice],
+                              widths[slice], lane,
+                              MinorRows<T, TB>{tm1 + tile}, pt);
+      const long long row =
+          static_cast<long long>(slice) * repro::kSliceRows + lane;
+      if (row >= n) continue;  // a partly filled last slice
+      // this lane's row of t_{k-1} and t_{k-2}, then of t_k
+      float p1[TB], p2[TB], tk[TB];
+      const CallerRows<T, TB> x_rows{x + b0 * n, n, nb};
+      if (k == 1) {
+        x_rows(row, p1);
+      } else {
+        repro::load_row<T, TB>(tm1 + tile + row * TB, p1);
+        if (k == 2)
+          x_rows(row, p2);
+        else
+          repro::load_row<T, TB>(dst + tile + row * TB, p2);
+      }
 #pragma unroll
-      for (int i = 0; i < NB; ++i) {
-        const int b = b0 + threadIdx.x / br + i * per_pass;
-        if (b >= B) continue;
-        const long long off = b * n + row;
-        float* a = acc + static_cast<long long>(b) * eta * n + row;
+      for (int t = 0; t < TB; ++t)
+        tk[t] = repro::round_to<T>(
+            k == 1 ? pt[t] / alpha - p1[t]
+                   : two_over_alpha * pt[t] - 2.f * p1[t] - p2[t]);
+      repro::store_row<T, TB>(dst + tile + row * TB, tk);
+#pragma unroll
+      for (int t = 0; t < TB; ++t) {
+        if (t >= nb) break;
+        float* a = acc + static_cast<long long>(b0 + t) * eta * n + row;
         if (k == 1) {
           // orders 0 and 1: acc = (c_0/2) x + c_1 t_1    (lines 4-5)
-          const float xv = repro::to_f32(x[off]);
-          const T t1s = repro::from_f32<T>(pt[i] / alpha - xv);
-          const float t1 = repro::to_f32(t1s);
-          dst[off] = t1s;
           for (int j = 0; j < eta; ++j)
-            a[j * n] = 0.5f * coefT[j] * xv + ck[j] * t1;
+            a[j * n] = 0.5f * coefT[j] * p1[t] + ck[j] * tk[t];
         } else {
           // line 9, then the running sum of line 12
-          const T tks = repro::from_f32<T>(
-              two_over_alpha * pt[i] - 2.f * repro::to_f32(tm1[off]) -
-              repro::to_f32(tm2[off]));
-          const float tk = repro::to_f32(tks);
-          dst[off] = tks;
-          for (int j = 0; j < eta; ++j) a[j * n] = a[j * n] + ck[j] * tk;
+          for (int j = 0; j < eta; ++j) a[j * n] = a[j * n] + ck[j] * tk[t];
         }
       }
     }
@@ -112,70 +144,157 @@ cheb_sweep_kernel(const T* __restrict__ blocks,
     grid.sync();  // t_k complete everywhere before order k+1 reads it
     // rotate: t_{k+1} goes into the buffer of t_{k-1} (V after order 1,
     // since t_0 is the read-only input x)
-    T* freed = (k == 1) ? V : const_cast<T*>(tm1);
-    tm2 = tm1;
+    T* freed = k == 1 ? V : const_cast<T*>(tm1);
     tm1 = dst;
     dst = freed;
   }
 }
 
-template <int NB, typename T>
-int launch(const T* blocks, const int* indices, const T* x,
-           const float* coefT, float* acc, T* U, T* V, int nrb,
-           int slots, int br, int bc, long long n, int B, int K, int eta,
-           float alpha, cudaStream_t stream, int* grid_out) {
-  const int per_pass = repro::kThreads / br;
-  const int tb = NB * per_pass;
-  const size_t smem = repro::tile_smem_bytes(br, bc, tb);
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, cheb_sweep_kernel<NB, T>, repro::kThreads, smem);
-  if (err == cudaSuccess && per_sm < 1)
-    err = cudaErrorCooperativeLaunchTooLarge;
-  if (err != cudaSuccess) return static_cast<int>(err);
+// The other accumulator form, kept only while the two are compared: every
+// t_k is kept in its own buffer of the (K, n_tiles, n, TB) scratch Hs and
+// the accumulator is formed once, after the last order, from the lane's
+// own rows of x and t_1 .. t_K (no barrier: a lane reads only what it
+// wrote itself).
+template <typename T, int TB>
+__global__ void __launch_bounds__(repro::kThreads)
+cheb_sweep_history_kernel(const T* __restrict__ values,
+                          const int* __restrict__ columns,
+                          const int* __restrict__ offsets,
+                          const int* __restrict__ widths,
+                          const float* __restrict__ x,
+                          const float* __restrict__ coefT,
+                          float* __restrict__ acc, T* Hs, int n_slices,
+                          long long n, int B, int K, int eta, float alpha) {
+  cg::grid_group grid = cg::this_grid();
+  const int n_tiles = (B + TB - 1) / TB;
+  const repro::Walk walk(n_slices, n_tiles);
+  const int lane = threadIdx.x % 32;
+  const float two_over_alpha = 2.f / alpha;
+  const long long stride = static_cast<long long>(n_tiles) * n * TB;
+  for (int k = 1; k <= K; ++k) {
+    T* dst = Hs + (k - 1) * stride;
+    const T* tm1 = Hs + (k - 2) * stride;
+    const T* tm2 = Hs + (k - 3) * stride;
+    for (long long item = walk.warp; item < walk.items;
+         item += walk.n_warps) {
+      const int slice = static_cast<int>(item % n_slices);
+      const int bt = static_cast<int>(item / n_slices);
+      const int b0 = bt * TB;
+      const int nb = B - b0 < TB ? B - b0 : TB;
+      const long long tile = static_cast<long long>(bt) * n * TB;
+      float pt[TB];
+      if (k == 1)
+        repro::slice_spmv<TB>(values, columns, offsets[slice],
+                              widths[slice], lane,
+                              CallerRows<T, TB>{x + b0 * n, n, nb}, pt);
+      else
+        repro::slice_spmv<TB>(values, columns, offsets[slice],
+                              widths[slice], lane,
+                              MinorRows<T, TB>{tm1 + tile}, pt);
+      const long long row =
+          static_cast<long long>(slice) * repro::kSliceRows + lane;
+      if (row >= n) continue;
+      float p1[TB], p2[TB], tk[TB];
+      const CallerRows<T, TB> x_rows{x + b0 * n, n, nb};
+      if (k == 1) {
+        x_rows(row, p1);
+      } else {
+        repro::load_row<T, TB>(tm1 + tile + row * TB, p1);
+        if (k == 2)
+          x_rows(row, p2);
+        else
+          repro::load_row<T, TB>(tm2 + tile + row * TB, p2);
+      }
+#pragma unroll
+      for (int t = 0; t < TB; ++t)
+        tk[t] = repro::round_to<T>(
+            k == 1 ? pt[t] / alpha - p1[t]
+                   : two_over_alpha * pt[t] - 2.f * p1[t] - p2[t]);
+      repro::store_row<T, TB>(dst + tile + row * TB, tk);
+    }
+    if (k < K) grid.sync();
+  }
+  constexpr int kJ = 8;  // accumulator rows held in registers per pass
+  for (long long item = walk.warp; item < walk.items; item += walk.n_warps) {
+    const int slice = static_cast<int>(item % n_slices);
+    const int bt = static_cast<int>(item / n_slices);
+    const int b0 = bt * TB;
+    const int nb = B - b0 < TB ? B - b0 : TB;
+    const long long tile = static_cast<long long>(bt) * n * TB;
+    const long long row =
+        static_cast<long long>(slice) * repro::kSliceRows + lane;
+    if (row >= n) continue;
+    float xv[TB];
+    CallerRows<T, TB>{x + b0 * n, n, nb}(row, xv);
+    for (int j0 = 0; j0 < eta; j0 += kJ) {
+      float a[kJ][TB];
+#pragma unroll
+      for (int jj = 0; jj < kJ; ++jj) {
+        const float c0 = j0 + jj < eta ? 0.5f * coefT[j0 + jj] : 0.f;
+#pragma unroll
+        for (int t = 0; t < TB; ++t) a[jj][t] = c0 * xv[t];
+      }
+      for (int k = 1; k <= K; ++k) {
+        float tk[TB];
+        repro::load_row<T, TB>(Hs + (k - 1) * stride + tile + row * TB, tk);
+        const float* ck = coefT + static_cast<long long>(k) * eta + j0;
+#pragma unroll
+        for (int jj = 0; jj < kJ; ++jj) {
+          const float cj = j0 + jj < eta ? ck[jj] : 0.f;
+#pragma unroll
+          for (int t = 0; t < TB; ++t) a[jj][t] = a[jj][t] + cj * tk[t];
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < TB; ++t) {
+        if (t >= nb) break;
+#pragma unroll
+        for (int jj = 0; jj < kJ; ++jj)
+          if (j0 + jj < eta)
+            acc[(static_cast<long long>(b0 + t) * eta + j0 + jj) * n + row] =
+                a[jj][t];
+      }
+    }
+  }
+}
+
+template <typename T, int TB>
+int launch_history(const void* values, const void* columns,
+                   const void* offsets, const void* widths, const void* x,
+                   const void* coefT, void* acc, void* Hs, int n_slices,
+                   long long n, int B, int K, int eta, float alpha,
+                   cudaStream_t stream, int* grid_out) {
+  auto kernel = cheb_sweep_history_kernel<T, TB>;
   const long long items =
-      static_cast<long long>(nrb) * ((B + tb - 1) / tb);
-  long long g = static_cast<long long>(per_sm) * sms;
-  if (g > items) g = items;
-  *grid_out = static_cast<int>(g);
-  void* args[] = {&blocks, &indices, &x, &coefT, &acc, &U, &V, &nrb,
-                  &slots, &br, &bc, &n, &B, &K, &eta, &alpha};
-  err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(cheb_sweep_kernel<NB, T>),
-      dim3(static_cast<unsigned>(g)), dim3(repro::kThreads), args, smem,
-      stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
+      static_cast<long long>(n_slices) * ((B + TB - 1) / TB);
+  int err = repro::coop_grid(kernel, items, grid_out);
+  if (err) return err;
+  void* args[] = {&values, &columns, &offsets, &widths, &x, &coefT, &acc,
+                  &Hs, &n_slices, &n, &B, &K, &eta, &alpha};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                    dim3(static_cast<unsigned>(*grid_out)),
+                                    dim3(repro::kThreads), args, 0, stream);
+  if (err) return err;
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int sweep(const void* blocks, const void* indices, const void* x,
-          const void* coefT, void* acc, void* U, void* V, int nrb, int slots,
-          int br, int bc, int B, int K, int eta, float alpha, void* stream,
-          void* grid_out) {
-  const int per_pass = repro::kThreads / br;
-  const long long n = static_cast<long long>(nrb) * br;
-  auto* b = static_cast<const T*>(blocks);
-  auto* ix = static_cast<const int*>(indices);
-  auto* xx = static_cast<const T*>(x);
-  auto* c = static_cast<const float*>(coefT);
-  auto* a = static_cast<float*>(acc);
-  auto* u = static_cast<T*>(U);
-  auto* v = static_cast<T*>(V);
-  auto s = static_cast<cudaStream_t>(stream);
-  auto* g = static_cast<int*>(grid_out);
-  if (B > per_pass)
-    return launch<2>(b, ix, xx, c, a, u, v, nrb, slots, br, bc, n, B, K, eta,
-                     alpha, s, g);
-  return launch<1>(b, ix, xx, c, a, u, v, nrb, slots, br, bc, n, B, K, eta,
-                   alpha, s, g);
+template <typename T, int TB>
+int launch(const void* values, const void* columns, const void* offsets,
+           const void* widths, const void* x, const void* coefT, void* acc,
+           void* U, void* V, int n_slices, long long n, int B, int K,
+           int eta, float alpha, cudaStream_t stream, int* grid_out) {
+  auto kernel = cheb_sweep_kernel<T, TB>;
+  const long long items =
+      static_cast<long long>(n_slices) * ((B + TB - 1) / TB);
+  int err = repro::coop_grid(kernel, items, grid_out);
+  if (err) return err;
+  void* args[] = {&values, &columns, &offsets, &widths, &x, &coefT, &acc,
+                  &U, &V, &n_slices, &n, &B, &K, &eta, &alpha};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                    dim3(static_cast<unsigned>(*grid_out)),
+                                    dim3(repro::kThreads), args, 0, stream);
+  if (err) return err;
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -186,28 +305,77 @@ const char* error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// blocks (nrb, slots, br, bc), indices (nrb, slots), x (B, n) with
-// n = nrb * br = ncb * bc, coefT (K+1, eta) f32, acc (B, eta, n) f32
-// output, U and V (B, n) scratch.  blocks, x, U and V are f32 in
-// cheb_sweep_f32 and bf16 in cheb_sweep_bf16.  K >= 1.  Writes the grid
-// size used to *grid_out.  Returns the launch's cudaError_t: a
-// cooperative launch the card refuses is reported, never run partially or
-// retried another way.
-int cheb_sweep_f32(const void* blocks, const void* indices, const void* x,
-                   const void* coefT, void* acc, void* U, void* V, int nrb,
-                   int slots, int br, int bc, int B, int K, int eta,
+// values (stored,) f32 in cheb_sweep_f32 and the layout's bf16 copy in
+// cheb_sweep_bf16, columns (stored,) int32, offsets / widths (n_slices,)
+// int32 (core/graph.py::SlicedELL), x (B, n) f32 with n = the layout's
+// padded n, coefT (K+1, eta) f32, acc (B, eta, n) f32 output, U and V
+// (ceil(B / TB), n, TB) scratch, f32 in cheb_sweep_f32 and bf16 in
+// cheb_sweep_bf16.  TB, the signals per tile, is 1, 2, 4 or 8 in f32 and
+// 2, 4, 8 or 16 in bf16.  K >= 1.  Writes the grid size used to
+// *grid_out.  Returns the launch's cudaError_t: a cooperative launch the
+// card refuses is reported, never run partially or retried another way.
+int cheb_sweep_f32(const void* values, const void* columns,
+                   const void* offsets, const void* widths, const void* x,
+                   const void* coefT, void* acc, void* U, void* V,
+                   int n_slices, long long n, int B, int TB, int K, int eta,
                    float alpha, void* stream, void* grid_out) {
-  return sweep<float>(blocks, indices, x, coefT, acc, U, V, nrb, slots, br,
-                      bc, B, K, eta, alpha, stream, grid_out);
+  auto s = static_cast<cudaStream_t>(stream);
+  auto g = static_cast<int*>(grid_out);
+#define CHEB_SWEEP_CASE(TYPE, TILE)                                        \
+  case TILE:                                                             \
+    return launch<TYPE, TILE>(values, columns, offsets, widths, x, coefT, \
+                              acc, U, V, n_slices, n, B, K, eta, alpha, s, \
+                              g);
+  switch (TB) {
+    CHEB_SWEEP_CASE(float, 1)
+    CHEB_SWEEP_CASE(float, 2)
+    CHEB_SWEEP_CASE(float, 4)
+    CHEB_SWEEP_CASE(float, 8)
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-int cheb_sweep_bf16(const void* blocks, const void* indices, const void* x,
-                    const void* coefT, void* acc, void* U, void* V, int nrb,
-                    int slots, int br, int bc, int B, int K, int eta,
+int cheb_sweep_bf16(const void* values, const void* columns,
+                    const void* offsets, const void* widths, const void* x,
+                    const void* coefT, void* acc, void* U, void* V,
+                    int n_slices, long long n, int B, int TB, int K, int eta,
                     float alpha, void* stream, void* grid_out) {
-  return sweep<__nv_bfloat16>(blocks, indices, x, coefT, acc, U, V, nrb,
-                              slots, br, bc, B, K, eta, alpha, stream,
-                              grid_out);
+  auto s = static_cast<cudaStream_t>(stream);
+  auto g = static_cast<int*>(grid_out);
+  switch (TB) {
+    CHEB_SWEEP_CASE(__nv_bfloat16, 2)
+    CHEB_SWEEP_CASE(__nv_bfloat16, 4)
+    CHEB_SWEEP_CASE(__nv_bfloat16, 8)
+    CHEB_SWEEP_CASE(__nv_bfloat16, 16)
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+#undef CHEB_SWEEP_CASE
+
+// The history form at TB = 8 (f32) / 16 (bf16): Hs (K, ceil(B / TB), n,
+// TB) scratch.
+int cheb_sweep_history_f32(const void* values, const void* columns,
+                           const void* offsets, const void* widths,
+                           const void* x, const void* coefT, void* acc,
+                           void* Hs, int n_slices, long long n, int B, int K,
+                           int eta, float alpha, void* stream,
+                           void* grid_out) {
+  return launch_history<float, 8>(values, columns, offsets, widths, x, coefT,
+                                  acc, Hs, n_slices, n, B, K, eta, alpha,
+                                  static_cast<cudaStream_t>(stream),
+                                  static_cast<int*>(grid_out));
+}
+
+int cheb_sweep_history_bf16(const void* values, const void* columns,
+                            const void* offsets, const void* widths,
+                            const void* x, const void* coefT, void* acc,
+                            void* Hs, int n_slices, long long n, int B,
+                            int K, int eta, float alpha, void* stream,
+                            void* grid_out) {
+  return launch_history<__nv_bfloat16, 16>(
+      values, columns, offsets, widths, x, coefT, acc, Hs, n_slices, n, B, K,
+      eta, alpha, static_cast<cudaStream_t>(stream),
+      static_cast<int*>(grid_out));
 }
 
 }  // extern "C"

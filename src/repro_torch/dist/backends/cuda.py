@@ -2,18 +2,19 @@
 whole-recurrence sweep kernels written for Hopper.
 
 The counterpart of the JAX package's 'pallas' backend, with its contract:
-the dense P is packed once at plan time into Block-ELL (the sweeps' tile)
-and moved to the plan's device; the sliced-ELL row layout that every
-stand-alone SpMV reads is packed from it at the plan's first SpMV (a plan
-that runs only sweeps never packs it); signals are padded
-to the Block-ELL padded size on the way in and cropped back to the
+the dense P is packed once at plan time into Block-ELL (the JAX package's
+structure, kept for its padded size and metadata) and moved to the
+plan's device; the sliced-ELL row layout that every kernel reads — the
+stand-alone SpMV and both sweeps — is packed from it on the device at
+the plan's first apply or solve (`BlockELL.sliced_ell`); signals are
+padded to the Block-ELL padded size on the way in and cropped back to the
 logical N on the way out.  By default `apply` and `apply_gram` send the
 whole K-order recurrence to the single-launch `cheb_sweep` kernel,
 guarded by the L2 footprint model with a logged per-order fallback
 (``sweep=False`` / ``l2_budget=`` at plan time control it);
 `apply_adjoint` runs one batched sliced-ELL SpMV launch per order.
 ``sweep_dtype="bf16"`` runs both sweeps in their mixed-precision mode
-(bf16 blocks and iterates, f32 accumulation).  The plan's matvec is
+(the layout's bf16 values and bf16 iterates, f32 accumulation).  The plan's matvec is
 tagged with its Block-ELL structure (``_mv.block_ell``), its L2 budget
 and its sweep dtype, so that `ops.fused_cheb_recurrence` over it engages
 the sweep and `plan.solve`'s Jacobi methods reach
@@ -116,8 +117,12 @@ def build(op, *, mesh=None, partition=None, device=None,
             "stored_per_nnz": stored / max(nnz, 1),
             "flops_per_matvec": 2 * stored,
             "sweep_dtype": sweep_dtype,
+            # the guard's model per signal; the sweeps read the sliced-ELL
+            # layout, whose values and columns it adds once per launch
             "sweep_l2_bytes": ops.cheb_sweep_l2_bytes(
                 total, op.eta, scratch_dtype=sweep_dtype),
+            "sweep_l2_structure_bytes": ops.cheb_sweep_l2_bytes(
+                0, op.eta, scratch_dtype=sweep_dtype, stored=stored),
             "sweep_l2_budget": (ops.DEFAULT_SWEEP_L2_BUDGET
                                 if l2_budget is None else l2_budget),
             "block_ell": A,

@@ -10,10 +10,9 @@ for any batch: Y = A X^T on (..., padded_n) signals, by the hand-written
 CUDA kernel ``csrc/sliced_ell_spmv.cu``, which replaces both
 `block_ell_spmv` and `block_ell_spmv_batched` of the JAX package.
 
-The Block-ELL plain version (`block_ell_spmv_plain`) stays: it is the
-SpMV inside the sweeps' plain versions, and the bridge the parity tests
-hold against the JAX kernels; `check_block_ell` guards the sweeps, which
-keep the Block-ELL tile.
+The Block-ELL plain version (`block_ell_spmv_plain`) stays as the bridge
+the parity tests hold against the JAX kernels.  The whole-iteration
+sweeps (`kernels/cheb_sweep.py`) read the same sliced layout.
 
 Dispatch: a tensor on the CPU takes the plain PyTorch version
 (`sliced_ell_spmv_plain`); a CUDA tensor launches the kernel or raises.
@@ -22,6 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
@@ -29,11 +29,6 @@ from ..core.graph import SLICE_ROWS, SlicedELL
 from . import _build
 
 Tensor = torch.Tensor
-
-#: Shared memory one thread block of the kernel may use without opting in.
-SMEM_LIMIT = 48 * 1024
-#: Threads per block of the Block-ELL sweeps (csrc/block_ell_tile.cuh).
-THREADS = 256
 
 
 def block_ell_spmv_plain(blocks: Tensor, indices: Tensor, x: Tensor) -> Tensor:
@@ -49,49 +44,16 @@ def block_ell_spmv_plain(blocks: Tensor, indices: Tensor, x: Tensor) -> Tensor:
     return y.reshape(lead + (nrb * br,))
 
 
-def tile_smem_bytes(br: int, bc: int, batch: int) -> int:
-    """Shared memory of one thread block of the Block-ELL sweeps: the
-    (br, bc) matrix block and the iterate tile, rows padded to bc + 1."""
-    per_pass = THREADS // br
-    tb = (2 if batch > per_pass else 1) * per_pass
-    return 4 * (br + tb) * (bc + 1)
-
-
-def check_block_ell(blocks: Tensor, indices: Tensor, x: Tensor) -> None:
-    """Raise on anything the Block-ELL kernels do not take."""
-    if x.device.type != "cuda":
-        raise ValueError(f"Block-ELL kernels run on CUDA tensors, got "
-                         f"{x.device}")
-    if blocks.device != x.device or indices.device != x.device:
-        raise ValueError("blocks, indices and x must share one device")
-    if blocks.dtype != torch.float32 or x.dtype != torch.float32:
-        raise TypeError("Block-ELL kernels take float32 blocks and signals")
-    if indices.dtype != torch.int32:
-        raise TypeError("Block-ELL column indices must be int32")
-    if blocks.ndim != 4 or indices.shape != blocks.shape[:2]:
-        raise ValueError(f"blocks {tuple(blocks.shape)} / indices "
-                         f"{tuple(indices.shape)} are not Block-ELL")
-    if not (blocks.is_contiguous() and indices.is_contiguous()
-            and x.is_contiguous()):
-        raise ValueError("Block-ELL kernels take contiguous tensors")
-    _, _, br, bc = blocks.shape
-    if THREADS % br:
-        raise ValueError(f"row block {br} must divide {THREADS}")
-    if x.shape[-1] % bc:
-        raise ValueError(f"signal length {x.shape[-1]} is not a multiple of "
-                         f"the column block {bc}")
-    batch = math.prod(x.shape[:-1])
-    if tile_smem_bytes(br, bc, batch) > SMEM_LIMIT:
-        raise ValueError(f"block shape ({br}, {bc}) needs more than "
-                         f"{SMEM_LIMIT} B of shared memory")
-
-
-def sliced_ell_spmv_plain(S: SlicedELL, x: Tensor) -> Tensor:
+def sliced_ell_spmv_plain(S: SlicedELL, x: Tensor,
+                          values: Optional[Tensor] = None) -> Tensor:
     """y = A @ x in plain PyTorch for sliced-ELL A and x (..., padded_n)
     with any leading batch dims: every stored entry's product gathered,
-    then summed into its row (padding entries add 0)."""
+    then summed into its row (padding entries add 0).  `values` replaces
+    the layout's f32 values (the sweeps' bf16 mode passes its bf16
+    copy); products and sums are in x's dtype."""
     _check_width(S, x)
-    prod = S.values.to(x.dtype) * x[..., S.columns.long()]
+    values = S.values if values is None else values
+    prod = values.to(x.dtype) * x[..., S.columns.long()]
     y = torch.zeros(x.shape[:-1] + (S.n_slices * SLICE_ROWS,),
                     dtype=x.dtype, device=x.device)
     y.index_add_(y.ndim - 1, S.entry_rows(), prod)

@@ -2,26 +2,28 @@
 rounds of a Section-V Jacobi solve, in ONE kernel launch.
 
 ``csrc/cheb_sweep.cu`` (replacing the JAX package's `cheb_sweep`) is a
-cooperative kernel: a grid of co-resident thread blocks walks the
-Block-ELL row blocks, computes each order's SpMV rows and applies the
-fused three-term update and eta-fold accumulation to the same rows, with
-one grid-wide barrier between orders.  The iterates live in device
-memory; `ops.cheb_sweep_l2_bytes` models whether they stay in the L2.
+cooperative kernel: a grid of co-resident thread blocks walks the 32-row
+slices of P's sliced-ELL layout (`core.graph.SlicedELL`, a warp per
+slice and tile of signals), computes each order's SpMV rows and applies
+the fused three-term update and eta-fold accumulation to the same rows,
+with one grid-wide barrier between orders.  The iterates live in device
+memory, signal-minor, in the kernel's own scratch;
+`ops.cheb_sweep_l2_bytes` models whether they stay in the L2.
 
 ``csrc/jacobi_sweep.cu`` (replacing the JAX package's `jacobi_sweep`) is
 its Section-V counterpart: every round of Eq. (24) / (25) on den(P) x = b
-— deg(den) Block-ELL SpMVs by Horner plus the fused update — with one
+— deg(den) sliced-ELL SpMVs by Horner plus the fused update — with one
 grid-wide barrier per SpMV; `ops.jacobi_sweep_l2_bytes` is its footprint
 model.
 
 Both take ``scratch_dtype`` "f32" or "bf16", the JAX kernels' mixed
-precision mode.  Under "bf16" the Block-ELL blocks and the iterates that
-the SpMV reads are bf16 (for `cheb_sweep` also x; for `jacobi_sweep` the
-Horner partial sums, and x_prev as the update reads it), while the
-accumulator, the coefficient and weight tables, and `jacobi_sweep`'s x, b,
-D^-1 and update stay f32.  Every SpMV sums in f32; each new bf16 value is
-computed in f32 and rounded once where it is stored.  The f32 blocks are
-cast to bf16 per launch (one pass over them, small beside the sweep).
+precision mode.  Under "bf16" the layout's values (its bf16 copy,
+`SlicedELL.values_bf16`) and the iterates that the SpMV reads are bf16
+(for `cheb_sweep` also x; for `jacobi_sweep` the Horner partial sums, and
+x_prev as the update reads it), while the accumulator, the coefficient
+and weight tables, and `jacobi_sweep`'s x, b, D^-1 and update stay f32.
+Every SpMV sums in f32; each new bf16 value is computed in f32 and
+rounded once where it is stored.
 
 Dispatch: CPU tensors take the plain PyTorch versions (`cheb_sweep_plain`,
 `jacobi_sweep_plain`, both modes); CUDA tensors launch the kernels or
@@ -36,8 +38,9 @@ import math
 import numpy as np
 import torch
 
+from ..core.graph import SlicedELL
 from . import _build
-from .bcsr_spmv import block_ell_spmv_plain, check_block_ell
+from .bcsr_spmv import sliced_ell_spmv_plain
 
 Tensor = torch.Tensor
 
@@ -62,17 +65,38 @@ def _store(scratch_dtype: str):
     return lambda t: t.to(torch.bfloat16).to(t.dtype)
 
 
-def cheb_sweep_plain(blocks: Tensor, indices: Tensor, x: Tensor,
-                     coeffs: Tensor, *, alpha: float,
-                     scratch_dtype: str = "f32") -> Tensor:
-    """The whole K-order recurrence in plain PyTorch.
+def _values(S: SlicedELL, scratch_dtype: str) -> Tensor:
+    """The layout's values a sweep reads in `scratch_dtype`."""
+    return S.values_bf16 if scratch_dtype == "bf16" else S.values
 
-    x: (..., n) at the Block-ELL padded size; coeffs: (eta, K+1).
-    Returns (..., eta, n).  Under ``scratch_dtype="bf16"`` x, the blocks
-    and every iterate are rounded to bf16 where the kernel stores them."""
+
+def _signal_tile(B: int, scratch_dtype: str) -> int:
+    """Signals per tile of the sweeps: the batch rounded up to a power of
+    two, at most 8 f32 or 16 bf16 values (32 bytes, one sector per
+    gather); at least 2 in bf16 (a 4-byte word)."""
+    lo, hi = (2, 16) if scratch_dtype == "bf16" else (1, 8)
+    tb = lo
+    while tb < min(B, hi):
+        tb *= 2
+    return tb
+
+
+def cheb_sweep_plain(S: SlicedELL, x: Tensor, coeffs: Tensor, *,
+                     alpha: float, scratch_dtype: str = "f32") -> Tensor:
+    """The whole K-order recurrence in plain PyTorch on the sliced-ELL
+    SpMV's plain version.
+
+    x: (..., padded_n) at the layout's padded size; coeffs: (eta, K+1).
+    Returns (..., eta, padded_n).  Under ``scratch_dtype="bf16"`` the
+    SpMV multiplies the layout's bf16 values, and x and every iterate are
+    rounded to bf16 where the kernel stores them."""
     check_scratch_dtype(scratch_dtype)
     store = _store(scratch_dtype)
-    blocks = store(blocks)
+    values = _values(S, scratch_dtype)
+
+    def spmv(t):
+        return sliced_ell_spmv_plain(S, t, values=values)
+
     c = torch.as_tensor(coeffs, dtype=x.dtype, device=x.device)
     K = c.shape[1] - 1
     x = store(x)
@@ -80,14 +104,26 @@ def cheb_sweep_plain(blocks: Tensor, indices: Tensor, x: Tensor,
     if K == 0:
         return acc
     t0 = x
-    t1 = store(block_ell_spmv_plain(blocks, indices, x) / alpha - x)
+    t1 = store(spmv(x) / alpha - x)
     acc = acc + c[:, 1:2] * t1[..., None, :]
     for k in range(2, K + 1):
-        pt = block_ell_spmv_plain(blocks, indices, t1)
-        tk = store((2.0 / alpha) * pt - 2.0 * t1 - t0)
+        tk = store((2.0 / alpha) * spmv(t1) - 2.0 * t1 - t0)
         acc = acc + c[:, k:k + 1] * tk[..., None, :]
         t0, t1 = t1, tk
     return acc
+
+
+def _check_layout(S: SlicedELL, x: Tensor, what: str) -> None:
+    """Raise on anything the sweep kernels do not take."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} runs on CUDA tensors, got {x.device}")
+    if S.device != x.device:
+        raise ValueError(f"layout on {S.device}, signals on {x.device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"{what} takes float32 signals")
+    if x.shape[-1] != S.padded_n:
+        raise ValueError(f"signal length {x.shape[-1]} != the layout's "
+                         f"padded n {S.padded_n}")
 
 
 def _lib() -> ctypes.CDLL:
@@ -95,48 +131,47 @@ def _lib() -> ctypes.CDLL:
     for fn in (lib.cheb_sweep_f32, lib.cheb_sweep_bf16):
         if fn.argtypes is None:
             fn.restype = ctypes.c_int
-            fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+            fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int]
+                           + [ctypes.c_longlong] + [ctypes.c_int] * 4
                            + [ctypes.c_float, ctypes.c_void_p,
                               ctypes.c_void_p])
     return lib
 
 
-def cheb_sweep(blocks: Tensor, indices: Tensor, x: Tensor, coeffs,
-               *, alpha: float, scratch_dtype: str = "f32") -> Tensor:
+def cheb_sweep(S: SlicedELL, x: Tensor, coeffs, *, alpha: float,
+               scratch_dtype: str = "f32") -> Tensor:
     """Full K-order shifted-Chebyshev recurrence in one kernel launch.
 
-    blocks/indices: Block-ELL structure; x: (..., n) with n the padded
-    size (n = nrb * br); coeffs: (eta, K+1), K >= 1.  Returns
-    (..., eta, n).  CPU tensors take the plain version; CUDA tensors
-    launch ``csrc/cheb_sweep.cu`` (counted in ``cheb_sweep.launches``;
-    the grid of the last launch is ``cheb_sweep.last_grid``).
-    scratch_dtype: "f32" or "bf16" (f32 x and blocks in, f32 out either
-    way; see the module docstring).
+    S: P's sliced-ELL layout; x: (..., n) with n the layout's padded
+    size; coeffs: (eta, K+1), K >= 1.  Returns (..., eta, n).  CPU
+    tensors take the plain version; CUDA tensors launch
+    ``csrc/cheb_sweep.cu`` (counted in ``cheb_sweep.launches``; the grid
+    of the last launch is ``cheb_sweep.last_grid``).  scratch_dtype:
+    "f32" or "bf16" (f32 x in, f32 out either way; see the module
+    docstring).
     """
     sdt = check_scratch_dtype(scratch_dtype)
     if x.device.type == "cpu":
-        return cheb_sweep_plain(blocks, indices, x, coeffs, alpha=alpha,
+        return cheb_sweep_plain(S, x, coeffs, alpha=alpha,
                                 scratch_dtype=scratch_dtype)
-    check_block_ell(blocks, indices, x)
-    nrb, slots, br, bc = blocks.shape
-    n = x.shape[-1]
-    if n != nrb * br:
-        raise ValueError(f"x length {n} != Block-ELL padded size {nrb * br}")
+    _check_layout(S, x, "cheb_sweep")
+    if not x.is_contiguous():
+        raise ValueError("cheb_sweep takes contiguous signals")
     c = torch.as_tensor(coeffs, dtype=torch.float32, device=x.device)
     if c.ndim != 2 or c.shape[1] < 2:
         raise ValueError(f"coeffs must be (eta, K+1) with K >= 1, got "
                          f"{tuple(c.shape)}")
     eta, K1 = c.shape
     coefT = c.t().contiguous()                       # order-major (K+1, eta)
+    n = S.padded_n
     lead = x.shape[:-1]
     B = math.prod(lead)
     acc = torch.empty(lead + (eta, n), dtype=x.dtype, device=x.device)
     if B == 0:
         return acc
-    blocks_s = blocks.to(sdt)
-    x_s = x.to(sdt)
-    U = torch.empty((B, n), dtype=sdt, device=x.device)
-    V = torch.empty((B, n), dtype=sdt, device=x.device)
+    tb = _signal_tile(B, scratch_dtype)
+    U, V = (torch.empty(-(-B // tb) * n * tb, dtype=sdt, device=x.device)
+            for _ in range(2))
     grid = ctypes.c_int(0)
     lib = _lib()
     launch = lib.cheb_sweep_bf16 if scratch_dtype == "bf16" \
@@ -144,9 +179,10 @@ def cheb_sweep(blocks: Tensor, indices: Tensor, x: Tensor, coeffs,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(
-            blocks_s.data_ptr(), indices.data_ptr(), x_s.data_ptr(),
+            _values(S, scratch_dtype).data_ptr(), S.columns.data_ptr(),
+            S.offsets.data_ptr(), S.widths.data_ptr(), x.data_ptr(),
             coefT.data_ptr(), acc.data_ptr(), U.data_ptr(), V.data_ptr(),
-            nrb, slots, br, bc, B, K1 - 1, eta, float(alpha), stream,
+            S.n_slices, n, B, tb, K1 - 1, eta, float(alpha), stream,
             ctypes.addressof(grid))
     _build.check(lib, err, "cheb_sweep (cooperative launch)")
     cheb_sweep.launches += 1
@@ -158,27 +194,28 @@ cheb_sweep.launches = 0
 cheb_sweep.last_grid = 0
 
 
-def jacobi_sweep_plain(blocks: Tensor, indices: Tensor, b: Tensor,
-                       inv_d: Tensor, weights, x0: Tensor, *,
-                       den, scratch_dtype: str = "f32") -> Tensor:
-    """The whole (accelerated-)Jacobi solve in plain PyTorch, rounds
-    unrolled like the JAX package's `ref.jacobi_sweep_ref`.
+def jacobi_sweep_plain(S: SlicedELL, b: Tensor, inv_d: Tensor, weights,
+                       x0: Tensor, *, den,
+                       scratch_dtype: str = "f32") -> Tensor:
+    """The whole (accelerated-)Jacobi solve in plain PyTorch on the
+    sliced-ELL SpMV's plain version, rounds unrolled like the JAX
+    package's `ref.jacobi_sweep_ref`.
 
-    b / x0: (..., n) at the Block-ELL padded size; inv_d broadcastable;
+    b / x0: (..., n) at the layout's padded size; inv_d broadcastable;
     weights: (n_iters, 2) host (w_t, s_t); den: monomial coefficients,
     low degree first.  Returns x after n_iters rounds.  Under
-    ``scratch_dtype="bf16"`` the blocks, every Horner partial sum after
-    the first SpMV and x_prev are rounded to bf16 where the kernel stores
-    (or reads) them."""
+    ``scratch_dtype="bf16"`` the SpMV multiplies the layout's bf16
+    values, and every Horner partial sum and x_prev are rounded to bf16
+    where the kernel stores (or reads) them."""
     check_scratch_dtype(scratch_dtype)
     store = _store(scratch_dtype)
-    blocks = store(blocks)
+    values = _values(S, scratch_dtype)
     ws = np.asarray(weights, dtype=np.float64)
     x, x_prev = x0, x0
     for t in range(ws.shape[0]):
         h = den[-1] * x
         for c in den[-2::-1]:
-            h = store(block_ell_spmv_plain(blocks, indices, h) + c * x)
+            h = store(sliced_ell_spmv_plain(S, h, values=values) + c * x)
         if len(den) == 1:
             h = store(h)
         x_next = float(ws[t, 0]) * (x + inv_d * (b - h)) \
@@ -192,28 +229,28 @@ def _jacobi_lib() -> ctypes.CDLL:
     for fn in (lib.jacobi_sweep_f32, lib.jacobi_sweep_bf16):
         if fn.argtypes is None:
             fn.restype = ctypes.c_int
-            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
-                           + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+            fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong]
+                           + [ctypes.c_void_p] * 7 + [ctypes.c_int]
+                           + [ctypes.c_longlong] + [ctypes.c_int] * 4
                            + [ctypes.c_void_p, ctypes.c_void_p])
     return lib
 
 
-def jacobi_sweep(blocks: Tensor, indices: Tensor, b: Tensor, inv_d: Tensor,
-                 weights, x0: Tensor, *, den,
-                 scratch_dtype: str = "f32") -> Tensor:
+def jacobi_sweep(S: SlicedELL, b: Tensor, inv_d: Tensor, weights,
+                 x0: Tensor, *, den, scratch_dtype: str = "f32") -> Tensor:
     """Whole (accelerated-)Jacobi solve of den(P) x = b in one launch.
 
-    b / x0: (..., n) at the Block-ELL padded size; inv_d: a shared (n,)
-    row or broadcastable to b (zeros on padded rows keep those rows
-    zero).  weights: (n_iters, 2) host (w_t, s_t) schedule, cast to f32 on
-    the device; den: monomial coefficients of the split polynomial, low
-    degree first, any degree (the CUDA kernel loops at run time, so there
-    is no unroll budget).  Returns x after n_iters rounds, shape
-    broadcast(b, x0).  CPU tensors take the plain version; CUDA tensors
-    launch ``csrc/jacobi_sweep.cu`` (counted in ``jacobi_sweep.launches``;
-    the grid of the last launch is ``jacobi_sweep.last_grid``).
-    scratch_dtype: "f32" or "bf16" (f32 operands in, f32 x out either way;
-    see the module docstring).
+    S: P's sliced-ELL layout; b / x0: (..., n) at the layout's padded
+    size; inv_d: a shared (n,) row or broadcastable to b (zeros on padded
+    rows keep those rows zero).  weights: (n_iters, 2) host (w_t, s_t)
+    schedule, cast to f32 on the device; den: monomial coefficients of
+    the split polynomial, low degree first, any degree (the CUDA kernel
+    loops at run time, so there is no unroll budget).  Returns x after
+    n_iters rounds, shape broadcast(b, x0).  CPU tensors take the plain
+    version; CUDA tensors launch ``csrc/jacobi_sweep.cu`` (counted in
+    ``jacobi_sweep.launches``; the grid of the last launch is
+    ``jacobi_sweep.last_grid``).  scratch_dtype: "f32" or "bf16" (f32
+    operands in, f32 x out either way; see the module docstring).
     """
     sdt = check_scratch_dtype(scratch_dtype)
     den = tuple(float(c) for c in den)
@@ -223,13 +260,10 @@ def jacobi_sweep(blocks: Tensor, indices: Tensor, b: Tensor, inv_d: Tensor,
     if ws.ndim != 2 or ws.shape[1] != 2:
         raise ValueError(f"weights must be (n_iters, 2), got {ws.shape}")
     if b.device.type == "cpu":
-        return jacobi_sweep_plain(blocks, indices, b, inv_d, ws, x0, den=den,
+        return jacobi_sweep_plain(S, b, inv_d, ws, x0, den=den,
                                   scratch_dtype=scratch_dtype)
-    check_block_ell(blocks, indices, b)
-    nrb, slots, br, bc = blocks.shape
-    n = b.shape[-1]
-    if n != nrb * br:
-        raise ValueError(f"b length {n} != Block-ELL padded size {nrb * br}")
+    _check_layout(S, b, "jacobi_sweep")
+    n = S.padded_n
     if any(t.device != b.device for t in (inv_d, x0)):
         raise ValueError("jacobi_sweep operands must share one device")
     if any(t.dtype != torch.float32 for t in (inv_d, x0)):
@@ -247,11 +281,13 @@ def jacobi_sweep(blocks: Tensor, indices: Tensor, b: Tensor, inv_d: Tensor,
         return x02.clone().reshape(full)
     table = torch.tensor(list(den) + ws.reshape(-1).tolist(),
                          dtype=torch.float32).to(b.device)
-    U, V = (torch.empty((B, n), dtype=b.dtype, device=b.device)
+    tb = _signal_tile(B, scratch_dtype)
+    size = -(-B // tb) * n * tb
+    U, V = (torch.empty(size, dtype=b.dtype, device=b.device)
             for _ in range(2))
-    H0, H1 = (torch.empty((B, n), dtype=sdt, device=b.device)
+    H0, H1 = (torch.empty(size, dtype=sdt, device=b.device)
               for _ in range(2))
-    blocks_s = blocks.to(sdt)
+    out = torch.empty((B, n), dtype=b.dtype, device=b.device)
     grid = ctypes.c_int(0)
     lib = _jacobi_lib()
     launch = lib.jacobi_sweep_bf16 if scratch_dtype == "bf16" \
@@ -259,15 +295,16 @@ def jacobi_sweep(blocks: Tensor, indices: Tensor, b: Tensor, inv_d: Tensor,
     with torch.cuda.device(b.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(
-            blocks_s.data_ptr(), indices.data_ptr(), b2.data_ptr(),
+            _values(S, scratch_dtype).data_ptr(), S.columns.data_ptr(),
+            S.offsets.data_ptr(), S.widths.data_ptr(), b2.data_ptr(),
             d2.data_ptr(), d_stride, x02.data_ptr(), table.data_ptr(),
             U.data_ptr(), V.data_ptr(), H0.data_ptr(), H1.data_ptr(),
-            nrb, slots, br, bc, B, n_iters, len(den) - 1, stream,
-            ctypes.addressof(grid))
+            out.data_ptr(), S.n_slices, n, B, tb, n_iters, len(den) - 1,
+            stream, ctypes.addressof(grid))
     _build.check(lib, err, "jacobi_sweep (cooperative launch)")
     jacobi_sweep.launches += 1
     jacobi_sweep.last_grid = grid.value
-    return (U if n_iters % 2 else V).reshape(full)
+    return out.reshape(full)
 
 
 jacobi_sweep.launches = 0

@@ -10,8 +10,9 @@ and their plain PyTorch version for a CPU tensor.
 
 Every SpMV this module serves (:func:`spmv`: the plan's matvec for the
 adjoint, the Gram's and ARMA's runners and the lasso, the per-order and
-per-round paths) reads the sliced-ELL layout that the Block-ELL matrix
-carries (`BlockELL.sliced_ell`); the sweeps keep the Block-ELL tile.
+per-round paths) and both sweeps read the sliced-ELL layout that the
+Block-ELL matrix carries (`BlockELL.sliced_ell`, packed on its device at
+the first use); no kernel reads the Block-ELL blocks.
 
 Single-launch sweep dispatch: a matvec tagged with ``mv.block_ell = A``
 (a local Block-ELL product) routes the whole K-order loop of
@@ -72,29 +73,39 @@ def _scratch_itemsize(scratch_dtype: Optional[str], itemsize: int) -> int:
     return 2 if scratch_dtype == "bf16" else itemsize
 
 
+def _structure_bytes(stored: int, scratch_dtype: Optional[str]) -> int:
+    """Bytes of a sliced-ELL layout a sweep reads: a value (4 B, or its
+    bf16 copy's 2 B) and an int32 column per stored entry."""
+    return stored * (4 + _scratch_itemsize(scratch_dtype, 4))
+
+
 def cheb_sweep_l2_bytes(n: int, eta: int, batch: int = 1,
                         itemsize: int = 4,
-                        scratch_dtype: Optional[str] = None) -> int:
+                        scratch_dtype: Optional[str] = None,
+                        stored: int = 0) -> int:
     """L2 footprint model for one `cheb_sweep` launch on Hopper.
 
     The sweep keeps nothing on chip across its grid barriers: the iterates
     live in device memory.  What each order re-reads of the order before
     is the reused working set — the three (B, n) iterates (t_{k-1}, read
-    by the SpMV of every row block that couples to it, t_{k-2} and the new
-    t_k) and the (B, eta, n) accumulator that every order reads and
-    writes back:
+    by the SpMV of every slice that couples to it, t_{k-2} and the new
+    t_k), the (B, eta, n) accumulator that every order reads and writes
+    back, and the `stored` entries of the sliced-ELL layout that every
+    order's SpMV reads again:
 
-        3 * B * n * s + eta * B * n * itemsize bytes,
+        3 * B * n * s + eta * B * n * itemsize + stored * (4 + s') bytes,
 
     with s the scratch width (2 under ``scratch_dtype="bf16"``, else
     `itemsize`; the accumulator stays wide) — the iterate term of the JAX
-    package's `cheb_sweep_vmem_bytes`.  The Block-ELL blocks stream
-    through once per order either way and are not counted.  When the
-    working set fits in the 50 MiB L2 (:data:`DEFAULT_SWEEP_L2_BUDGET`),
-    orders after the first find it on chip.
+    package's `cheb_sweep_vmem_bytes` — and s' the width of the values
+    the sweep reads (4, or 2 for the layout's bf16 copy) beside each
+    4-byte column.  When the working set fits in the 50 MiB L2
+    (:data:`DEFAULT_SWEEP_L2_BUDGET`), orders after the first find it on
+    chip.
     """
     sb = _scratch_itemsize(scratch_dtype, itemsize)
-    return 3 * batch * n * sb + eta * batch * n * itemsize
+    return (3 * batch * n * sb + eta * batch * n * itemsize
+            + _structure_bytes(stored, scratch_dtype))
 
 
 def _per_order_cheb(A: BlockELL, x: Tensor, coeffs, lmax: float) -> Tensor:
@@ -114,7 +125,8 @@ def fused_cheb_sweep(
 
     x: (..., padded_n) at A's Block-ELL padded size; coeffs: (eta, K+1)
     (or (K+1,)).  Returns (..., eta, padded_n).  The whole K-order
-    recurrence is ONE `cheb_sweep` launch, guarded by
+    recurrence is ONE `cheb_sweep` launch on A's sliced-ELL layout,
+    guarded by
     :func:`cheb_sweep_l2_bytes` against `l2_budget` (default
     :data:`DEFAULT_SWEEP_L2_BUDGET`): a working set over the budget takes
     the per-order path, logged at INFO.  K < 2 takes the per-order path
@@ -130,18 +142,19 @@ def fused_cheb_sweep(
     if K < 2:
         return _per_order_cheb(A, x, c, lmax)
     budget = DEFAULT_SWEEP_L2_BUDGET if l2_budget is None else int(l2_budget)
+    S = A.sliced_ell()
     n = x.shape[-1]
     batch = max(1, x.numel() // n)
     need = cheb_sweep_l2_bytes(n, eta, batch, x.element_size(),
-                               scratch_dtype=sdt)
+                               scratch_dtype=sdt, stored=S.stored)
     if need > budget:
         logger.info(
             "cheb_sweep: L2 working set %d B exceeds budget %d B "
             "(n=%d, eta=%d, K=%d, B=%d) — falling back to the per-order "
             "cheb_step path", need, budget, n, eta, K, batch)
         return _per_order_cheb(A, x, c, lmax)
-    return cheb_sweep(A.blocks, A.indices, x.contiguous(), c,
-                      alpha=float(lmax) / 2.0, scratch_dtype=sdt)
+    return cheb_sweep(S, x.contiguous(), c, alpha=float(lmax) / 2.0,
+                      scratch_dtype=sdt)
 
 
 def fused_cheb_recurrence(matvec, x: Tensor, coeffs, lmax: float) -> Tensor:
@@ -237,7 +250,8 @@ def jacobi_update(qx: Tensor, x: Tensor, x_prev: Tensor, y: Tensor,
 
 
 def jacobi_sweep_l2_bytes(n: int, batch: int = 1, itemsize: int = 4,
-                          scratch_dtype: Optional[str] = None) -> int:
+                          scratch_dtype: Optional[str] = None,
+                          stored: int = 0) -> int:
     """L2 footprint model for one `jacobi_sweep` launch on Hopper.
 
     The counterpart of the JAX package's `jacobi_sweep_vmem_bytes`: what
@@ -245,18 +259,19 @@ def jacobi_sweep_l2_bytes(n: int, batch: int = 1, itemsize: int = 4,
     the two Horner buffers (h and the SpMV product q), the right-hand
     side b and D^{-1}:
 
-        (4 * itemsize + 2 * s) * B * n bytes,
+        (4 * itemsize + 2 * s) * B * n + stored * (4 + s') bytes,
 
     with s the scratch width of the two Horner buffers (2 under
     ``scratch_dtype="bf16"``, else `itemsize`).  x_prev counts at the
     wide `itemsize` in both modes: the kernel keeps it in the f32 buffer
     of the previous x and rounds it to bf16 as it reads it, where the JAX
     kernel held a bf16 copy (its model has 3 * s + 3 * itemsize).  The
-    Block-ELL blocks stream through once per SpMV either way and are not
-    counted, as in :func:`cheb_sweep_l2_bytes`.
+    `stored` entries of the sliced-ELL layout, which every SpMV reads
+    again, count as in :func:`cheb_sweep_l2_bytes`.
     """
     sb = _scratch_itemsize(scratch_dtype, itemsize)
-    return (4 * itemsize + 2 * sb) * batch * n
+    return ((4 * itemsize + 2 * sb) * batch * n
+            + _structure_bytes(stored, scratch_dtype))
 
 
 def _per_round_jacobi(A: BlockELL, b: Tensor, inv_d: Tensor, den, ws,
@@ -287,8 +302,9 @@ def fused_jacobi_sweep(
     """Whole (accelerated-)Jacobi solve of den(P) x = b, one launch.
 
     The Section-V counterpart of :func:`fused_cheb_sweep`: all n_iters
-    rounds of Eq. (24)/(25) — deg(den) Block-ELL SpMVs per round (Horner)
-    plus the fused update — run inside one `jacobi_sweep` launch.  b / x0:
+    rounds of Eq. (24)/(25) — deg(den) SpMVs per round (Horner) on A's
+    sliced-ELL layout plus the fused update — run inside one
+    `jacobi_sweep` launch.  b / x0:
     (..., n) at any n (padded to A's Block-ELL size here, cropped on
     return); inv_d broadcastable, zeros on padded rows.  weights:
     (n_iters, 2) host (w_t, s_t) schedule (`core.jacobi.jacobi_weights` /
@@ -308,9 +324,10 @@ def fused_jacobi_sweep(
     den = tuple(float(c) for c in den)
     ws = np.asarray(weights, dtype=np.float64)
     budget = DEFAULT_SWEEP_L2_BUDGET if l2_budget is None else int(l2_budget)
+    S = A.sliced_ell()
     batch = max(1, torch.broadcast_shapes(bp.shape, x0p.shape)[:-1].numel())
     need = jacobi_sweep_l2_bytes(total, batch, bp.element_size(),
-                                 scratch_dtype=sdt)
+                                 scratch_dtype=sdt, stored=S.stored)
     if need > budget:
         logger.info(
             "jacobi_sweep: L2 working set %d B exceeds budget %d B "
@@ -318,7 +335,7 @@ def fused_jacobi_sweep(
             "path", need, budget, total, batch)
         out = _per_round_jacobi(A, bp, invdp, den, ws, x0p)
     else:
-        out = jacobi_sweep(A.blocks, A.indices, bp, invdp, ws, x0p, den=den,
+        out = jacobi_sweep(S, bp, invdp, ws, x0p, den=den,
                            scratch_dtype=sdt)
     return out[..., :n_logical]
 

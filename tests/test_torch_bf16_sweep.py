@@ -7,7 +7,8 @@ for its bf16 sweeps (tests/test_sweep.py:135,156): bf16 iterates carry
 8 bits of mantissa through K orders or rounds.  The guard models are held
 to the JAX package's footprint formulas (tests/test_sweep.py:159-172).
 
-On the CPU the sweeps run their plain versions; the CUDA kernels' bf16
+On the CPU the sweeps run their plain versions, on the sliced-ELL
+layout packed from the reference's Block-ELL; the CUDA kernels' bf16
 instances run on the card: tests/test_torch_gpu.py.
 """
 import logging
@@ -61,12 +62,12 @@ def test_cheb_sweep_bf16_matches_ref(block_ell_500, batch_shape):
     alpha = g.lambda_max_bound() / 2
     want = jref.cheb_sweep_ref(A.blocks, A.indices, jnp.asarray(x),
                                jnp.asarray(coeffs), alpha=alpha)
-    got = cheb_sweep(At.blocks, At.indices, torch.from_numpy(x), coeffs,
+    got = cheb_sweep(At.sliced_ell(), torch.from_numpy(x), coeffs,
                      alpha=alpha, scratch_dtype="bf16")
     assert got.dtype == torch.float32
     assert got.shape == batch_shape + (eta, A.padded_n)
     assert _rel(got.numpy(), want) < TOL
-    f32 = cheb_sweep(At.blocks, At.indices, torch.from_numpy(x), coeffs,
+    f32 = cheb_sweep(At.sliced_ell(), torch.from_numpy(x), coeffs,
                      alpha=alpha)
     assert not torch.equal(got, f32)
 
@@ -90,7 +91,7 @@ def test_jacobi_sweep_bf16_matches_ref(block_ell_500, den, weights):
     want = jref.jacobi_sweep_ref(A.blocks, A.indices, jnp.asarray(b),
                                  jnp.asarray(inv_d), ws,
                                  jnp.zeros_like(jnp.asarray(b)), den=den)
-    got = jacobi_sweep(At.blocks, At.indices, torch.from_numpy(b),
+    got = jacobi_sweep(At.sliced_ell(), torch.from_numpy(b),
                        torch.from_numpy(inv_d), ws, torch.zeros(4, A.padded_n),
                        den=den, scratch_dtype="bf16")
     assert got.dtype == torch.float32
@@ -99,12 +100,13 @@ def test_jacobi_sweep_bf16_matches_ref(block_ell_500, den, weights):
 
 def test_plain_bf16_rounds_every_stored_iterate(block_ell_500):
     """K = 1: acc = (c0/2) bf16(x) + c1 bf16(P bf16(x) / alpha - bf16(x))
-    with the blocks in bf16 — the definition the kernel shares."""
+    with P's values in bf16 (the layout's bf16 copy) — the definition the
+    kernel shares."""
     _, _, At = block_ell_500
     x = torch.from_numpy(np.random.RandomState(6).randn(3, At.padded_n)
                          .astype(np.float32))
     c = np.array([[0.7, -1.3]])
-    got = cheb_sweep_plain(At.blocks, At.indices, x, c, alpha=2.5,
+    got = cheb_sweep_plain(At.sliced_ell(), x, c, alpha=2.5,
                            scratch_dtype="bf16")
 
     def bf(t):
@@ -125,10 +127,10 @@ def test_other_scratch_dtypes_raise(block_ell_500, call):
     x = torch.zeros(At.padded_n)
     with pytest.raises(ValueError, match="scratch_dtype"):
         if call == "cheb_sweep":
-            cheb_sweep(At.blocks, At.indices, x, np.ones((1, 4)), alpha=1.0,
+            cheb_sweep(At.sliced_ell(), x, np.ones((1, 4)), alpha=1.0,
                        scratch_dtype="f16")
         elif call == "jacobi_sweep":
-            jacobi_sweep(At.blocks, At.indices, x, x, np.ones((2, 2)), x,
+            jacobi_sweep(At.sliced_ell(), x, x, np.ones((2, 2)), x,
                          den=(1.0,), scratch_dtype="fp8")
         elif call == "fused_cheb_sweep":
             ops.fused_cheb_sweep(At, x, np.ones((1, 4)), 2.0,
@@ -141,10 +143,13 @@ def test_other_scratch_dtypes_raise(block_ell_500, call):
 def test_guard_models_match_jax_formulas(block_ell_500):
     """The L2 guards count bf16 buffers at 2 bytes: the cheb model is the
     iterate term of the JAX `cheb_sweep_vmem_bytes` (the port leaves out
-    the streamed blocks and the table), the Jacobi model its six buffers
+    the table and counts the sliced-ELL layout the sweep re-reads in
+    place of the Block-ELL blocks: 4 + 4 bytes per stored entry in f32,
+    2 + 4 with the bf16 values copy), the Jacobi model its six buffers
     with x_prev at 4 bytes (the kernel reads it from the previous x's f32
-    buffer and rounds it, where the JAX kernel kept a bf16 copy)."""
-    _, A, _ = block_ell_500
+    buffer and rounds it, where the JAX kernel kept a bf16 copy) plus the
+    same layout bytes."""
+    _, A, At = block_ell_500
     n, eta, K, B = A.padded_n, 3, 10, 4
     for sdt, sb in (("f32", 4), ("bf16", 2)):
         jax_total = jops.cheb_sweep_vmem_bytes(A, n, eta, K, B,
@@ -157,12 +162,25 @@ def test_guard_models_match_jax_formulas(block_ell_500):
             A, n, batch=B, scratch_dtype=sdt) - structure
         assert ops.jacobi_sweep_l2_bytes(n, B, scratch_dtype=sdt) \
             == jax_buffers + (4 - sb) * B * n
+    stored = At.sliced_ell().stored
+    for sdt, sv in (("f32", 4), ("bf16", 2)):
+        assert ops.cheb_sweep_l2_bytes(n, eta, B, scratch_dtype=sdt,
+                                       stored=stored) \
+            == ops.cheb_sweep_l2_bytes(n, eta, B, scratch_dtype=sdt) \
+            + stored * (4 + sv)
+        assert ops.jacobi_sweep_l2_bytes(n, B, scratch_dtype=sdt,
+                                         stored=stored) \
+            == ops.jacobi_sweep_l2_bytes(n, B, scratch_dtype=sdt) \
+            + stored * (4 + sv)
     assert ops.cheb_sweep_l2_bytes(n, eta, B) == (3 + eta) * B * n * 4
     assert ops.jacobi_sweep_l2_bytes(n, B) == 6 * B * n * 4
-    # the smoke shape: both bf16 sweeps fit the 50 MiB L2 at B = 64
-    assert ops.cheb_sweep_l2_bytes(16384, 7, 64, scratch_dtype="bf16") \
+    # the smoke shape (483904 stored entries): both bf16 sweeps fit the
+    # 50 MiB L2 at B = 64
+    assert ops.cheb_sweep_l2_bytes(16384, 7, 64, scratch_dtype="bf16",
+                                   stored=483904) \
         <= ops.DEFAULT_SWEEP_L2_BUDGET
-    assert ops.jacobi_sweep_l2_bytes(16384, 64, scratch_dtype="bf16") \
+    assert ops.jacobi_sweep_l2_bytes(16384, 64, scratch_dtype="bf16",
+                                     stored=483904) \
         <= ops.DEFAULT_SWEEP_L2_BUDGET
 
 

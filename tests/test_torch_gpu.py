@@ -124,19 +124,55 @@ def test_cheb_step_kernel_matches_plain(cuda, n):
     assert _rel(got[0], want[0]) < 1e-6 and _rel(got[1], want[1]) < 1e-6
 
 
-@pytest.mark.parametrize("batch_shape", [(), (64,), (2, 3), (128,)])
-def test_cheb_sweep_kernel_matches_plain(structure, batch_shape):
-    At, lmax = structure
+# the sweeps: batches 1 to 128 (ragged last signal tiles included),
+# K in {1, 2, 20}, eta in {1, 7}, and a graph whose last 32-row slice is
+# partly filled (n = 203, padded to 208)
+SWEEP_BATCHES = [(), (1,), (5,), (64,), (2, 3), (128,)]
+
+
+@pytest.fixture(scope="module")
+def ragged(cuda):
+    g = tgraph.connected_sensor_graph(np.random.RandomState(3), n=203,
+                                      theta=0.1, kappa=0.15)
+    At = tgraph.to_block_ell(g.laplacian(), (8, 8)).to(cuda)
+    assert At.padded_n % 32 == 16
+    return At, g.lambda_max_bound()
+
+
+def _cheb_sweep_case(At, lmax, batch_shape, K, eta, scratch_dtype):
+    S = At.sliced_ell()
     gen = torch.Generator(device=At.device).manual_seed(2)
     x = torch.randn(batch_shape + (At.padded_n,), generator=gen,
                     device=At.device)
-    coeffs = np.random.RandomState(0).randn(3, 10)
+    coeffs = np.random.RandomState(0).randn(eta, K + 1)
     before = cheb_sweep.launches
-    got = cheb_sweep(At.blocks, At.indices, x, coeffs, alpha=lmax / 2)
-    want = cheb_sweep_plain(At.blocks, At.indices, x, coeffs, alpha=lmax / 2)
+    got = cheb_sweep(S, x, coeffs, alpha=lmax / 2,
+                     scratch_dtype=scratch_dtype)
+    want = cheb_sweep_plain(S, x, coeffs, alpha=lmax / 2,
+                            scratch_dtype=scratch_dtype)
     torch.cuda.synchronize()
     assert cheb_sweep.launches == before + 1
+    assert got.dtype == torch.float32
+    assert got.shape == batch_shape + (eta, At.padded_n)
+    return got, want, x, coeffs
+
+
+@pytest.mark.parametrize("K,eta", [(1, 1), (2, 7), (20, 7), (9, 3)])
+@pytest.mark.parametrize("batch_shape", SWEEP_BATCHES)
+def test_cheb_sweep_kernel_matches_plain(structure, batch_shape, K, eta):
+    At, lmax = structure
+    got, want, _, _ = _cheb_sweep_case(At, lmax, batch_shape, K, eta, "f32")
     assert _rel(got, want) < 1e-4
+
+
+@pytest.mark.parametrize("scratch_dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("batch_shape", [(1,), (5,), (64,)])
+def test_cheb_sweep_kernel_partly_filled_slice(ragged, batch_shape,
+                                               scratch_dtype):
+    At, lmax = ragged
+    got, want, _, _ = _cheb_sweep_case(At, lmax, batch_shape, 20, 7,
+                                       scratch_dtype)
+    assert _rel(got, want) < (3e-2 if scratch_dtype == "bf16" else 1e-4)
 
 
 def test_main_path_matches_float64_dense(cuda):
@@ -192,31 +228,41 @@ def test_ista_shrink_kernel_matches_plain(cuda, n, form):
     assert _rel(got, want) < 1e-6
 
 
-@pytest.mark.parametrize("den,n_iters", [((0.5,), 3), ((0.5, 1.0), 20),
-                                         ((0.5, 0.0, 1.0), 10),
-                                         ((0.5, 0.2, 0.0, 1.0), 5)])
-@pytest.mark.parametrize("batch_shape", [(), (64,), (2, 3)])
-def test_jacobi_sweep_kernel_matches_plain(cuda, batch_shape, den, n_iters):
-    g = tgraph.connected_sensor_graph(np.random.RandomState(1), n=500,
-                                      theta=0.075, kappa=0.075)
+def _jacobi_inputs(cuda, graph, den, batch_shape):
+    """(sliced layout of L_norm, b, inv_d, x0) with zeros past n."""
+    n_log = {"n500": 500, "n203": 203}[graph]
+    g = tgraph.connected_sensor_graph(
+        np.random.RandomState(1 if graph == "n500" else 3), n=n_log,
+        theta=0.075 if graph == "n500" else 0.1,
+        kappa=0.075 if graph == "n500" else 0.15)
     Ln = g.laplacian("normalized")
-    At = tgraph.to_block_ell(Ln, (8, 128)).to(cuda)
+    block = (8, 128) if graph == "n500" else (8, 8)
+    At = tgraph.to_block_ell(Ln, block).to(cuda)
     n = At.padded_n
     P = Ln.double()
     d = sum(c * torch.linalg.matrix_power(P, m).diagonal()
             for m, c in enumerate(den))
     inv_d = torch.zeros(n, device=cuda)
-    inv_d[:500] = (1.0 / d).float()
+    inv_d[:n_log] = (1.0 / d).float()
     gen = torch.Generator(device=cuda).manual_seed(5)
     b = torch.randn(batch_shape + (n,), generator=gen, device=cuda)
-    b[..., 500:] = 0
-    x0 = torch.zeros_like(b)
+    b[..., n_log:] = 0
+    return At.sliced_ell(), b, inv_d, torch.zeros_like(b)
+
+
+@pytest.mark.parametrize("den,n_iters", [((0.5,), 3), ((0.5, 1.0), 20),
+                                         ((0.5, 0.0, 1.0), 10),
+                                         ((0.5, 0.2, 0.0, 1.0), 5)])
+@pytest.mark.parametrize("batch_shape", SWEEP_BATCHES)
+@pytest.mark.parametrize("graph", ["n500", "n203"])
+def test_jacobi_sweep_kernel_matches_plain(cuda, graph, batch_shape, den,
+                                           n_iters):
+    S, b, inv_d, x0 = _jacobi_inputs(cuda, graph, den, batch_shape)
     for ws in (tjacobi.jacobi_weights(n_iters),
                tjacobi.cheb_jacobi_weights(0.9, n_iters)):
         before = jacobi_sweep.launches
-        got = jacobi_sweep(At.blocks, At.indices, b, inv_d, ws, x0, den=den)
-        want = jacobi_sweep_plain(At.blocks, At.indices, b, inv_d, ws, x0,
-                                  den=den)
+        got = jacobi_sweep(S, b, inv_d, ws, x0, den=den)
+        want = jacobi_sweep_plain(S, b, inv_d, ws, x0, den=den)
         torch.cuda.synchronize()
         assert jacobi_sweep.launches == before + 1
         assert got.shape == b.shape
@@ -384,49 +430,29 @@ def test_reduced_lm_forward_through_flash_kernel(cuda, arch):
     assert abs(float(lm_loss(got, toks)) - float(lm_loss(want, toks))) < 1e-4
 
 
-@pytest.mark.parametrize("batch_shape", [(), (64,), (2, 3), (128,)])
-def test_cheb_sweep_bf16_kernel_matches_plain(structure, batch_shape):
+@pytest.mark.parametrize("K,eta", [(1, 1), (2, 7), (20, 7), (9, 3)])
+@pytest.mark.parametrize("batch_shape", SWEEP_BATCHES)
+def test_cheb_sweep_bf16_kernel_matches_plain(structure, batch_shape, K,
+                                              eta):
     At, lmax = structure
-    gen = torch.Generator(device=At.device).manual_seed(2)
-    x = torch.randn(batch_shape + (At.padded_n,), generator=gen,
-                    device=At.device)
-    coeffs = np.random.RandomState(0).randn(3, 10)
-    before = cheb_sweep.launches
-    got = cheb_sweep(At.blocks, At.indices, x, coeffs, alpha=lmax / 2,
-                     scratch_dtype="bf16")
-    want = cheb_sweep_plain(At.blocks, At.indices, x, coeffs, alpha=lmax / 2,
-                            scratch_dtype="bf16")
-    torch.cuda.synchronize()
-    assert cheb_sweep.launches == before + 1
-    assert got.dtype == torch.float32
+    got, want, x, coeffs = _cheb_sweep_case(At, lmax, batch_shape, K, eta,
+                                            "bf16")
     assert _rel(got, want) < 3e-2
-    f32 = cheb_sweep_plain(At.blocks, At.indices, x, coeffs, alpha=lmax / 2)
+    f32 = cheb_sweep_plain(At.sliced_ell(), x, coeffs, alpha=lmax / 2)
     assert _rel(got, f32) < 3e-2
 
 
 @pytest.mark.parametrize("den", [(0.5,), (0.5, 1.0), (0.5, 0.0, 1.0)])
-@pytest.mark.parametrize("batch_shape", [(), (64,)])
-def test_jacobi_sweep_bf16_kernel_matches_plain(cuda, batch_shape, den):
-    g = tgraph.connected_sensor_graph(np.random.RandomState(1), n=500,
-                                      theta=0.075, kappa=0.075)
-    Ln = g.laplacian("normalized")
-    At = tgraph.to_block_ell(Ln, (8, 128)).to(cuda)
-    n = At.padded_n
-    P = Ln.double()
-    d = sum(c * torch.linalg.matrix_power(P, m).diagonal()
-            for m, c in enumerate(den))
-    inv_d = torch.zeros(n, device=cuda)
-    inv_d[:500] = (1.0 / d).float()
-    gen = torch.Generator(device=cuda).manual_seed(5)
-    b = torch.randn(batch_shape + (n,), generator=gen, device=cuda)
-    b[..., 500:] = 0
-    x0 = torch.zeros_like(b)
+@pytest.mark.parametrize("batch_shape", [(), (5,), (64,), (128,)])
+@pytest.mark.parametrize("graph", ["n500", "n203"])
+def test_jacobi_sweep_bf16_kernel_matches_plain(cuda, graph, batch_shape,
+                                                den):
+    S, b, inv_d, x0 = _jacobi_inputs(cuda, graph, den, batch_shape)
     ws = tjacobi.cheb_jacobi_weights(0.9, 10)
     before = jacobi_sweep.launches
-    got = jacobi_sweep(At.blocks, At.indices, b, inv_d, ws, x0, den=den,
-                       scratch_dtype="bf16")
-    want = jacobi_sweep_plain(At.blocks, At.indices, b, inv_d, ws, x0,
-                              den=den, scratch_dtype="bf16")
+    got = jacobi_sweep(S, b, inv_d, ws, x0, den=den, scratch_dtype="bf16")
+    want = jacobi_sweep_plain(S, b, inv_d, ws, x0, den=den,
+                              scratch_dtype="bf16")
     torch.cuda.synchronize()
     assert jacobi_sweep.launches == before + 1
     assert _rel(got, want) < 3e-2

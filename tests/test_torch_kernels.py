@@ -5,11 +5,13 @@ on the same Block-ELL structure and signals.
 Tolerance: atol 2e-5, the reference's own kernel-vs-per-order tolerance
 (tests/test_sweep.py:66) — both sides are f32 in different summation
 orders.  The reference's `cheb_sweep` kernel does not run on this jax
-(`pl.load` is gone), so the port's sweep is held against
+(`pl.load` is gone), so the port's sweep — on the sliced-ELL layout
+packed from the reference's Block-ELL — is held against
 `ref.cheb_sweep_ref` and against its own per-order path.
 
 The CUDA kernels themselves run only on the card: tests/test_torch_gpu.py.
 """
+import importlib
 import logging
 import subprocess
 import sys
@@ -27,6 +29,8 @@ from repro.kernels.bcsr_spmv import block_ell_spmv as jspmv
 from repro.kernels.bcsr_spmv import block_ell_spmv_batched as jspmv_batched
 from repro.kernels.cheb_step import cheb_step as jcheb_step
 from repro_torch.convert import block_ell_from_numpy
+from repro_torch.core import graph as tgraph
+from repro_torch.core import wavelets as twav
 from repro_torch.kernels import ops
 from repro_torch.kernels.bcsr_spmv import (block_ell_spmv_plain,
                                            sliced_ell_spmv,
@@ -36,6 +40,8 @@ from repro_torch.kernels.cheb_sweep import cheb_sweep, cheb_sweep_plain
 
 BATCH_SHAPES = [(), (5,), (64,), (2, 3)]
 K, ETA = 9, 3
+# the module (the package re-exports its `cheb_sweep` function by name)
+sweep_mod = importlib.import_module("repro_torch.kernels.cheb_sweep")
 
 
 @pytest.fixture(scope="module")
@@ -87,8 +93,9 @@ def test_cheb_step_plain_matches_reference_kernel(batch_shape, n):
 @pytest.mark.parametrize("batch_shape", BATCH_SHAPES)
 def test_cheb_sweep_plain_matches_reference_oracle(block_ell_500,
                                                    batch_shape):
-    """K = 9, eta = 3: the port's sweep == ref.cheb_sweep_ref == the
-    port's per-order path (SpMV + cheb_step per order)."""
+    """K = 9, eta = 3: the port's sweep on the sliced layout of the
+    reference's Block-ELL == ref.cheb_sweep_ref == the port's per-order
+    path (SpMV + cheb_step per order)."""
     A, At, lmax = block_ell_500
     coeffs = np.random.RandomState(0).randn(ETA, K + 1).astype(np.float32)
     x = _randn(2, batch_shape + (A.padded_n,))
@@ -96,8 +103,8 @@ def test_cheb_sweep_plain_matches_reference_oracle(block_ell_500,
                                           jnp.asarray(x), jnp.asarray(coeffs),
                                           alpha=lmax / 2))
     xt = torch.from_numpy(x)
-    got = cheb_sweep_plain(At.blocks, At.indices, xt,
-                           torch.from_numpy(coeffs), alpha=lmax / 2)
+    got = cheb_sweep_plain(At.sliced_ell(), xt, torch.from_numpy(coeffs),
+                           alpha=lmax / 2)
     per_order = ops.fused_cheb_apply(At, xt, coeffs, lmax, sweep=False)
     assert tuple(got.shape) == batch_shape + (ETA, A.padded_n)
     np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
@@ -118,9 +125,8 @@ def test_cpu_tensors_take_plain_versions_uncounted(block_ell_500):
     want = cheb_step_plain(x, x, x, acc, coef, alpha=2.0)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     c = np.ones((2, 4), np.float32)
-    assert torch.equal(cheb_sweep(At.blocks, At.indices, x, c, alpha=3.0),
-                       cheb_sweep_plain(At.blocks, At.indices, x, c,
-                                        alpha=3.0))
+    assert torch.equal(cheb_sweep(S, x, c, alpha=3.0),
+                       cheb_sweep_plain(S, x, c, alpha=3.0))
     assert (sliced_ell_spmv.launches, cheb_step.launches,
             cheb_sweep.launches) == counts
 
@@ -132,7 +138,7 @@ def test_wrappers_raise_on_devices_they_do_not_take(block_ell_500):
     with pytest.raises(ValueError, match="CUDA"):
         sliced_ell_spmv(At.sliced_ell(), x)
     with pytest.raises(ValueError, match="CUDA"):
-        cheb_sweep(At.blocks, At.indices, x, np.ones((1, 3)), alpha=1.0)
+        cheb_sweep(At.sliced_ell(), x, np.ones((1, 3)), alpha=1.0)
     with pytest.raises(ValueError, match="CUDA"):
         cheb_step(x, x, x, torch.empty(2, 1, At.padded_n, device="meta"),
                   torch.empty(1, device="meta"), alpha=1.0)
@@ -151,7 +157,7 @@ def test_bf16_sweep_names_its_roadmap_item(block_ell_500):
         want = np.asarray(jref.cheb_sweep_ref(
             A.blocks, A.indices, jnp.asarray(x), jnp.asarray(coeffs),
             alpha=lmax / 2))
-        got = cheb_sweep(At.blocks, At.indices, torch.from_numpy(x), coeffs,
+        got = cheb_sweep(At.sliced_ell(), torch.from_numpy(x), coeffs,
                          alpha=lmax / 2, scratch_dtype="bf16")
         via_ops = ops.fused_cheb_sweep(At, torch.from_numpy(x), coeffs, lmax,
                                        scratch_dtype="bf16")
@@ -160,13 +166,17 @@ def test_bf16_sweep_names_its_roadmap_item(block_ell_500):
 
 
 def test_l2_guard_model_and_smoke_shape():
-    """(3 + eta) B n 4 bytes against the 50 MiB L2: the smoke shape
-    (n = 16384, eta = 7, B = 64) takes the sweep, B = 128 does not."""
+    """(3 + eta) B n 4 bytes of iterates and accumulator plus 8 bytes per
+    stored sliced-ELL entry against the 50 MiB L2: the smoke shape
+    (n = 16384, eta = 7, B = 64, 483904 stored entries) takes the sweep,
+    B = 128 does not."""
     assert ops.cheb_sweep_l2_bytes(100, 3, 2) == 6 * 2 * 100 * 4
+    assert ops.cheb_sweep_l2_bytes(100, 3, 2, stored=640) \
+        == 6 * 2 * 100 * 4 + 640 * 8
     assert ops.DEFAULT_SWEEP_L2_BUDGET == 50 * 2**20
-    assert ops.cheb_sweep_l2_bytes(16384, 7, 64) <= \
+    assert ops.cheb_sweep_l2_bytes(16384, 7, 64, stored=483904) <= \
         ops.DEFAULT_SWEEP_L2_BUDGET
-    assert ops.cheb_sweep_l2_bytes(16384, 7, 128) > \
+    assert ops.cheb_sweep_l2_bytes(16384, 7, 128, stored=483904) > \
         ops.DEFAULT_SWEEP_L2_BUDGET
 
 
@@ -207,6 +217,48 @@ def test_pad_trailing_and_tagged_recurrence(block_ell_500):
     swept = ops.fused_cheb_recurrence(mv, x, coeffs, lmax)
     assert swept.shape == (2, 3, At.n)
     np.testing.assert_allclose(swept.numpy(), loop.numpy(), atol=2e-5)
+
+
+@pytest.mark.parametrize("route", ["fused_cheb_sweep", "fused_jacobi_sweep",
+                                   "plan_apply", "plan_solve"])
+def test_fused_routes_reach_the_sliced_plain_versions(block_ell_500,
+                                                      monkeypatch, route):
+    """On CPU tensors the dispatch and the cuda plan reach the sweeps'
+    plain versions, each handed the sliced-ELL layout that the Block-ELL
+    carries (packed at the first use, then kept)."""
+    _, At, lmax = block_ell_500
+    seen = []
+    for name in ("cheb_sweep_plain", "jacobi_sweep_plain"):
+        real = getattr(sweep_mod, name)
+
+        def spy(S, *args, _real=real, _name=name, **kw):
+            seen.append((_name, S))
+            return _real(S, *args, **kw)
+
+        monkeypatch.setattr(sweep_mod, name, spy)
+    x = torch.from_numpy(_randn(12, (3, At.padded_n)))
+    coeffs = np.random.RandomState(13).randn(2, 6)
+    if route == "fused_cheb_sweep":
+        ops.fused_cheb_sweep(At, x, coeffs, lmax)
+        layout, want = At.sliced_ell(), "cheb_sweep_plain"
+    elif route == "fused_jacobi_sweep":
+        ops.fused_jacobi_sweep(At, x, torch.full((At.padded_n,), 0.1),
+                               (0.5, 1.0), np.ones((4, 2)) * [1, 0])
+        layout, want = At.sliced_ell(), "jacobi_sweep_plain"
+    else:
+        op = twav.sgwt_operator(tgraph.path_graph(40).laplacian(), 4.0,
+                                J=1, K=8)
+        plan = op.plan("cuda", device="cpu")
+        if route == "plan_apply":
+            plan.apply(torch.from_numpy(_randn(14, (2, 40))))
+            want = "cheb_sweep_plain"
+        else:
+            plan.solve(torch.from_numpy(_randn(15, (2, 40))), "jacobi",
+                       tau=0.5, r=1, n_iters=5)
+            want = "jacobi_sweep_plain"
+        layout = plan.info["block_ell"].sliced
+    assert [name for name, _ in seen] == [want]
+    assert seen[0][1] is layout
 
 
 def test_kernel_build_is_lazy():

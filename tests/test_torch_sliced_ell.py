@@ -98,6 +98,28 @@ def test_to_sliced_ell_reassembles_bitwise(case):
     assert S.stored == sizes.sum() and S.stored_per_nnz == S.stored / S.nnz
 
 
+@pytest.mark.parametrize("case", ["sensor500", "ragged203"])
+def test_block_ell_packs_sliced_layout_on_its_device(case):
+    """`BlockELL.sliced_ell` packs in torch ops on the blocks' device
+    (here the CPU): bitwise the host packer `to_sliced_ell` of the same
+    Block-ELL, at the shared n = 500 structure and at n = 203 (a last
+    slice of 16 rows), with the bf16 values copy rounded once from the
+    f32 values."""
+    P, block = _matrix(case)
+    A = tgraph.to_block_ell(P, block)
+    want = tgraph.to_sliced_ell(A)
+    got = A.sliced_ell()
+    assert got is A.sliced and got.device == A.device
+    for name in ("values", "values_bf16", "columns", "offsets", "widths"):
+        a, b = getattr(got, name), getattr(want, name)
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    assert (got.n, got.padded_n, got.nnz) == (want.n, want.padded_n,
+                                              want.nnz)
+    assert got.values_bf16.dtype == torch.bfloat16
+    assert torch.equal(got.values_bf16, got.values.to(torch.bfloat16))
+    assert A.padded_n % 32 == (16 if case == "ragged203" else 0)
+
+
 def test_default_padding_and_bad_padded_n():
     P = tgraph.path_graph(45).laplacian()
     S = tgraph.to_sliced_ell(P)
@@ -198,16 +220,17 @@ def counted(monkeypatch):
 
 def test_plan_packs_the_sliced_layout(ops120):
     """The plan counts the layout's entries without packing it; its first
-    SpMV packs it once and keeps it on the Block-ELL, and a sweep-only
-    path (apply) never packs it."""
+    apply (the sweep, which reads the layout too) packs it once and keeps
+    it on the Block-ELL, and the SpMV of apply_adjoint reuses it."""
     _, top = ops120
     plan = top.plan("cuda", device="cpu")
     A = plan.info["block_ell"]
-    plan.apply(_randn(5, (2, 120)))
     assert A.sliced is None
-    plan.apply_adjoint(_randn(6, (2, top.eta, 120)))
+    plan.apply(_randn(5, (2, 120)))
     S = A.sliced
     assert S is not None and S.padded_n == A.padded_n == 128
+    plan.apply_adjoint(_randn(6, (2, top.eta, 120)))
+    assert A.sliced is S
     assert plan.info["nnz"] == S.nnz
     assert plan.info["stored_per_nnz"] == S.stored_per_nnz
     assert plan.info["flops_per_matvec"] == 2 * S.stored

@@ -152,10 +152,13 @@ def _den_diag(P, den):
 
 
 @pytest.mark.parametrize("weights", ["jacobi", "cheb_jacobi"])
-@pytest.mark.parametrize("den", [(TAU, 1.0), (TAU, 0.0, 1.0)],
-                         ids=["deg1", "deg2"])
+@pytest.mark.parametrize("den", [(TAU,), (TAU, 1.0), (TAU, 0.0, 1.0)],
+                         ids=["deg0", "deg1", "deg2"])
 def test_jacobi_sweep_plain_matches_reference(block_ell_norm500, den,
                                               weights):
+    """The port's sweep on the sliced-ELL layout packed from the
+    reference's Block-ELL against ref.jacobi_sweep_ref, deg(den) = 0, 1
+    and 2."""
     A, At, Ln = block_ell_norm500
     n_iters = 12
     ws = (jjacobi.jacobi_weights(n_iters) if weights == "jacobi"
@@ -171,11 +174,10 @@ def test_jacobi_sweep_plain_matches_reference(block_ell_norm500, den,
         A.blocks, A.indices, jnp.asarray(b), jnp.asarray(inv_d), ws,
         jnp.asarray(x0), den=den))
     tb, tinv, tx0 = (torch.from_numpy(a) for a in (b, inv_d, x0))
-    got = jacobi_sweep_plain(At.blocks, At.indices, tb, tinv, ws, tx0,
-                             den=den)
+    S = At.sliced_ell()
+    got = jacobi_sweep_plain(S, tb, tinv, ws, tx0, den=den)
     np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
-    assert torch.equal(jacobi_sweep(At.blocks, At.indices, tb, tinv, ws, tx0,
-                                    den=den), got)
+    assert torch.equal(jacobi_sweep(S, tb, tinv, ws, tx0, den=den), got)
     # the dispatch pads a logical-n problem itself and crops the result
     fused = ops.fused_jacobi_sweep(At, tb[:, :500], tinv[:500], den, ws,
                                    x0=tx0[:, :500])
