@@ -11,8 +11,8 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    call computing the same product, where there is one): the sliced-ELL
    SpMV at B = 1, 64 and 448 (also against the Block-ELL plain version on
    the same P), the Chebyshev and Jacobi steps, both sweeps (which read
-   the same sliced-ELL layout as the SpMV; the Chebyshev sweep in both
-   accumulator forms), the ISTA shrink and both flash-attention kernels;
+   the same sliced-ELL layout as the SpMV), the ISTA shrink and both
+   flash-attention kernels;
 3. drives the main path — ``GraphOperator(...).plan("cuda")`` `apply`,
    `apply_adjoint`, `apply_gram` and the ``sweep=False`` apply — on the
    Section IV-D random sensor network at n = 16384 sensors, the SGWT union
@@ -139,10 +139,12 @@ TOL_GUARD = 1e-6
 PRED_MARGIN = 1e-3
 
 # The sweeps' device ms per launch before they read the sliced-ELL layout
-# (the (8, 128) Block-ELL tile kernels), as PERF.md's kernel table records
-# them for an H100 80GB HBM3 at 700 W: shown beside this run's times as
-# text, not measured here.
+# (the (8, 128) Block-ELL tile kernels), and of the Chebyshev sweep's
+# other accumulator form, as PERF.md records them for an H100 80GB HBM3 at
+# 700 W: shown beside this run's times as text, not measured here.
 EARLIER = {
+    "read_modify_write": "acc read and written back in every order: "
+                         "1.5077 ms f32, 1.2423 ms bf16 device (PERF.md)",
     "cheb_sweep": "8.5809 ms device (Block-ELL tile kernel, PERF.md)",
     "cheb_sweep_bf16": "8.6630 ms device (Block-ELL tile kernel, PERF.md)",
     "jacobi_sweep": "8.0820 ms device in setting (a), 8.0662 in (b) "
@@ -298,38 +300,6 @@ def bound(nbytes: float, flops: float, peak: float = PEAK_F32_FLOPS):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def cheb_sweep_history(build, S, x, coeffs, alpha: float,
-                       scratch_dtype: str, fn_name: str, tb: int):
-    """The Chebyshev sweep in its other accumulator form, launched through
-    its C entry point: every t_k kept in a (K, B / tb, n, tb) scratch and
-    the (B, eta, n) accumulator formed once after the last order."""
-    import ctypes
-
-    lib = build.library("cheb_sweep")
-    fn = getattr(lib, fn_name)
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_longlong]
-                   + [ctypes.c_int] * 3
-                   + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
-    c = torch.as_tensor(coeffs, dtype=torch.float32, device=x.device)
-    eta, K = c.shape[0], c.shape[1] - 1
-    coefT = c.t().contiguous()
-    B, n = x.shape
-    bf16 = scratch_dtype == "bf16"
-    acc = torch.empty(B, eta, n, device=x.device)
-    hs = torch.empty(K * -(-B // tb) * n * tb, device=x.device,
-                     dtype=torch.bfloat16 if bf16 else torch.float32)
-    values = S.values_bf16 if bf16 else S.values
-    grid = ctypes.c_int(0)
-    err = fn(values.data_ptr(), S.columns.data_ptr(), S.offsets.data_ptr(),
-             S.widths.data_ptr(), x.data_ptr(), coefT.data_ptr(),
-             acc.data_ptr(), hs.data_ptr(), S.n_slices, n, B, K, eta,
-             float(alpha), torch.cuda.current_stream().cuda_stream,
-             ctypes.addressof(grid))
-    build.check(lib, err, fn_name)
-    return acc
-
-
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -441,7 +411,7 @@ def main() -> int:
     check(A_n.blocks.shape == A.blocks.shape
           and bool(torch.equal(A_n.indices, A.indices)),
           "L_norm must share the Block-ELL structure of L")
-    check(ops.cheb_sweep_l2_bytes(N, eta, BATCH, stored=SL.stored)
+    check(ops.cheb_sweep_l2_bytes(N, BATCH, stored=SL.stored)
           <= plan.info["sweep_l2_budget"],
           "the smoke shape must take the sweep")
     check(ops.jacobi_sweep_l2_bytes(N, BATCH, stored=SL.stored)
@@ -530,30 +500,6 @@ def main() -> int:
                           warmup=1)
     sweep_dev = device_ms(lambda: cheb_sweep(SL, x, c, alpha=alpha), 3,
                           "cheb_sweep_kernel")
-    # the other accumulator form (every t_k kept, acc formed once at the
-    # end), held to the same plain version
-    hist_rows = {}
-    for sdt, fn_name, tb, tol in (("f32", "cheb_sweep_history_f32", 8,
-                                   TOL_SWEEP),
-                                  ("bf16", "cheb_sweep_history_bf16", 16,
-                                   TOL_BF16)):
-        def hist_call(sdt=sdt, fn_name=fn_name, tb=tb):
-            return cheb_sweep_history(_build, SL, x, c, alpha, sdt, fn_name,
-                                      tb)
-        got_h = hist_call()
-        want_h = want if sdt == "f32" else cheb_sweep_plain(
-            SL, x, c, alpha=alpha, scratch_dtype="bf16")
-        torch.cuda.synchronize()
-        err_h, rel_h = rel_err(got_h, want_h)
-        check(rel_h <= tol, f"cheb_sweep history form {sdt}: rel err "
-              f"{rel_h:.3e}")
-        hist_rows[sdt] = dict(
-            max_abs_err=err_h, rel_err=rel_h,
-            device_ms=device_ms(hist_call, 3, "cheb_sweep_history_kernel"))
-        print(f"kernel cheb_sweep, other accumulator form (t_1..t_K kept, "
-              f"acc formed once) {sdt}: max_abs_err={err_h:.3e} "
-              f"rel={rel_h:.3e} device_ms={hist_rows[sdt]['device_ms']}")
-        del got_h, want_h
     sweep_b = bound(nnz * 8 + 4 * BATCH * N + 4 * BATCH * eta * N
                     + 4 * (K + 1) * eta,
                     K * (2 * nnz * BATCH + 4 * BATCH * N)
@@ -892,9 +838,9 @@ def main() -> int:
     del refs, outs, a
 
     # -- the guard: sweep vs per-order on both sides of the L2 budget --------
-    for B in (BATCH, 2 * BATCH):
+    for B in (BATCH, 4 * BATCH):
         xg = randn(B, N)
-        need = ops.cheb_sweep_l2_bytes(N, eta, B, stored=SL.stored)
+        need = ops.cheb_sweep_l2_bytes(N, B, stored=SL.stored)
         sw = time_ms(lambda: ops.fused_cheb_apply(
             A, xg, c, lmax, l2_budget=2**62), 3, warmup=1)
         po = time_ms(lambda: ops.fused_cheb_apply(
@@ -968,7 +914,7 @@ def main() -> int:
     plan16 = op.plan("cuda", sweep_dtype="bf16")
     plan_n16 = op_n.plan("cuda", sweep_dtype="bf16")
     check(plan16.info["sweep_dtype"] == "bf16"
-          and ops.cheb_sweep_l2_bytes(N, eta, BATCH, scratch_dtype="bf16",
+          and ops.cheb_sweep_l2_bytes(N, BATCH, scratch_dtype="bf16",
                                       stored=SL.stored)
           <= plan16.info["sweep_l2_budget"]
           and ops.jacobi_sweep_l2_bytes(N, BATCH, scratch_dtype="bf16",
@@ -1126,11 +1072,6 @@ def main() -> int:
     sweep_row = dict(max_abs_err=err_sw, ms=sweep_ms, plain_ms=sweep_plain,
                      bound_ms=sweep_b[0], bound_by=sweep_b[1],
                      device_ms=sweep_dev)
-
-    def forms(sdt, rmw):
-        return {"read_modify_write_device_ms": rmw,
-                "iterates_kept_device_ms": hist_rows[sdt]["device_ms"],
-                "iterates_kept_max_abs_err": hist_rows[sdt]["max_abs_err"]}
     kernels = [
         row("sliced_ell_spmv", "sliced_ell_spmv.cu",
             "src/repro/kernels/bcsr_spmv.py:106", s64,
@@ -1142,7 +1083,7 @@ def main() -> int:
         row("cheb_sweep", "cheb_sweep.cu",
             "src/repro/kernels/cheb_sweep.py:121", sweep_row,
             earlier=EARLIER["cheb_sweep"], stored_per_nnz=SL.stored_per_nnz,
-            accumulator_forms=forms("f32", sweep_dev)),
+            other_accumulator_form=EARLIER["read_modify_write"]),
         row("jacobi_step", "jacobi_step.cu",
             "src/repro/kernels/jacobi_step.py:50", js_rows["path"],
             forms=js_rows),
@@ -1166,8 +1107,7 @@ def main() -> int:
                  "src/repro/kernels/cheb_sweep.py:121",
                  bf16_rows["cheb_sweep"], scratch_dtype="bf16",
                  earlier=EARLIER["cheb_sweep_bf16"],
-                 accumulator_forms=forms(
-                     "bf16", bf16_rows["cheb_sweep"]["device_ms"])),
+                 other_accumulator_form=EARLIER["read_modify_write"]),
              name="cheb_sweep_bf16", launches=bf16_launches["cheb_sweep"]),
         dict(row("jacobi_sweep", "jacobi_sweep.cu",
                  "src/repro/kernels/cheb_sweep.py:222",

@@ -18,13 +18,12 @@
 // iterates live in device memory, where the 50 MB L2 decides whether they
 // stay on chip (the footprint guard in repro_torch/kernels/ops.py).
 //
-// What bounds it on this card: per order, the SpMV's gathers and the
-// accumulator's traffic.  The least work is the structure read once
-// (8 B per non-zero), x read and acc written once, and 2 nnz B + 4 B n +
+// What bounds it on this card: per order, the SpMV's gathers and one
+// grid barrier.  The least work is the structure read once (8 B per
+// non-zero), x read and acc written once, and 2 nnz B + 4 B n +
 // 2 (K+1) B eta n operations: 0.019 ms at n = 16384, B = 64, eta = 7,
 // K = 20 (operations, at the 67 TFLOP/s f32 peak).  In practice each
-// order gathers 8-32 bytes per stored entry and signal tile from the L2,
-// reads and writes the (B, eta, n) accumulator (58.7 MB at that shape)
+// order gathers 8-32 bytes per stored entry and signal tile from the L2
 // and waits at one barrier.
 //
 // What the design does about it:
@@ -36,26 +35,32 @@
 //   - the iterates are the kernel's own scratch, stored signal-minor
 //     (sliced_ell_sweep.cuh), so a gather of one column for TB signals
 //     is one vector load; order 1 gathers x in the caller's layout;
-//   - a fixed work decomposition (sliced_ell_sweep.cuh::Walk) gives each
-//     warp the same (slice, signal tile) items in every order; a warp
-//     writes t_k only into the rows of t_{k-2} it has just read itself,
-//     and every row anyone else reads in order k belongs to t_{k-1},
-//     which nobody writes in order k.  So three buffers — x (t_0, read
-//     only, caller layout), U and V — rotate in place with ONE barrier
-//     per order: t_1 -> U, t_2 -> V, then t_k -> buffer of t_{k-2};
-//   - the accumulator is read, updated and written back in place by the
-//     lane that owns its row (coalesced), right after t_k is formed.
+//   - every t_k is kept in its own buffer of a (K, B / TB, n, TB)
+//     scratch: order k gathers t_{k-1} from buffer k-1 and writes t_k to
+//     buffer k, so no buffer is written twice and orders need ONE barrier
+//     each (t_k complete everywhere before order k+1 gathers it); t_{k-2}
+//     is read only at the lane's own rows;
+//   - the (B, eta, n) accumulator is formed once, after the last order:
+//     a fixed work decomposition (sliced_ell_sweep.cuh::Walk) gives each
+//     warp the same (slice, signal tile) items in every order, so a lane
+//     reads back only its own rows of x and t_1..t_K, which it wrote
+//     itself, with no further barrier, sums eta x TB of them in registers
+//     and writes each accumulator row once (coalesced).  Reading and
+//     writing the 29 MB accumulator back in every order instead (its
+//     rows owned the same way) took 1.5077 ms against this form's 0.4847
+//     ms (f32; 1.2423 against 0.3843 in bf16) on an H100 80GB HBM3 at
+//     700 W at n = 16384, B = 64, eta = 7, K = 20 (chip_smoke.py).
 // f32 mode: f32 throughout, plain FFMA (no TF32).
 //
 // bf16 mode (the JAX kernel's scratch_dtype="bf16"): the layout's bf16
-// values copy, x read as bf16 and the iterates U / V bf16; the
-// coefficient table and the (B, eta, n) accumulator f32.  The SpMV
-// widens each element to f32 and sums in f32; each new iterate is
-// computed in f32 from that sum and the bf16 iterates and rounded once to
-// bf16 where it is stored, and the accumulator adds the stored (rounded)
-// value.  The TPU kernel rounded the SpMV product to bf16 in scratch as
-// well and ran the update in bf16 arithmetic; here the product never
-// leaves registers, so it is not rounded on its own.
+// values copy, x read as bf16 and the kept iterates bf16; the coefficient
+// table and the (B, eta, n) accumulator f32.  The SpMV widens each
+// element to f32 and sums in f32; each new iterate is computed in f32
+// from that sum and the bf16 iterates and rounded once to bf16 where it
+// is stored, and the accumulator sums the stored (rounded) values.  The
+// TPU kernel rounded the SpMV product to bf16 in scratch as well and ran
+// the update in bf16 arithmetic; here the product never leaves
+// registers, so it is not rounded on its own.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -68,6 +73,11 @@ namespace {
 using repro::CallerRows;
 using repro::MinorRows;
 
+// Accumulator rows a lane sums in registers per pass over its kept
+// iterates: eta x TB sums, at most 64 registers.
+template <int TB>
+constexpr int kAccRows = TB > 8 ? 64 / TB : 8;
+
 template <typename T, int TB>
 __global__ void __launch_bounds__(repro::kThreads)
 cheb_sweep_kernel(const T* __restrict__ values,
@@ -76,105 +86,16 @@ cheb_sweep_kernel(const T* __restrict__ values,
                   const int* __restrict__ widths,
                   const float* __restrict__ x,
                   const float* __restrict__ coefT, float* __restrict__ acc,
-                  T* U, T* V, int n_slices, long long n, int B, int K,
-                  int eta, float alpha) {
-  cg::grid_group grid = cg::this_grid();
-  const int n_tiles = (B + TB - 1) / TB;
-  const repro::Walk walk(n_slices, n_tiles);
-  const int lane = threadIdx.x % 32;
-  const float two_over_alpha = 2.f / alpha;
-  // t_{k-1} (order 1: x, in the caller's layout); t_{k-2} is x in
-  // order 2 and then the buffer t_k overwrites
-  const T* tm1 = nullptr;
-  T* dst = U;  // where t_k goes
-  for (int k = 1; k <= K; ++k) {
-    const float* ck = coefT + static_cast<long long>(k) * eta;
-    for (long long item = walk.warp; item < walk.items;
-         item += walk.n_warps) {
-      const int slice = static_cast<int>(item % n_slices);
-      const int bt = static_cast<int>(item / n_slices);
-      const int b0 = bt * TB;
-      const int nb = B - b0 < TB ? B - b0 : TB;
-      const long long tile = static_cast<long long>(bt) * n * TB;
-      float pt[TB];
-      if (k == 1)
-        repro::slice_spmv<TB>(values, columns, offsets[slice],
-                              widths[slice], lane,
-                              CallerRows<T, TB>{x + b0 * n, n, nb}, pt);
-      else
-        repro::slice_spmv<TB>(values, columns, offsets[slice],
-                              widths[slice], lane,
-                              MinorRows<T, TB>{tm1 + tile}, pt);
-      const long long row =
-          static_cast<long long>(slice) * repro::kSliceRows + lane;
-      if (row >= n) continue;  // a partly filled last slice
-      // this lane's row of t_{k-1} and t_{k-2}, then of t_k
-      float p1[TB], p2[TB], tk[TB];
-      const CallerRows<T, TB> x_rows{x + b0 * n, n, nb};
-      if (k == 1) {
-        x_rows(row, p1);
-      } else {
-        repro::load_row<T, TB>(tm1 + tile + row * TB, p1);
-        if (k == 2)
-          x_rows(row, p2);
-        else
-          repro::load_row<T, TB>(dst + tile + row * TB, p2);
-      }
-#pragma unroll
-      for (int t = 0; t < TB; ++t)
-        tk[t] = repro::round_to<T>(
-            k == 1 ? pt[t] / alpha - p1[t]
-                   : two_over_alpha * pt[t] - 2.f * p1[t] - p2[t]);
-      repro::store_row<T, TB>(dst + tile + row * TB, tk);
-#pragma unroll
-      for (int t = 0; t < TB; ++t) {
-        if (t >= nb) break;
-        float* a = acc + static_cast<long long>(b0 + t) * eta * n + row;
-        if (k == 1) {
-          // orders 0 and 1: acc = (c_0/2) x + c_1 t_1    (lines 4-5)
-          for (int j = 0; j < eta; ++j)
-            a[j * n] = 0.5f * coefT[j] * p1[t] + ck[j] * tk[t];
-        } else {
-          // line 9, then the running sum of line 12
-          for (int j = 0; j < eta; ++j) a[j * n] = a[j * n] + ck[j] * tk[t];
-        }
-      }
-    }
-    if (k == K) break;
-    grid.sync();  // t_k complete everywhere before order k+1 reads it
-    // rotate: t_{k+1} goes into the buffer of t_{k-1} (V after order 1,
-    // since t_0 is the read-only input x)
-    T* freed = k == 1 ? V : const_cast<T*>(tm1);
-    tm1 = dst;
-    dst = freed;
-  }
-}
-
-// The other accumulator form, kept only while the two are compared: every
-// t_k is kept in its own buffer of the (K, n_tiles, n, TB) scratch Hs and
-// the accumulator is formed once, after the last order, from the lane's
-// own rows of x and t_1 .. t_K (no barrier: a lane reads only what it
-// wrote itself).
-template <typename T, int TB>
-__global__ void __launch_bounds__(repro::kThreads)
-cheb_sweep_history_kernel(const T* __restrict__ values,
-                          const int* __restrict__ columns,
-                          const int* __restrict__ offsets,
-                          const int* __restrict__ widths,
-                          const float* __restrict__ x,
-                          const float* __restrict__ coefT,
-                          float* __restrict__ acc, T* Hs, int n_slices,
-                          long long n, int B, int K, int eta, float alpha) {
+                  T* Ts, int n_slices, long long n, int B, int K, int eta,
+                  float alpha) {
   cg::grid_group grid = cg::this_grid();
   const int n_tiles = (B + TB - 1) / TB;
   const repro::Walk walk(n_slices, n_tiles);
   const int lane = threadIdx.x % 32;
   const float two_over_alpha = 2.f / alpha;
   const long long stride = static_cast<long long>(n_tiles) * n * TB;
+  auto kept = [&](int k) { return Ts + (k - 1) * stride; };  // t_k, k >= 1
   for (int k = 1; k <= K; ++k) {
-    T* dst = Hs + (k - 1) * stride;
-    const T* tm1 = Hs + (k - 2) * stride;
-    const T* tm2 = Hs + (k - 3) * stride;
     for (long long item = walk.warp; item < walk.items;
          item += walk.n_warps) {
       const int slice = static_cast<int>(item % n_slices);
@@ -182,39 +103,41 @@ cheb_sweep_history_kernel(const T* __restrict__ values,
       const int b0 = bt * TB;
       const int nb = B - b0 < TB ? B - b0 : TB;
       const long long tile = static_cast<long long>(bt) * n * TB;
+      const CallerRows<T, TB> x_rows{x + b0 * n, n, nb};
       float pt[TB];
       if (k == 1)
         repro::slice_spmv<TB>(values, columns, offsets[slice],
-                              widths[slice], lane,
-                              CallerRows<T, TB>{x + b0 * n, n, nb}, pt);
+                              widths[slice], lane, x_rows, pt);
       else
         repro::slice_spmv<TB>(values, columns, offsets[slice],
                               widths[slice], lane,
-                              MinorRows<T, TB>{tm1 + tile}, pt);
+                              MinorRows<T, TB>{kept(k - 1) + tile}, pt);
       const long long row =
           static_cast<long long>(slice) * repro::kSliceRows + lane;
-      if (row >= n) continue;
+      if (row >= n) continue;  // a partly filled last slice
+      // this lane's row of t_{k-1} and t_{k-2}, then of t_k
       float p1[TB], p2[TB], tk[TB];
-      const CallerRows<T, TB> x_rows{x + b0 * n, n, nb};
       if (k == 1) {
         x_rows(row, p1);
       } else {
-        repro::load_row<T, TB>(tm1 + tile + row * TB, p1);
+        repro::load_row<T, TB>(kept(k - 1) + tile + row * TB, p1);
         if (k == 2)
           x_rows(row, p2);
         else
-          repro::load_row<T, TB>(tm2 + tile + row * TB, p2);
+          repro::load_row<T, TB>(kept(k - 2) + tile + row * TB, p2);
       }
 #pragma unroll
       for (int t = 0; t < TB; ++t)
         tk[t] = repro::round_to<T>(
-            k == 1 ? pt[t] / alpha - p1[t]
-                   : two_over_alpha * pt[t] - 2.f * p1[t] - p2[t]);
-      repro::store_row<T, TB>(dst + tile + row * TB, tk);
+            k == 1 ? pt[t] / alpha - p1[t]                   // line 4
+                   : two_over_alpha * pt[t] - 2.f * p1[t] - p2[t]);  // 9
+      repro::store_row<T, TB>(kept(k) + tile + row * TB, tk);
     }
-    if (k < K) grid.sync();
+    if (k < K) grid.sync();  // t_k complete everywhere before order k+1
   }
-  constexpr int kJ = 8;  // accumulator rows held in registers per pass
+  // acc = (c_0/2) x + sum_k c_k t_k (lines 5 and 12) from the lane's own
+  // rows, which it wrote itself: no barrier
+  constexpr int kJ = kAccRows<TB>;
   for (long long item = walk.warp; item < walk.items; item += walk.n_warps) {
     const int slice = static_cast<int>(item % n_slices);
     const int bt = static_cast<int>(item / n_slices);
@@ -236,7 +159,7 @@ cheb_sweep_history_kernel(const T* __restrict__ values,
       }
       for (int k = 1; k <= K; ++k) {
         float tk[TB];
-        repro::load_row<T, TB>(Hs + (k - 1) * stride + tile + row * TB, tk);
+        repro::load_row<T, TB>(kept(k) + tile + row * TB, tk);
         const float* ck = coefT + static_cast<long long>(k) * eta + j0;
 #pragma unroll
         for (int jj = 0; jj < kJ; ++jj) {
@@ -259,37 +182,17 @@ cheb_sweep_history_kernel(const T* __restrict__ values,
 }
 
 template <typename T, int TB>
-int launch_history(const void* values, const void* columns,
-                   const void* offsets, const void* widths, const void* x,
-                   const void* coefT, void* acc, void* Hs, int n_slices,
-                   long long n, int B, int K, int eta, float alpha,
-                   cudaStream_t stream, int* grid_out) {
-  auto kernel = cheb_sweep_history_kernel<T, TB>;
-  const long long items =
-      static_cast<long long>(n_slices) * ((B + TB - 1) / TB);
-  int err = repro::coop_grid(kernel, items, grid_out);
-  if (err) return err;
-  void* args[] = {&values, &columns, &offsets, &widths, &x, &coefT, &acc,
-                  &Hs, &n_slices, &n, &B, &K, &eta, &alpha};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
-                                    dim3(static_cast<unsigned>(*grid_out)),
-                                    dim3(repro::kThreads), args, 0, stream);
-  if (err) return err;
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, int TB>
 int launch(const void* values, const void* columns, const void* offsets,
            const void* widths, const void* x, const void* coefT, void* acc,
-           void* U, void* V, int n_slices, long long n, int B, int K,
-           int eta, float alpha, cudaStream_t stream, int* grid_out) {
+           void* Ts, int n_slices, long long n, int B, int K, int eta,
+           float alpha, cudaStream_t stream, int* grid_out) {
   auto kernel = cheb_sweep_kernel<T, TB>;
   const long long items =
       static_cast<long long>(n_slices) * ((B + TB - 1) / TB);
   int err = repro::coop_grid(kernel, items, grid_out);
   if (err) return err;
   void* args[] = {&values, &columns, &offsets, &widths, &x, &coefT, &acc,
-                  &U, &V, &n_slices, &n, &B, &K, &eta, &alpha};
+                  &Ts, &n_slices, &n, &B, &K, &eta, &alpha};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
                                     dim3(static_cast<unsigned>(*grid_out)),
                                     dim3(repro::kThreads), args, 0, stream);
@@ -308,24 +211,24 @@ const char* error_string(int err) {
 // values (stored,) f32 in cheb_sweep_f32 and the layout's bf16 copy in
 // cheb_sweep_bf16, columns (stored,) int32, offsets / widths (n_slices,)
 // int32 (core/graph.py::SlicedELL), x (B, n) f32 with n = the layout's
-// padded n, coefT (K+1, eta) f32, acc (B, eta, n) f32 output, U and V
-// (ceil(B / TB), n, TB) scratch, f32 in cheb_sweep_f32 and bf16 in
-// cheb_sweep_bf16.  TB, the signals per tile, is 1, 2, 4 or 8 in f32 and
-// 2, 4, 8 or 16 in bf16.  K >= 1.  Writes the grid size used to
+// padded n, coefT (K+1, eta) f32, acc (B, eta, n) f32 output, Ts
+// (K, ceil(B / TB), n, TB) scratch for t_1..t_K, f32 in cheb_sweep_f32 and
+// bf16 in cheb_sweep_bf16.  TB, the signals per tile, is 1, 2, 4 or 8 in
+// f32 and 2, 4, 8 or 16 in bf16.  K >= 1.  Writes the grid size used to
 // *grid_out.  Returns the launch's cudaError_t: a cooperative launch the
 // card refuses is reported, never run partially or retried another way.
+#define CHEB_SWEEP_CASE(TYPE, TILE)                                       \
+  case TILE:                                                            \
+    return launch<TYPE, TILE>(values, columns, offsets, widths, x, coefT, \
+                              acc, Ts, n_slices, n, B, K, eta, alpha,     \
+                              static_cast<cudaStream_t>(stream),          \
+                              static_cast<int*>(grid_out));
+
 int cheb_sweep_f32(const void* values, const void* columns,
                    const void* offsets, const void* widths, const void* x,
-                   const void* coefT, void* acc, void* U, void* V,
-                   int n_slices, long long n, int B, int TB, int K, int eta,
-                   float alpha, void* stream, void* grid_out) {
-  auto s = static_cast<cudaStream_t>(stream);
-  auto g = static_cast<int*>(grid_out);
-#define CHEB_SWEEP_CASE(TYPE, TILE)                                        \
-  case TILE:                                                             \
-    return launch<TYPE, TILE>(values, columns, offsets, widths, x, coefT, \
-                              acc, U, V, n_slices, n, B, K, eta, alpha, s, \
-                              g);
+                   const void* coefT, void* acc, void* Ts, int n_slices,
+                   long long n, int B, int TB, int K, int eta, float alpha,
+                   void* stream, void* grid_out) {
   switch (TB) {
     CHEB_SWEEP_CASE(float, 1)
     CHEB_SWEEP_CASE(float, 2)
@@ -337,11 +240,9 @@ int cheb_sweep_f32(const void* values, const void* columns,
 
 int cheb_sweep_bf16(const void* values, const void* columns,
                     const void* offsets, const void* widths, const void* x,
-                    const void* coefT, void* acc, void* U, void* V,
-                    int n_slices, long long n, int B, int TB, int K, int eta,
-                    float alpha, void* stream, void* grid_out) {
-  auto s = static_cast<cudaStream_t>(stream);
-  auto g = static_cast<int*>(grid_out);
+                    const void* coefT, void* acc, void* Ts, int n_slices,
+                    long long n, int B, int TB, int K, int eta, float alpha,
+                    void* stream, void* grid_out) {
   switch (TB) {
     CHEB_SWEEP_CASE(__nv_bfloat16, 2)
     CHEB_SWEEP_CASE(__nv_bfloat16, 4)
@@ -351,31 +252,5 @@ int cheb_sweep_bf16(const void* values, const void* columns,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 #undef CHEB_SWEEP_CASE
-
-// The history form at TB = 8 (f32) / 16 (bf16): Hs (K, ceil(B / TB), n,
-// TB) scratch.
-int cheb_sweep_history_f32(const void* values, const void* columns,
-                           const void* offsets, const void* widths,
-                           const void* x, const void* coefT, void* acc,
-                           void* Hs, int n_slices, long long n, int B, int K,
-                           int eta, float alpha, void* stream,
-                           void* grid_out) {
-  return launch_history<float, 8>(values, columns, offsets, widths, x, coefT,
-                                  acc, Hs, n_slices, n, B, K, eta, alpha,
-                                  static_cast<cudaStream_t>(stream),
-                                  static_cast<int*>(grid_out));
-}
-
-int cheb_sweep_history_bf16(const void* values, const void* columns,
-                            const void* offsets, const void* widths,
-                            const void* x, const void* coefT, void* acc,
-                            void* Hs, int n_slices, long long n, int B,
-                            int K, int eta, float alpha, void* stream,
-                            void* grid_out) {
-  return launch_history<__nv_bfloat16, 16>(
-      values, columns, offsets, widths, x, coefT, acc, Hs, n_slices, n, B, K,
-      eta, alpha, static_cast<cudaStream_t>(stream),
-      static_cast<int*>(grid_out));
-}
 
 }  // extern "C"

@@ -120,9 +120,9 @@ def build(op, *, mesh=None, partition=None, device=None,
             # the guard's model per signal; the sweeps read the sliced-ELL
             # layout, whose values and columns it adds once per launch
             "sweep_l2_bytes": ops.cheb_sweep_l2_bytes(
-                total, op.eta, scratch_dtype=sweep_dtype),
+                total, scratch_dtype=sweep_dtype),
             "sweep_l2_structure_bytes": ops.cheb_sweep_l2_bytes(
-                0, op.eta, scratch_dtype=sweep_dtype, stored=stored),
+                0, scratch_dtype=sweep_dtype, stored=stored),
             "sweep_l2_budget": (ops.DEFAULT_SWEEP_L2_BUDGET
                                 if l2_budget is None else l2_budget),
             "block_ell": A,

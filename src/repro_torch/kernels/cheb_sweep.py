@@ -4,11 +4,12 @@ rounds of a Section-V Jacobi solve, in ONE kernel launch.
 ``csrc/cheb_sweep.cu`` (replacing the JAX package's `cheb_sweep`) is a
 cooperative kernel: a grid of co-resident thread blocks walks the 32-row
 slices of P's sliced-ELL layout (`core.graph.SlicedELL`, a warp per
-slice and tile of signals), computes each order's SpMV rows and applies
-the fused three-term update and eta-fold accumulation to the same rows,
-with one grid-wide barrier between orders.  The iterates live in device
-memory, signal-minor, in the kernel's own scratch;
-`ops.cheb_sweep_l2_bytes` models whether they stay in the L2.
+slice and tile of signals), computes each order's SpMV rows and the
+fused three-term update of the same rows, with one grid-wide barrier
+between orders, and forms the eta-fold accumulator once after the last
+order.  Every iterate t_1..t_K is kept in device memory, signal-minor,
+in the kernel's own (K, B, n) scratch; `ops.cheb_sweep_l2_bytes` models
+whether the few each order re-reads stay in the L2.
 
 ``csrc/jacobi_sweep.cu`` (replacing the JAX package's `jacobi_sweep`) is
 its Section-V counterpart: every round of Eq. (24) / (25) on den(P) x = b
@@ -131,7 +132,7 @@ def _lib() -> ctypes.CDLL:
     for fn in (lib.cheb_sweep_f32, lib.cheb_sweep_bf16):
         if fn.argtypes is None:
             fn.restype = ctypes.c_int
-            fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int]
+            fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int]
                            + [ctypes.c_longlong] + [ctypes.c_int] * 4
                            + [ctypes.c_float, ctypes.c_void_p,
                               ctypes.c_void_p])
@@ -170,8 +171,8 @@ def cheb_sweep(S: SlicedELL, x: Tensor, coeffs, *, alpha: float,
     if B == 0:
         return acc
     tb = _signal_tile(B, scratch_dtype)
-    U, V = (torch.empty(-(-B // tb) * n * tb, dtype=sdt, device=x.device)
-            for _ in range(2))
+    K = K1 - 1
+    kept = torch.empty(K * -(-B // tb) * n * tb, dtype=sdt, device=x.device)
     grid = ctypes.c_int(0)
     lib = _lib()
     launch = lib.cheb_sweep_bf16 if scratch_dtype == "bf16" \
@@ -181,9 +182,8 @@ def cheb_sweep(S: SlicedELL, x: Tensor, coeffs, *, alpha: float,
         err = launch(
             _values(S, scratch_dtype).data_ptr(), S.columns.data_ptr(),
             S.offsets.data_ptr(), S.widths.data_ptr(), x.data_ptr(),
-            coefT.data_ptr(), acc.data_ptr(), U.data_ptr(), V.data_ptr(),
-            S.n_slices, n, B, tb, K1 - 1, eta, float(alpha), stream,
-            ctypes.addressof(grid))
+            coefT.data_ptr(), acc.data_ptr(), kept.data_ptr(), S.n_slices,
+            n, B, tb, K, eta, float(alpha), stream, ctypes.addressof(grid))
     _build.check(lib, err, "cheb_sweep (cooperative launch)")
     cheb_sweep.launches += 1
     cheb_sweep.last_grid = grid.value

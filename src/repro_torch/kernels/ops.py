@@ -79,33 +79,33 @@ def _structure_bytes(stored: int, scratch_dtype: Optional[str]) -> int:
     return stored * (4 + _scratch_itemsize(scratch_dtype, 4))
 
 
-def cheb_sweep_l2_bytes(n: int, eta: int, batch: int = 1,
-                        itemsize: int = 4,
+def cheb_sweep_l2_bytes(n: int, batch: int = 1, itemsize: int = 4,
                         scratch_dtype: Optional[str] = None,
                         stored: int = 0) -> int:
     """L2 footprint model for one `cheb_sweep` launch on Hopper.
 
     The sweep keeps nothing on chip across its grid barriers: the iterates
-    live in device memory.  What each order re-reads of the order before
-    is the reused working set — the three (B, n) iterates (t_{k-1}, read
-    by the SpMV of every slice that couples to it, t_{k-2} and the new
-    t_k), the (B, eta, n) accumulator that every order reads and writes
-    back, and the `stored` entries of the sliced-ELL layout that every
-    order's SpMV reads again:
+    live in device memory.  What each order re-reads of the orders before
+    is the reused working set — the three (B, n) iterates t_{k-1} (read by
+    the SpMV of every slice that couples to it), t_{k-2} and the new t_k,
+    and the `stored` entries of the sliced-ELL layout that every order's
+    SpMV reads again:
 
-        3 * B * n * s + eta * B * n * itemsize + stored * (4 + s') bytes,
+        3 * B * n * s + stored * (4 + s') bytes,
 
     with s the scratch width (2 under ``scratch_dtype="bf16"``, else
-    `itemsize`; the accumulator stays wide) — the iterate term of the JAX
-    package's `cheb_sweep_vmem_bytes` — and s' the width of the values
-    the sweep reads (4, or 2 for the layout's bf16 copy) beside each
-    4-byte column.  When the working set fits in the 50 MiB L2
+    `itemsize`) and s' the width of the values the sweep reads (4, or 2
+    for the layout's bf16 copy) beside each 4-byte column.  The kernel
+    keeps every t_k in its own buffer and forms the (B, eta, n)
+    accumulator once, after the last order, so the older iterates (read
+    once, at the end) and the accumulator (written once) stream through
+    the L2 and are not counted.  When the working set fits in the 50 MiB
+    L2
     (:data:`DEFAULT_SWEEP_L2_BUDGET`), orders after the first find it on
     chip.
     """
     sb = _scratch_itemsize(scratch_dtype, itemsize)
-    return (3 * batch * n * sb + eta * batch * n * itemsize
-            + _structure_bytes(stored, scratch_dtype))
+    return 3 * batch * n * sb + _structure_bytes(stored, scratch_dtype)
 
 
 def _per_order_cheb(A: BlockELL, x: Tensor, coeffs, lmax: float) -> Tensor:
@@ -145,7 +145,7 @@ def fused_cheb_sweep(
     S = A.sliced_ell()
     n = x.shape[-1]
     batch = max(1, x.numel() // n)
-    need = cheb_sweep_l2_bytes(n, eta, batch, x.element_size(),
+    need = cheb_sweep_l2_bytes(n, batch, x.element_size(),
                                scratch_dtype=sdt, stored=S.stored)
     if need > budget:
         logger.info(

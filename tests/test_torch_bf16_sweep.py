@@ -142,10 +142,12 @@ def test_other_scratch_dtypes_raise(block_ell_500, call):
 
 def test_guard_models_match_jax_formulas(block_ell_500):
     """The L2 guards count bf16 buffers at 2 bytes: the cheb model is the
-    iterate term of the JAX `cheb_sweep_vmem_bytes` (the port leaves out
-    the table and counts the sliced-ELL layout the sweep re-reads in
-    place of the Block-ELL blocks: 4 + 4 bytes per stored entry in f32,
-    2 + 4 with the bf16 values copy), the Jacobi model its six buffers
+    iterate term of the JAX `cheb_sweep_vmem_bytes` less its accumulator
+    (the port's kernel writes the accumulator once, after the last order,
+    so it is not re-read from the L2), without the table, and with the
+    sliced-ELL layout the sweep re-reads in place of the Block-ELL blocks:
+    4 + 4 bytes per stored entry in f32, 2 + 4 with the bf16 values
+    copy; the Jacobi model its six buffers
     with x_prev at 4 bytes (the kernel reads it from the previous x's f32
     buffer and rounds it, where the JAX kernel kept a bf16 copy) plus the
     same layout bytes."""
@@ -156,27 +158,27 @@ def test_guard_models_match_jax_formulas(block_ell_500):
                                                scratch_dtype=sdt)
         structure = A.blocks.size * sb + A.indices.size * 4
         jax_iterates = jax_total - structure - (K + 1) * eta * 4 - B * n * sb
-        assert ops.cheb_sweep_l2_bytes(n, eta, B, scratch_dtype=sdt) \
-            == jax_iterates == 3 * B * n * sb + eta * B * n * 4
+        assert ops.cheb_sweep_l2_bytes(n, B, scratch_dtype=sdt) \
+            == jax_iterates - eta * B * n * 4 == 3 * B * n * sb
         jax_buffers = jops.jacobi_sweep_vmem_bytes(
             A, n, batch=B, scratch_dtype=sdt) - structure
         assert ops.jacobi_sweep_l2_bytes(n, B, scratch_dtype=sdt) \
             == jax_buffers + (4 - sb) * B * n
     stored = At.sliced_ell().stored
     for sdt, sv in (("f32", 4), ("bf16", 2)):
-        assert ops.cheb_sweep_l2_bytes(n, eta, B, scratch_dtype=sdt,
+        assert ops.cheb_sweep_l2_bytes(n, B, scratch_dtype=sdt,
                                        stored=stored) \
-            == ops.cheb_sweep_l2_bytes(n, eta, B, scratch_dtype=sdt) \
+            == ops.cheb_sweep_l2_bytes(n, B, scratch_dtype=sdt) \
             + stored * (4 + sv)
         assert ops.jacobi_sweep_l2_bytes(n, B, scratch_dtype=sdt,
                                          stored=stored) \
             == ops.jacobi_sweep_l2_bytes(n, B, scratch_dtype=sdt) \
             + stored * (4 + sv)
-    assert ops.cheb_sweep_l2_bytes(n, eta, B) == (3 + eta) * B * n * 4
+    assert ops.cheb_sweep_l2_bytes(n, B) == 3 * B * n * 4
     assert ops.jacobi_sweep_l2_bytes(n, B) == 6 * B * n * 4
     # the smoke shape (483904 stored entries): both bf16 sweeps fit the
     # 50 MiB L2 at B = 64
-    assert ops.cheb_sweep_l2_bytes(16384, 7, 64, scratch_dtype="bf16",
+    assert ops.cheb_sweep_l2_bytes(16384, 64, scratch_dtype="bf16",
                                    stored=483904) \
         <= ops.DEFAULT_SWEEP_L2_BUDGET
     assert ops.jacobi_sweep_l2_bytes(16384, 64, scratch_dtype="bf16",
@@ -251,7 +253,7 @@ def test_bf16_plan_matches_dense(ops120, kind):
     plan = top.plan("cuda", device="cpu", sweep_dtype="bf16")
     assert plan.info["sweep_dtype"] == "bf16"
     assert plan.info["sweep_l2_bytes"] == ops.cheb_sweep_l2_bytes(
-        plan.info["padded_n"], top.eta, scratch_dtype="bf16")
+        plan.info["padded_n"], scratch_dtype="bf16")
     f = np.random.RandomState(9).randn(6, 120).astype(np.float32)
     want = getattr(jop.plan("dense"), kind)(jnp.asarray(f))
     got = getattr(plan, kind)(torch.from_numpy(f))

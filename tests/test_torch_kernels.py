@@ -166,17 +166,17 @@ def test_bf16_sweep_names_its_roadmap_item(block_ell_500):
 
 
 def test_l2_guard_model_and_smoke_shape():
-    """(3 + eta) B n 4 bytes of iterates and accumulator plus 8 bytes per
+    """3 B n 4 bytes of the iterates each order re-reads plus 8 bytes per
     stored sliced-ELL entry against the 50 MiB L2: the smoke shape
-    (n = 16384, eta = 7, B = 64, 483904 stored entries) takes the sweep,
-    B = 128 does not."""
-    assert ops.cheb_sweep_l2_bytes(100, 3, 2) == 6 * 2 * 100 * 4
-    assert ops.cheb_sweep_l2_bytes(100, 3, 2, stored=640) \
-        == 6 * 2 * 100 * 4 + 640 * 8
+    (n = 16384, B = 64, 483904 stored entries) takes the sweep, B = 256
+    does not."""
+    assert ops.cheb_sweep_l2_bytes(100, 2) == 3 * 2 * 100 * 4
+    assert ops.cheb_sweep_l2_bytes(100, 2, stored=640) \
+        == 3 * 2 * 100 * 4 + 640 * 8
     assert ops.DEFAULT_SWEEP_L2_BUDGET == 50 * 2**20
-    assert ops.cheb_sweep_l2_bytes(16384, 7, 64, stored=483904) <= \
+    assert ops.cheb_sweep_l2_bytes(16384, 64, stored=483904) <= \
         ops.DEFAULT_SWEEP_L2_BUDGET
-    assert ops.cheb_sweep_l2_bytes(16384, 7, 128, stored=483904) > \
+    assert ops.cheb_sweep_l2_bytes(16384, 256, stored=483904) > \
         ops.DEFAULT_SWEEP_L2_BUDGET
 
 
