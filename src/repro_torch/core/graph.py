@@ -253,21 +253,6 @@ class BlockELL:
             self.sliced = _sliced_from_blocks(self)
         return self.sliced
 
-    def sliced_ell_size(self) -> Tuple[int, int]:
-        """(nnz, stored) of :meth:`sliced_ell`'s layout, counted from the
-        blocks on their device without packing it: each slice of
-        :data:`SLICE_ROWS` rows stores its widest row's count per row."""
-        if self.sliced is not None:
-            return self.sliced.nnz, self.sliced.stored
-        # a slot at a time: the count's int64 temporary stays one slot's
-        degree = sum((self.blocks[:, j] != 0).sum(dim=-1)
-                     for j in range(self.blocks.shape[1])).reshape(-1)
-        n_slices = -(-degree.numel() // SLICE_ROWS)
-        widths = torch.nn.functional.pad(
-            degree, (0, n_slices * SLICE_ROWS - degree.numel()))
-        widths = widths.reshape(n_slices, SLICE_ROWS).amax(dim=1)
-        return int(degree.sum()), SLICE_ROWS * int(widths.sum())
-
 
 def to_block_ell(
     M: Union[Tensor, np.ndarray], block_shape: Tuple[int, int] = (8, 128)

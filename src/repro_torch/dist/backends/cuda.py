@@ -5,8 +5,8 @@ The counterpart of the JAX package's 'pallas' backend, with its contract:
 the dense P is packed once at plan time into Block-ELL (the JAX package's
 structure, kept for its padded size and metadata) and moved to the
 plan's device; the sliced-ELL row layout that every kernel reads — the
-stand-alone SpMV and both sweeps — is packed from it on the device at
-the plan's first apply or solve (`BlockELL.sliced_ell`); signals are
+stand-alone SpMV and both sweeps — is packed from it on the device when
+the plan is built (`BlockELL.sliced_ell`, kept on the Block-ELL); signals are
 padded to the Block-ELL padded size on the way in and cropped back to the
 logical N on the way out.  By default `apply` and `apply_gram` send the
 whole K-order recurrence to the single-launch `cheb_sweep` kernel,
@@ -103,7 +103,8 @@ def build(op, *, mesh=None, partition=None, device=None,
         return outs[..., :n]
 
     nnz_blocks = int(A.mask.sum())
-    nnz, stored = A.sliced_ell_size()
+    S = A.sliced_ell()
+    nnz, stored = S.nnz, S.stored
     return ExecutionPlan(
         op=op, backend="cuda", device=dev,
         apply=apply, apply_adjoint=apply_adjoint, apply_gram=apply_gram,

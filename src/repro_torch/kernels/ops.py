@@ -11,8 +11,8 @@ and their plain PyTorch version for a CPU tensor.
 Every SpMV this module serves (:func:`spmv`: the plan's matvec for the
 adjoint, the Gram's and ARMA's runners and the lasso, the per-order and
 per-round paths) and both sweeps read the sliced-ELL layout that the
-Block-ELL matrix carries (`BlockELL.sliced_ell`, packed on its device at
-the first use); no kernel reads the Block-ELL blocks.
+Block-ELL matrix carries (`BlockELL.sliced_ell`, packed on its device
+once); no kernel reads the Block-ELL blocks.
 
 Single-launch sweep dispatch: a matvec tagged with ``mv.block_ell = A``
 (a local Block-ELL product) routes the whole K-order loop of

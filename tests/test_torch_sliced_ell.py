@@ -219,16 +219,15 @@ def counted(monkeypatch):
 
 
 def test_plan_packs_the_sliced_layout(ops120):
-    """The plan counts the layout's entries without packing it; its first
-    apply (the sweep, which reads the layout too) packs it once and keeps
-    it on the Block-ELL, and the SpMV of apply_adjoint reuses it."""
+    """The plan packs the layout on its device when it is built and keeps
+    it on the Block-ELL; the sweep of apply and the SpMV of apply_adjoint
+    both read that one layout, and plan.info counts its entries."""
     _, top = ops120
     plan = top.plan("cuda", device="cpu")
     A = plan.info["block_ell"]
-    assert A.sliced is None
-    plan.apply(_randn(5, (2, 120)))
     S = A.sliced
     assert S is not None and S.padded_n == A.padded_n == 128
+    plan.apply(_randn(5, (2, 120)))
     plan.apply_adjoint(_randn(6, (2, top.eta, 120)))
     assert A.sliced is S
     assert plan.info["nnz"] == S.nnz
