@@ -12,9 +12,9 @@ that n = 16384 packs in seconds; its output is bitwise equal to the JAX
 package's loop.  The sliced-ELL row layout (`to_sliced_ell`) that the
 card's SpMV and sweeps read is packed the same way on the host, from a
 dense P or a Block-ELL; `BlockELL.sliced_ell` builds the same layout in
-torch ops on the blocks' own device.  The
-sensor-network generator builds W in row chunks, so a large n never
-holds n^2 float64 temporaries.
+torch ops on the blocks' own device.  The sensor-network generator
+builds W in row chunks, so a large n never holds n^2 float64
+temporaries.
 """
 from __future__ import annotations
 

@@ -1,25 +1,25 @@
 """'cuda' execution backend: sliced-ELL SpMV, fused Chebyshev-step and
 whole-recurrence sweep kernels written for Hopper.
 
-The counterpart of the JAX package's 'pallas' backend, with its contract:
-the dense P is packed once at plan time into Block-ELL (the JAX package's
-structure, kept for its padded size and metadata) and moved to the
-plan's device; the sliced-ELL row layout that every kernel reads — the
-stand-alone SpMV and both sweeps — is packed from it on the device when
-the plan is built (`BlockELL.sliced_ell`, kept on the Block-ELL); signals are
-padded to the Block-ELL padded size on the way in and cropped back to the
-logical N on the way out.  By default `apply` and `apply_gram` send the
-whole K-order recurrence to the single-launch `cheb_sweep` kernel,
-guarded by the L2 footprint model with a logged per-order fallback
-(``sweep=False`` / ``l2_budget=`` at plan time control it);
-`apply_adjoint` runs one batched sliced-ELL SpMV launch per order.
-``sweep_dtype="bf16"`` runs both sweeps in their mixed-precision mode
-(the layout's bf16 values and bf16 iterates, f32 accumulation).  The plan's matvec is
-tagged with its Block-ELL structure (``_mv.block_ell``), its L2 budget
-and its sweep dtype, so that `ops.fused_cheb_recurrence` over it engages
-the sweep and `plan.solve`'s Jacobi methods reach
-`ops.fused_jacobi_sweep` (one `jacobi_sweep` launch per solve), as the
-JAX package's 'pallas' backend tags its own.
+The counterpart of the JAX package's 'pallas' backend, with its
+contract: the dense P is packed once at plan time into Block-ELL (the
+JAX package's structure, kept for its padded size and metadata) and
+moved to the plan's device; the sliced-ELL row layout that every kernel
+reads — the stand-alone SpMV and both sweeps — is packed from it on the
+device when the plan is built (`BlockELL.sliced_ell`, kept on the
+Block-ELL); signals are padded to the Block-ELL padded size on the way
+in and cropped back to the logical N on the way out.  By default `apply`
+and `apply_gram` send the whole K-order recurrence to the single-launch
+`cheb_sweep` kernel, guarded by the L2 footprint model with a logged
+per-order fallback (``sweep=False`` / ``l2_budget=`` at plan time
+control it); `apply_adjoint` runs one batched sliced-ELL SpMV launch per
+order.  ``sweep_dtype="bf16"`` runs both sweeps in their mixed-precision
+mode (the layout's bf16 values and bf16 iterates, f32 accumulation).  The
+plan's matvec is tagged with its Block-ELL structure
+(``_mv.block_ell``), its L2 budget and its sweep dtype, so that
+`ops.fused_cheb_recurrence` over it engages the sweep and `plan.solve`'s
+Jacobi methods reach `ops.fused_jacobi_sweep` (one `jacobi_sweep` launch
+per solve), as the JAX package's 'pallas' backend tags its own.
 
 On a CUDA device every kernel launches (or raises); with
 ``device="cpu"`` the same code runs the kernels' plain PyTorch versions.

@@ -100,9 +100,8 @@ def cheb_sweep_l2_bytes(n: int, batch: int = 1, itemsize: int = 4,
     accumulator once, after the last order, so the older iterates (read
     once, at the end) and the accumulator (written once) stream through
     the L2 and are not counted.  When the working set fits in the 50 MiB
-    L2
-    (:data:`DEFAULT_SWEEP_L2_BUDGET`), orders after the first find it on
-    chip.
+    L2 (:data:`DEFAULT_SWEEP_L2_BUDGET`), orders after the first find it
+    on chip.
     """
     sb = _scratch_itemsize(scratch_dtype, itemsize)
     return 3 * batch * n * sb + _structure_bytes(stored, scratch_dtype)
@@ -126,8 +125,7 @@ def fused_cheb_sweep(
     x: (..., padded_n) at A's Block-ELL padded size; coeffs: (eta, K+1)
     (or (K+1,)).  Returns (..., eta, padded_n).  The whole K-order
     recurrence is ONE `cheb_sweep` launch on A's sliced-ELL layout,
-    guarded by
-    :func:`cheb_sweep_l2_bytes` against `l2_budget` (default
+    guarded by :func:`cheb_sweep_l2_bytes` against `l2_budget` (default
     :data:`DEFAULT_SWEEP_L2_BUDGET`): a working set over the budget takes
     the per-order path, logged at INFO.  K < 2 takes the per-order path
     too (there is no recurrence to fuse).  scratch_dtype: None / "f32" or
@@ -304,9 +302,9 @@ def fused_jacobi_sweep(
     The Section-V counterpart of :func:`fused_cheb_sweep`: all n_iters
     rounds of Eq. (24)/(25) — deg(den) SpMVs per round (Horner) on A's
     sliced-ELL layout plus the fused update — run inside one
-    `jacobi_sweep` launch.  b / x0:
-    (..., n) at any n (padded to A's Block-ELL size here, cropped on
-    return); inv_d broadcastable, zeros on padded rows.  weights:
+    `jacobi_sweep` launch.  b / x0: (..., n) at any n (padded to A's
+    Block-ELL size here, cropped on return); inv_d broadcastable, zeros
+    on padded rows.  weights:
     (n_iters, 2) host (w_t, s_t) schedule (`core.jacobi.jacobi_weights` /
     `cheb_jacobi_weights`).  Guarded by :func:`jacobi_sweep_l2_bytes`
     against `l2_budget` (default :data:`DEFAULT_SWEEP_L2_BUDGET`): a
