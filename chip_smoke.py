@@ -811,6 +811,13 @@ def main() -> int:
     check(calls["apply"]["cheb_sweep"] == 1
           and sum(calls["apply"].values()) == 1,
           "apply must be one sweep launch")
+    # the sweep's share of each sweep path: its device time per call (the
+    # rest of the steady time is the host's)
+    for name, fn in (("apply", plan.apply), ("apply_gram", plan.apply_gram)):
+        sweep_share = device_ms(lambda fn=fn: fn(F), 3, "cheb_sweep_kernel")
+        print(f"  {name}: cheb_sweep device_ms per call {sweep_share}")
+        path_rows[[r["name"] for r in path_rows].index(name)][
+            "sweep_device_ms"] = sweep_share
     check(calls["apply_gram"]["cheb_sweep"] == 1
           and sum(calls["apply_gram"].values()) == 1,
           "apply_gram must be one sweep")

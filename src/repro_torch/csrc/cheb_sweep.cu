@@ -48,8 +48,8 @@
 //     and writes each accumulator row once (coalesced).  Reading and
 //     writing the 29 MB accumulator back in every order instead (its
 //     rows owned the same way) took 1.5077 ms against this form's 0.4847
-//     ms (f32; 1.2423 against 0.3843 in bf16) on an H100 80GB HBM3 at
-//     700 W at n = 16384, B = 64, eta = 7, K = 20 (chip_smoke.py).
+//     ms in f32 on an H100 80GB HBM3 at 700 W at n = 16384, B = 64,
+//     eta = 7, K = 20 (chip_smoke.py).
 // f32 mode: f32 throughout, plain FFMA (no TF32).
 //
 // bf16 mode (the JAX kernel's scratch_dtype="bf16"): the layout's bf16
@@ -72,11 +72,6 @@ namespace {
 
 using repro::CallerRows;
 using repro::MinorRows;
-
-// Accumulator rows a lane sums in registers per pass over its kept
-// iterates: eta x TB sums, at most 64 registers.
-template <int TB>
-constexpr int kAccRows = TB > 8 ? 64 / TB : 8;
 
 template <typename T, int TB>
 __global__ void __launch_bounds__(repro::kThreads)
@@ -137,7 +132,7 @@ cheb_sweep_kernel(const T* __restrict__ values,
   }
   // acc = (c_0/2) x + sum_k c_k t_k (lines 5 and 12) from the lane's own
   // rows, which it wrote itself: no barrier
-  constexpr int kJ = kAccRows<TB>;
+  constexpr int kJ = 8;  // accumulator rows summed in registers per pass
   for (long long item = walk.warp; item < walk.items; item += walk.n_warps) {
     const int slice = static_cast<int>(item % n_slices);
     const int bt = static_cast<int>(item / n_slices);
@@ -214,7 +209,7 @@ const char* error_string(int err) {
 // padded n, coefT (K+1, eta) f32, acc (B, eta, n) f32 output, Ts
 // (K, ceil(B / TB), n, TB) scratch for t_1..t_K, f32 in cheb_sweep_f32 and
 // bf16 in cheb_sweep_bf16.  TB, the signals per tile, is 1, 2, 4 or 8 in
-// f32 and 2, 4, 8 or 16 in bf16.  K >= 1.  Writes the grid size used to
+// f32 and 2, 4 or 8 in bf16.  K >= 1.  Writes the grid size used to
 // *grid_out.  Returns the launch's cudaError_t: a cooperative launch the
 // card refuses is reported, never run partially or retried another way.
 #define CHEB_SWEEP_CASE(TYPE, TILE)                                       \
@@ -247,7 +242,6 @@ int cheb_sweep_bf16(const void* values, const void* columns,
     CHEB_SWEEP_CASE(__nv_bfloat16, 2)
     CHEB_SWEEP_CASE(__nv_bfloat16, 4)
     CHEB_SWEEP_CASE(__nv_bfloat16, 8)
-    CHEB_SWEEP_CASE(__nv_bfloat16, 16)
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -214,7 +214,7 @@ const char* error_string(int err) {
 // U, V (ceil(B / TB), n, TB) f32 scratch, H0, H1 the same shape, f32 in
 // jacobi_sweep_f32 and bf16 in jacobi_sweep_bf16; out (B, n) f32, x after
 // n_iters >= 1 rounds.  TB, the signals per tile, is 1, 2, 4 or 8 in f32
-// and 2, 4, 8 or 16 in bf16.  Writes the grid size used to *grid_out.
+// and 2, 4 or 8 in bf16.  Writes the grid size used to *grid_out.
 // Returns the launch's cudaError_t: a cooperative launch the card refuses
 // is reported, never run partially or retried another way.
 #define JACOBI_SWEEP_CASE(TYPE, TILE)                                      \
@@ -252,7 +252,6 @@ int jacobi_sweep_bf16(const void* values, const void* columns,
     JACOBI_SWEEP_CASE(__nv_bfloat16, 2)
     JACOBI_SWEEP_CASE(__nv_bfloat16, 4)
     JACOBI_SWEEP_CASE(__nv_bfloat16, 8)
-    JACOBI_SWEEP_CASE(__nv_bfloat16, 16)
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

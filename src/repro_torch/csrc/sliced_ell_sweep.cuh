@@ -7,8 +7,8 @@
 // Layout of a scratch iterate: (n_tiles, n, TB), signal tile bt and row r
 // at ((bt * n + r) * TB), the TB signals b = bt * TB + t contiguous.  A
 // gather of one column for a tile is then one vector load of TB values
-// (32 bytes at TB = 8 in f32 or TB = 16 in bf16: one sector), where the
-// caller's (B, n) layout takes TB loads of one word, a sector each.  The
+// (32 bytes at TB = 8 in f32: one sector), where the caller's (B, n)
+// layout takes TB loads of one word, a sector each.  The
 // padded signals of a ragged last tile (b >= B) hold zeros.
 //
 // Caller-layout operands (x, b, x0, inv_d, the outputs) are (B, n): lanes

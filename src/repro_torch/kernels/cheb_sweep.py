@@ -73,11 +73,12 @@ def _values(S: SlicedELL, scratch_dtype: str) -> Tensor:
 
 def _signal_tile(B: int, scratch_dtype: str) -> int:
     """Signals per tile of the sweeps: the batch rounded up to a power of
-    two, at most 8 f32 or 16 bf16 values (32 bytes, one sector per
-    gather); at least 2 in bf16 (a 4-byte word)."""
-    lo, hi = (2, 16) if scratch_dtype == "bf16" else (1, 8)
-    tb = lo
-    while tb < min(B, hi):
+    two, at most 8 (one 32-byte sector per gather in f32, half of one in
+    bf16, where 16 signals per tile took 1.3x longer on an H100: the
+    registers they need halve the resident warps); at least 2 in bf16 (a
+    4-byte word)."""
+    tb = 2 if scratch_dtype == "bf16" else 1
+    while tb < min(B, 8):
         tb *= 2
     return tb
 
