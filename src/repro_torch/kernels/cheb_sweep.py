@@ -74,9 +74,9 @@ def _values(S: SlicedELL, scratch_dtype: str) -> Tensor:
 def _signal_tile(B: int, scratch_dtype: str) -> int:
     """Signals per tile of the sweeps: the batch rounded up to a power of
     two, at most 8 (one 32-byte sector per gather in f32, half of one in
-    bf16, where 16 signals per tile took 1.3x longer on an H100: the
-    registers they need halve the resident warps); at least 2 in bf16 (a
-    4-byte word)."""
+    bf16, where 16 signals per tile took up to 1.3x longer on an H100:
+    the registers they need left one thread block per SM); at least 2 in
+    bf16 (a 4-byte word)."""
     tb = 2 if scratch_dtype == "bf16" else 1
     while tb < min(B, 8):
         tb *= 2
