@@ -138,20 +138,15 @@ TOL_ROUNDS = 1e-5
 TOL_GUARD = 1e-6
 PRED_MARGIN = 1e-3
 
-# The sweeps' device ms per launch before they read the sliced-ELL layout
-# (the (8, 128) Block-ELL tile kernels), and of the Chebyshev sweep's
-# other accumulator form, as PERF.md records them for an H100 80GB HBM3 at
-# 700 W: shown beside this run's times as text, not measured here.
-EARLIER = {
-    "read_modify_write": "acc read and written back in every order: "
-                         "1.5077 ms f32, 1.2423 ms bf16 device (PERF.md)",
-    "cheb_sweep": "8.5809 ms device (Block-ELL tile kernel, PERF.md)",
-    "cheb_sweep_bf16": "8.6630 ms device (Block-ELL tile kernel, PERF.md)",
-    "jacobi_sweep": "8.0820 ms device in setting (a), 8.0662 in (b) "
-                    "(Block-ELL tile kernel, PERF.md)",
-    "jacobi_sweep_bf16": "7.9574 ms device (Block-ELL tile kernel, "
-                         "PERF.md)",
-}
+# The sweeps' device ms per launch when they multiplied the (8, 128)
+# Block-ELL tile, as PERF.md records them for an H100 80GB HBM3 at 700 W.
+# Printed as quoted text on a line of its own, never in the kernels line:
+# this run does not measure them.
+EARLIER_SWEEPS = ("quoted from PERF.md, not measured in this run: the "
+                  "Block-ELL tile sweeps took, in device ms per launch, "
+                  "cheb_sweep 8.5809, cheb_sweep bf16 8.6630, jacobi_sweep "
+                  "8.0820 in setting (a) and 8.0662 in (b), jacobi_sweep "
+                  "bf16 7.9574 (H100 80GB HBM3, 700 W)")
 
 ROOT = Path(__file__).resolve().parent
 
@@ -507,6 +502,7 @@ def main() -> int:
           f"bound_ms={sweep_b[0]:.5f} ({sweep_b[1]}) "
           f"grid={cheb_sweep.last_grid} blocks, "
           f"stored_per_nnz={SL.stored_per_nnz:.4f} (sliced-ELL)")
+    print(f"earlier sweeps: {EARLIER_SWEEPS}")
     del pt, t1, t2, acc, got, want
 
     # jacobi_step: y and inv_d batched, shared (n,), and as the per-round
@@ -1086,14 +1082,13 @@ def main() -> int:
             step_row),
         row("cheb_sweep", "cheb_sweep.cu",
             "src/repro/kernels/cheb_sweep.py:121", sweep_row,
-            earlier=EARLIER["cheb_sweep"], stored_per_nnz=SL.stored_per_nnz,
-            other_accumulator_form=EARLIER["read_modify_write"]),
+            stored_per_nnz=SL.stored_per_nnz),
         row("jacobi_step", "jacobi_step.cu",
             "src/repro/kernels/jacobi_step.py:50", js_rows["path"],
             forms=js_rows),
         row("jacobi_sweep", "jacobi_sweep.cu",
             "src/repro/kernels/cheb_sweep.py:222", jsw_rows["a"],
-            settings=jsw_rows, earlier=EARLIER["jacobi_sweep"],
+            settings=jsw_rows,
             stored_per_nnz=A_n.sliced_ell().stored_per_nnz),
         row("ista_shrink", "ista_shrink.cu",
             "src/repro/kernels/soft_threshold.py:28", ist_rows["scale"],
@@ -1109,14 +1104,11 @@ def main() -> int:
                     if v["kernel"] == "flash_attention_ffma"}),
         dict(row("cheb_sweep", "cheb_sweep.cu",
                  "src/repro/kernels/cheb_sweep.py:121",
-                 bf16_rows["cheb_sweep"], scratch_dtype="bf16",
-                 earlier=EARLIER["cheb_sweep_bf16"],
-                 other_accumulator_form=EARLIER["read_modify_write"]),
+                 bf16_rows["cheb_sweep"], scratch_dtype="bf16"),
              name="cheb_sweep_bf16", launches=bf16_launches["cheb_sweep"]),
         dict(row("jacobi_sweep", "jacobi_sweep.cu",
                  "src/repro/kernels/cheb_sweep.py:222",
-                 bf16_rows["jacobi_sweep"], scratch_dtype="bf16",
-                 earlier=EARLIER["jacobi_sweep_bf16"]),
+                 bf16_rows["jacobi_sweep"], scratch_dtype="bf16"),
              name="jacobi_sweep_bf16",
              launches=bf16_launches["jacobi_sweep"]),
     ]

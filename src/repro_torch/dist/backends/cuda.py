@@ -118,12 +118,10 @@ def build(op, *, mesh=None, partition=None, device=None,
             "stored_per_nnz": stored / max(nnz, 1),
             "flops_per_matvec": 2 * stored,
             "sweep_dtype": sweep_dtype,
-            # the guard's model per signal; the sweeps read the sliced-ELL
-            # layout, whose values and columns it adds once per launch
+            # the guard's model per signal; the guard adds the sliced-ELL
+            # layout's values and columns once per launch
             "sweep_l2_bytes": ops.cheb_sweep_l2_bytes(
                 total, scratch_dtype=sweep_dtype),
-            "sweep_l2_structure_bytes": ops.cheb_sweep_l2_bytes(
-                0, scratch_dtype=sweep_dtype, stored=stored),
             "sweep_l2_budget": (ops.DEFAULT_SWEEP_L2_BUDGET
                                 if l2_budget is None else l2_budget),
             "block_ell": A,

@@ -144,7 +144,6 @@ def test_plan_info_and_metadata(ops120):
     assert info["nnz"] == S.nnz == int(np.count_nonzero(np.asarray(
         top.P)))
     assert info["sweep_l2_bytes"] == 3 * 128 * 4
-    assert info["sweep_l2_structure_bytes"] == 8 * S.stored
     assert plan.backend == "cuda" and plan.device == torch.device("cpu")
     assert (plan.eta, plan.K, plan.lmax) == (jop.eta, jop.K, jop.lmax)
     assert np.array_equal(plan.coeffs, jop.coeffs)
