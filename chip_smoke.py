@@ -44,7 +44,18 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    shape and a ragged S = 1000, the FFMA kernel at a small and a ragged
    f32 shape; `scaled_dot_product_attention` is timed beside each as the
    library yardstick (the port never calls it);
-8. shows through the kernels' launch counters that every path ran through
+8. drives the sharded apply (``plan("cuda_halo")`` and friends) at the
+   same n, K and batch: a 1-shard ``cuda_halo`` plan without a process
+   group (`apply`, one `cheb_sweep` launch; a Jacobi solve, one
+   `jacobi_sweep` launch), then 4 ranks on the one card, spawned from this
+   script, in a gloo group whose tiles are staged through pinned host
+   memory: ``cuda_halo`` `apply`, `apply_adjoint`, `apply_gram` and a
+   Jacobi `solve` (the per-order `sliced_ell_spmv` and `cheb_step` /
+   `jacobi_step` launches around the ring exchange), ``halo`` and
+   ``allgather`` `apply`.  Every rank holds its outputs against float64
+   dense, its counted rounds and messages against K, 2K and 2K|E|, and
+   its bytes against ``plan.info["halo_bytes_per_apply"]``;
+9. shows through the kernels' launch counters that every path ran through
    its kernels: each path is driven once with the counts set to 0 just
    before it and read just after.
 
@@ -147,6 +158,11 @@ EARLIER_SWEEPS = ("quoted from PERF.md, not measured in this run: the "
                   "cheb_sweep 8.5809, cheb_sweep bf16 8.6630, jacobi_sweep "
                   "8.0820 in setting (a) and 8.0662 in (b), jacobi_sweep "
                   "bf16 7.9574 (H100 80GB HBM3, 700 W)")
+
+# The sharded phase: ranks on the one card, gloo with host-staged tiles;
+# every line it prints carries this label (these are not NCCL numbers).
+SHARDS = 4
+SHARD_LABEL = f"gloo, host-staged, {SHARDS} ranks on one card"
 
 ROOT = Path(__file__).resolve().parent
 
@@ -311,6 +327,185 @@ def rel_check(got, ref, tol: float, what: str):
     print(f"  {what}: max_abs_err={err:.3e} rel={rel:.3e} (tol {tol})")
     check(rel <= tol, f"{what}: rel err {rel:.3e} > {tol}")
     return err, rel
+
+
+def _sharded_rank(rank: int, world: int, tmp: str) -> None:
+    """One rank of the sharded phase, spawned by :func:`main`.  It builds
+    the smoke graph from the seed, keeps its own shard, runs every sharded
+    path with the others, checks what it saw and writes it to
+    ``<tmp>/rank<rank>.json``; a failed check raises, which fails the
+    spawn and the script."""
+    import os
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=600))
+    try:
+        out = _sharded_checks(rank, world)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _sharded_checks(rank: int, world: int) -> dict:
+    import torch.distributed as dist
+
+    from repro_torch.core import filters, graph, wavelets
+    from repro_torch.dist import GraphOperator, comm, plan_comm_stats
+    from repro_torch.kernels.bcsr_spmv import sliced_ell_spmv
+    from repro_torch.kernels.cheb_step import cheb_step
+    from repro_torch.kernels.cheb_sweep import cheb_sweep, jacobi_sweep
+    from repro_torch.kernels.jacobi_step import jacobi_step
+    from repro_torch.kernels.soft_threshold import ista_shrink
+
+    counters = (sliced_ell_spmv, cheb_step, cheb_sweep, jacobi_step,
+                jacobi_sweep, ista_shrink)
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(SEED)
+    g = graph.connected_sensor_graph(rng, n=N, theta=THETA, kappa=KAPPA)
+    g, _ = graph.spatial_sort(g)
+    L, L_norm = g.laplacian(), g.laplacian("normalized")
+    lmax, n_edges = g.lambda_max_bound(), g.n_edges
+    del g
+    op = wavelets.sgwt_operator(L, lmax, J=J, K=K)
+    ssl_mult = [filters.ssl_multiplier(filters.power_kernel(1), TAU)]
+    op_n = GraphOperator(P=L_norm, multipliers=ssl_mult, lmax=2.0, K=K)
+    plans = {b: op.plan(b) for b in ("cuda_halo", "halo", "allgather")}
+    plan_n = op_n.plan("cuda_halo")
+    for p in (*plans.values(), plan_n):
+        check(p.info["n_shards"] == world and p.info["rank"] == rank
+              and p.info["transport"] == "gloo-host-staged",
+              f"{p.backend} plan info {p.info}")
+    h = plans["cuda_halo"].info["halo_width"]
+    check(plans["halo"].info["halo_width"] == h
+          and plans["cuda_halo"].info["partition_leak"] == 0.0,
+          "the strip-sorted graph must be leak-free under the split")
+    # B = 1: the boundary tile both ways per round, K rounds, every shard
+    for name in ("cuda_halo", "halo"):
+        st = plan_comm_stats(plans[name])["apply"]
+        check(st.exchange_rounds == K and st.bytes_per_round == 2 * h * 4
+              and st.total_bytes == plans[name].info["halo_bytes_per_apply"],
+              f"{name} bytes at B=1: {st.summary()}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    F = torch.randn(BATCH, N, generator=gen, device=dev)
+    a = torch.randn(BATCH, J + 1, N, generator=gen, device=dev)
+    Y = torch.randn(BATCH, N, generator=gen, device=dev)
+    dense = GraphOperator(P=L.double(), multipliers=op.multipliers,
+                          lmax=lmax, K=K).plan("dense")
+    dense_n = GraphOperator(P=L_norm.double(), multipliers=ssl_mult,
+                            lmax=2.0, K=K).plan("dense")
+    del L, L_norm
+    kw_a = dict(tau=TAU, r=1, n_iters=ROUNDS_A)
+    ch = plans["cuda_halo"]
+    paths = [  # name, call, reference, rounds, kernel launches
+        ("cuda_halo apply", lambda: ch.apply(F),
+         lambda: dense.apply(F.double()), K,
+         {"sliced_ell_spmv": K, "cheb_step": K - 1}),
+        ("cuda_halo apply_adjoint", lambda: ch.apply_adjoint(a),
+         lambda: dense.apply_adjoint(a.double()), K, {"sliced_ell_spmv": K}),
+        ("cuda_halo apply_gram", lambda: ch.apply_gram(F),
+         lambda: dense.apply_gram(F.double()), 2 * K,
+         {"sliced_ell_spmv": 2 * K, "cheb_step": 2 * K - 1}),
+        ("cuda_halo solve[jacobi] (a)",
+         lambda: plan_n.solve(Y, "jacobi", **kw_a).x,
+         lambda: dense_n.solve(Y.double(), "jacobi", **kw_a).x, ROUNDS_A,
+         {"sliced_ell_spmv": ROUNDS_A, "jacobi_step": ROUNDS_A}),
+        ("halo apply", lambda: plans["halo"].apply(F),
+         lambda: dense.apply(F.double()), K, {}),
+        ("allgather apply", lambda: plans["allgather"].apply(F),
+         lambda: dense.apply(F.double()), K, {}),
+    ]
+    rows = []
+    for name, call, ref_fn, rounds, expect in paths:
+        torch.cuda.synchronize()
+        for k in counters:
+            k.launches = 0
+        with comm.counting() as rec:
+            t0 = time.perf_counter()
+            out = call()
+            torch.cuda.synchronize()
+            first = (time.perf_counter() - t0) * 1e3
+        counts = {k.__name__: k.launches for k in counters if k.launches}
+        check(counts == expect, f"{name} on rank {rank}: launches {counts}, "
+              f"expected {expect}")
+        st = rec.stats(world, BATCH, 2 if "allgather" not in name else None)
+        check(st.exchange_rounds == rounds
+              and st.paper_messages(n_edges) == 2 * rounds * n_edges,
+              f"{name} on rank {rank}: {st.exchange_rounds} rounds, "
+              f"{st.paper_messages(n_edges)} messages; expected {rounds} "
+              f"and {2 * rounds * n_edges}")
+        err, rel = rel_err(out, ref_fn())
+        check(rel <= TOL_PATH, f"{name} on rank {rank}: rel err {rel:.3e}")
+        iters = 3
+        with comm.counting() as steady:
+            ms = time_ms(call, iters, warmup=1)
+        calls = iters + 1
+        rows.append(dict(name=name, launches=counts,
+                         rounds=st.exchange_rounds,
+                         messages=st.paper_messages(n_edges),
+                         bytes_per_round=st.bytes_per_round,
+                         max_abs_err=err, rel_err=rel, first_ms=first,
+                         steady_ms=ms,
+                         exchange_wait_ms=steady.wait_s * 1e3 / calls,
+                         exchange_post_ms=steady.post_s * 1e3 / calls))
+    # where the time of the cuda_halo apply goes: the exchange alone (K
+    # rounds of one (B, h) tile each way, no compute) and, on rank 0, one
+    # apply under torch.profiler (the other ranks run it beside)
+    tile = F[:, :h].contiguous()
+
+    def exchange_only():
+        for _ in range(K):
+            comm.ring_exchange(tile, tile, dist.group.WORLD).wait()
+
+    exchange_ms = time_ms(exchange_only, 3, warmup=1) / K
+    profile = _profile_call(ch.apply, F) if rank == 0 else None
+    if rank != 0:
+        ch.apply(F)
+        torch.cuda.synchronize()
+    return dict(rank=rank, halo_width=h, n_edges=n_edges, paths=rows,
+                exchange_only_ms_per_round=exchange_ms, profile=profile)
+
+
+def _profile_call(fn, arg):
+    """One call of fn(arg) under torch.profiler: the device time of its
+    kernels and copies by group, its share of the wall time, and the
+    host operations with the most self time; None when the trace holds
+    no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    groups = {"sliced_ell_spmv": ("sliced_ell_spmv",),
+              "cheb_step": ("cheb_step",), "memcpy": ("memcpy",),
+              "matmul": ("gemm", "gemv", "cutlass", "xmma", "nvjet")}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn(arg)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device = dict.fromkeys(list(groups) + ["other"], 0.0)
+    host = []
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            key = e.key.lower()
+            device[next((g for g, subs in groups.items()
+                         if any(x in key for x in subs)), "other")] += (
+                e.self_device_time_total / 1e3)
+        else:
+            host.append((e.self_cpu_time_total / 1e3, e.key, e.count))
+    busy = sum(device.values())
+    if busy <= 0:
+        return None
+    host.sort(reverse=True)
+    return dict(device_ms=device, busy_ms=busy, wall_ms=wall_ms,
+                busy_share=busy / wall_ms,
+                top_host_ms=[[k, c, round(ms, 3)] for ms, k, c in host[:8]])
 
 
 def main() -> int:
@@ -766,6 +961,9 @@ def main() -> int:
     names = [k.__name__ for k in counters]
     path_launches = dict.fromkeys(names, 0)
     bf16_launches = dict.fromkeys(names, 0)   # the bf16 sweep paths
+    # the sharded paths' launches, summed over their ranks (also in
+    # path_launches)
+    sharded_launches = dict.fromkeys(names, 0)
     path_rows = []
 
     def run_path(name, fn, steady_iters=3, tally=path_launches):
@@ -910,6 +1108,30 @@ def main() -> int:
     ref = dense.solve(Y.double(), "jacobi", **kw_b)
     rel_check(res.x, ref.x, TOL_PATH, "solve[jacobi] (b) vs f64 dense")
 
+    # -- the sharded apply on one shard: no process group ---------------------
+    # cuda_halo without a group is one shard whose matvec carries its
+    # Block-ELL: apply is one cheb_sweep launch, a Jacobi solve one
+    # jacobi_sweep launch, as in the cuda plan
+    plan1 = op.plan("cuda_halo")
+    plan1_n = op_n.plan("cuda_halo")
+    check(plan1.info["n_shards"] == 1 and plan1.info["transport"] is None,
+          f"the 1-shard plan's info {plan1.info}")
+    out1, counts = run_path("cuda_halo[1 shard] apply",
+                            lambda: plan1.apply(F))
+    check({k: v for k, v in counts.items() if v} == {"cheb_sweep": 1},
+          f"cuda_halo[1 shard] apply launches {counts}")
+    rel_check(out1, dense.apply(F.double()), TOL_PATH,
+              "cuda_halo[1 shard] apply vs f64 dense")
+    res1, counts = run_path("cuda_halo[1 shard] solve[jacobi] (a)",
+                            lambda: plan1_n.solve(Y, "jacobi", **kw_a))
+    check({k: v for k, v in counts.items() if v} == {"jacobi_sweep": 1},
+          f"cuda_halo[1 shard] solve launches {counts}")
+    ref = GraphOperator(P=L_norm.double(), multipliers=ssl_mult, lmax=2.0,
+                        K=K).plan("dense").solve(Y.double(), "jacobi", **kw_a)
+    rel_check(res1.x, ref.x, TOL_PATH,
+              "cuda_halo[1 shard] solve[jacobi] (a) vs f64 dense")
+    del plan1, plan1_n, out1, res1, ref
+
     # -- the bf16 sweep mode: apply and the setting (a) Jacobi solve ---------
     plan16 = op.plan("cuda", sweep_dtype="bf16")
     plan_n16 = op_n.plan("cuda", sweep_dtype="bf16")
@@ -980,6 +1202,62 @@ def main() -> int:
     check(bool(agree.all()), "SSL predictions differ from float64 dense")
     del res, ref
 
+    # -- the sharded apply: SHARDS ranks on the one card ---------------------
+    # every rank builds the graph from the seed and keeps its own shard;
+    # NCCL refuses two ranks on one card, so the group is gloo and the
+    # tiles go through pinned host memory
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(_sharded_rank, args=(SHARDS, tmp), nprocs=SHARDS, join=True)
+        ranks = []
+        for r in range(SHARDS):
+            with open(Path(tmp) / f"rank{r}.json") as f:
+                ranks.append(json.load(f))
+    print(f"sharded: {SHARDS} ranks, {SHARD_LABEL}: "
+          f"{time.perf_counter() - t0:.1f} s including the spawn; halo "
+          f"width h={ranks[0]['halo_width']}, |E|={ranks[0]['n_edges']}")
+    sharded_rows = []
+    for i, row in enumerate(ranks[0]["paths"]):
+        per_rank = [r["paths"][i] for r in ranks]
+        for k in row["launches"]:
+            launched = sum(p["launches"][k] for p in per_rank)
+            path_launches[k] += launched
+            sharded_launches[k] += launched
+        agg = dict(row, label=SHARD_LABEL, halo_width=ranks[0]["halo_width"],
+                   steady_ms_max=max(p["steady_ms"] for p in per_rank),
+                   exchange_wait_ms_max=max(p["exchange_wait_ms"]
+                                            for p in per_rank),
+                   rel_err_max=max(p["rel_err"] for p in per_rank))
+        sharded_rows.append(agg)
+        print(f"path {row['name']} [{SHARD_LABEL}]: h={agg['halo_width']}, "
+              f"steady {row['steady_ms']:.3f} ms on rank 0 (CUDA events; max "
+              f"over ranks {agg['steady_ms_max']:.3f}), exchange wait "
+              f"{row['exchange_wait_ms']:.3f} ms and post "
+              f"{row['exchange_post_ms']:.3f} ms per call on rank 0 (host "
+              f"clock; max wait {agg['exchange_wait_ms_max']:.3f}), first "
+              f"call {row['first_ms']:.1f} ms, {row['rounds']} rounds, "
+              f"{row['messages']} paper messages, "
+              f"{row['bytes_per_round']:.0f} bytes per round at B={BATCH}, "
+              f"launches per rank {row['launches']}, rel err max over ranks "
+              f"{agg['rel_err_max']:.3e} (tol {TOL_PATH})")
+    exchange = [r["exchange_only_ms_per_round"] for r in ranks]
+    print(f"sharded exchange alone [{SHARD_LABEL}]: one (B={BATCH}, "
+          f"h={ranks[0]['halo_width']}) f32 tile each way per round, "
+          f"{min(exchange):.3f} to {max(exchange):.3f} ms per round over "
+          f"ranks (CUDA events, {K} rounds per call)")
+    print(f"sharded cuda_halo apply under torch.profiler on rank 0 "
+          f"[{SHARD_LABEL}]: {ranks[0]['profile']}")
+    path_rows.extend(sharded_rows)
+    path_rows.append(dict(name="sharded exchange alone", label=SHARD_LABEL,
+                          ms_per_round=exchange,
+                          profile_cuda_halo_apply=ranks[0]["profile"]))
+    del ranks
+
     # -- the dense LM forward: starcoder2-3b, full width and depth -----------
     t0 = time.perf_counter()
     lm_gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1048,7 +1326,8 @@ def main() -> int:
     del params32, logits32
 
     print(f"path launches (all counted runs): {path_launches}; bf16 sweep "
-          f"paths: {bf16_launches}")
+          f"paths: {bf16_launches}; of these, the sharded paths "
+          f"({SHARD_LABEL}, summed over ranks): {sharded_launches}")
     check(all(v > 0 for v in path_launches.values()),
           "every kernel of the paths must launch")
     print(f"total {time.perf_counter() - t_start:.1f} s")
@@ -1064,7 +1343,8 @@ def main() -> int:
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"],
                 "library_ms": r.get("library_ms"),
-                "device_ms": r["device_ms"], **extra}
+                "device_ms": r["device_ms"],
+                "sharded_launches": sharded_launches[name], **extra}
 
     step_row = dict(max_abs_err=max(err_tk, err_acc), ms=step_ms,
                     plain_ms=step_plain, bound_ms=step_b[0],
@@ -1105,12 +1385,13 @@ def main() -> int:
         dict(row("cheb_sweep", "cheb_sweep.cu",
                  "src/repro/kernels/cheb_sweep.py:121",
                  bf16_rows["cheb_sweep"], scratch_dtype="bf16"),
-             name="cheb_sweep_bf16", launches=bf16_launches["cheb_sweep"]),
+             name="cheb_sweep_bf16", launches=bf16_launches["cheb_sweep"],
+             sharded_launches=0),
         dict(row("jacobi_sweep", "jacobi_sweep.cu",
                  "src/repro/kernels/cheb_sweep.py:222",
                  bf16_rows["jacobi_sweep"], scratch_dtype="bf16"),
              name="jacobi_sweep_bf16",
-             launches=bf16_launches["jacobi_sweep"]),
+             launches=bf16_launches["jacobi_sweep"], sharded_launches=0),
     ]
     print(json.dumps({"paths": path_rows}))
     print(smi)

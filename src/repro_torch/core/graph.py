@@ -244,6 +244,18 @@ class BlockELL:
                         sliced=(None if self.sliced is None
                                 else self.sliced.to(device)))
 
+    def todense(self) -> Tensor:
+        """The (n, n) dense matrix, on the blocks' device (the JAX
+        package's `BlockELL.todense`)."""
+        br, bc = self.block_shape
+        pn = self.padded_n
+        rb, s = torch.nonzero(self.mask, as_tuple=True)
+        out = torch.zeros((self.n_row_blocks, pn // bc, br, bc),
+                          dtype=self.blocks.dtype, device=self.device)
+        out.index_put_((rb, self.indices[rb, s].long()), self.blocks[rb, s],
+                       accumulate=True)
+        return out.permute(0, 2, 1, 3).reshape(pn, pn)[:self.n, :self.n]
+
     def sliced_ell(self) -> "SlicedELL":
         """The sliced-ELL form of this matrix, packed from the blocks on
         their own device (torch ops, no host copy) the first time it is
@@ -291,6 +303,20 @@ def to_block_ell(
     return BlockELL(blocks=torch.from_numpy(blocks),
                     indices=torch.from_numpy(indices),
                     mask=torch.from_numpy(mask), n=n)
+
+
+def block_ell_matvec_ref(A: BlockELL, x: Tensor) -> Tensor:
+    """y = A @ x by the blocks, in plain PyTorch (the JAX package's
+    reference Block-ELL matvec); x: (..., n) -> (..., n)."""
+    br, bc = A.block_shape
+    pn = A.padded_n
+    xp = torch.nn.functional.pad(x, (0, pn - x.shape[-1]))
+    xb = xp.reshape(x.shape[:-1] + (-1, bc))          # (..., ncb, bc)
+    gathered = xb[..., A.indices.long(), :]             # (..., nrb, slots, bc)
+    prod = torch.einsum("rsij,...rsj->...rsi", A.blocks.to(x.dtype), gathered)
+    prod = prod.masked_fill(~A.mask[:, :, None], 0.0)
+    y = prod.sum(dim=-2).reshape(x.shape[:-1] + (pn,))
+    return y[..., :A.n]
 
 
 # ---------------------------------------------------------------------------

@@ -129,10 +129,15 @@ class UnionMultiplier:
 
         Returns an ExecutionPlan with uniform `apply / apply_adjoint /
         apply_gram`.  `backend` is one of
-        `repro_torch.dist.available_backends()` ("dense", "cuda").
-        `device=None` means the CUDA card; the plan raises `RuntimeError`
-        when there is none and never falls back to the CPU.  Pass
-        ``device="cpu"`` to run the plain PyTorch versions on the host.
+        `repro_torch.dist.available_backends()` ("dense", "cuda"; sharded:
+        "halo", "cuda_halo", "allgather").  The sharded backends take
+        ``mesh=``, a `torch.distributed` process group (None: the default
+        group when one is initialized, else one shard); every rank passes
+        the same global signal and gets the same global result.
+        `device=None` means the CUDA card ``cuda:<rank % device_count>``;
+        the plan raises `RuntimeError` when there is none and never falls
+        back to the CPU.  Pass ``device="cpu"`` to run the plain PyTorch
+        versions on the host.
         """
         from ..dist.backends import get_backend
 

@@ -7,8 +7,9 @@ JAX package's structure, kept for its padded size and metadata) and
 moved to the plan's device; the sliced-ELL row layout that every kernel
 reads — the stand-alone SpMV and both sweeps — is packed from it on the
 device when the plan is built (`BlockELL.sliced_ell`, kept on the
-Block-ELL); signals are padded to the Block-ELL padded size on the way
-in and cropped back to the logical N on the way out.  By default `apply`
+Block-ELL); signals are cast to float32 (the packed P's dtype) and
+padded to the Block-ELL padded size on the way in, and cropped back to
+the logical N on the way out.  By default `apply`
 and `apply_gram` send the whole K-order recurrence to the single-launch
 `cheb_sweep` kernel, guarded by the L2 footprint model with a logged
 per-order fallback (``sweep=False`` / ``l2_budget=`` at plan time
@@ -63,7 +64,8 @@ def build(op, *, mesh=None, partition=None, device=None,
     lmax = op.lmax
 
     def _pad(x) -> Tensor:
-        return ops.pad_trailing(torch.as_tensor(x, device=dev), total)
+        return ops.pad_trailing(
+            torch.as_tensor(x, dtype=torch.float32, device=dev), total)
 
     def _mv(t: Tensor) -> Tensor:
         # batched sliced-ELL SpMV: leading dims (batch, eta streams, ...)

@@ -1,7 +1,8 @@
 """'dense' execution backend: Algorithm 1/2 against P as given.
 
-P is a dense matrix (moved once to the plan's device, at its own dtype)
-or a matvec closure applying P along the last axis.  The product is a
+P is a dense matrix (moved once to the plan's device, at its own dtype,
+which every signal is cast to on the way in) or a matvec closure applying
+P along the last axis (signals keep their dtype).  The product is a
 plain `torch.matmul` outside any kernel of this package, as the JAX
 package left it to XLA.  This is the single-device reference path with
 the batched (..., N) contract.
@@ -24,10 +25,12 @@ def build(op, *, mesh=None, partition=None, device=None, **options):
     if options:
         raise TypeError(f"dense backend takes no options {sorted(options)}")
     dev = resolve_device(device)
+    dtype = None
     if callable(op.P):
         mv = op.P
     else:
         P = torch.as_tensor(op.P).to(dev)
+        dtype = P.dtype
 
         def mv(x: Tensor) -> Tensor:
             return torch.matmul(x, P.mT)
@@ -36,7 +39,7 @@ def build(op, *, mesh=None, partition=None, device=None, **options):
     lmax = op.lmax
 
     def _in(x) -> Tensor:
-        return torch.as_tensor(x, device=dev)
+        return torch.as_tensor(x, dtype=dtype, device=dev)
 
     def apply(f) -> Tensor:
         return cheb.cheb_apply(mv, _in(f), coeffs, lmax)

@@ -6,6 +6,8 @@ picks the execution strategy and the device:
 
     op = GraphOperator(P, multipliers, lmax=lmax, K=20)
     plan = op.plan("cuda")          # or "dense"; device=None is the card
+    # or sharded over a torch.distributed group, one rank per shard:
+    # op.plan("cuda_halo", mesh=group) | "halo" | "allgather"
     out  = plan.apply(f)            # Phi~ f          (..., N) -> (..., eta, N)
     sig  = plan.apply_adjoint(out)  # Phi~* a         (..., eta, N) -> (..., N)
     gr   = plan.apply_gram(f)       # Phi~* Phi~ f    (..., N) -> (..., N)
@@ -68,8 +70,9 @@ class ExecutionPlan:
     consts=())` runs ``fn(mv, *signals, *consts)`` against this backend's
     matvec on its padded domain and crops outputs to the logical N.
     `solve_lasso_fn(y, mu, gamma, n_iters)`, where a backend sets it, runs
-    the whole ISTA loop fused; both single-device backends leave it None
-    and `solve_lasso` takes the generic loop.
+    the whole ISTA loop fused: the sharded backends set it (the loop on
+    each rank's rows); both single-device backends leave it None and
+    `solve_lasso` takes the generic loop.
     """
 
     op: UnionMultiplier
@@ -158,7 +161,9 @@ class ExecutionPlan:
         are benign and keep fusion.  Every forfeit is logged (INFO), and
         `LassoResult.fused` records which path ran.  Both single-device
         backends run the generic loop, whose shrinkage step is the
-        `ista_shrink` kernel on the card.
+        `ista_shrink` kernel on the card; the sharded backends run the
+        fused loop on each rank's rows, with the JAX package's plain
+        `soft_threshold`.
         """
         from ..core import lasso as _lasso
 

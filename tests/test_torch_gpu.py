@@ -2,7 +2,9 @@
 a CUDA device, and the main path, the Section-V solvers, the lasso and SSL
 against float64 dense; both flash-attention kernels (tensor cores for
 bf16 at D = 64 and 128, FFMA otherwise) and the reduced dense LM forward
-through them; the bf16 instances of the two sweeps.
+through them; the bf16 instances of the two sweeps; float64 signals cast
+at the plans' boundary; the 1-shard `cuda_halo` plan against the `cuda`
+plan.
 
 They carry the `gpu` marker and skip without a card (decided inside the
 `cuda` fixture, never at import).  The machine with the card has no JAX,
@@ -482,3 +484,59 @@ def test_bf16_plan_matches_float64_dense(solver_graph):
                          K=20).plan("dense", device="cuda").solve(
         F.double(), "jacobi", **kw)
     assert _rel(got.x.double(), want.x) < 3e-2
+
+
+@pytest.mark.parametrize("backend", ["dense", "cuda"])
+def test_float64_signal_cast_to_plan_dtype_on_card(solver_graph, backend):
+    """A float64 numpy signal meets the float32 plans on the card (cast at
+    the plan's boundary, ROADMAP.md fault 3.1): float32 out, within 1e-4
+    of the float64 dense plan."""
+    L, lmax = solver_graph.laplacian(), solver_graph.lambda_max_bound()
+    mult = twav.sgwt_multipliers(lmax, J=2)
+    plan = GraphOperator(P=L, multipliers=mult, lmax=lmax,
+                         K=12).plan(backend)
+    dense = GraphOperator(P=L.double(), multipliers=mult, lmax=lmax,
+                          K=12).plan("dense")
+    rs = np.random.RandomState(0)
+    x, a = rs.randn(4, 1000), rs.randn(4, 3, 1000)
+    for kind, sig in (("apply", x), ("apply_adjoint", a), ("apply_gram", x),
+                      ("solve", x)):
+        if kind == "solve":
+            got = plan.solve(sig, "jacobi", tau=0.5, n_iters=20).x
+            want = dense.solve(sig, "jacobi", tau=0.5, n_iters=20).x
+        else:
+            got, want = getattr(plan, kind)(sig), getattr(dense, kind)(sig)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32 and got.is_cuda, kind
+        assert float((got.double() - want).abs().max()) < 1e-4, kind
+
+
+def test_one_shard_cuda_halo_is_the_cuda_plan(solver_graph):
+    """Without a process group, cuda_halo's plan is one shard: `apply` is
+    one cheb_sweep launch, bitwise the cuda plan's; a Jacobi solve is one
+    jacobi_sweep launch; the adjoint K SpMV launches."""
+    Ln = solver_graph.laplacian("normalized")
+    mult = [tfilters.ssl_multiplier(tfilters.power_kernel(1), 0.5)]
+    op = GraphOperator(P=Ln, multipliers=mult, lmax=2.0, K=20)
+    one, cuda = op.plan("cuda_halo"), op.plan("cuda")
+    assert one.info["n_shards"] == 1 and one.info["transport"] is None
+    F = torch.randn(64, 1000, device="cuda")
+    counters = (sliced_ell_spmv, cheb_step, cheb_sweep, jacobi_sweep)
+
+    def launches(fn):
+        before = [k.launches for k in counters]
+        out = fn()
+        torch.cuda.synchronize()
+        return out, tuple(k.launches - b for k, b in zip(counters, before))
+
+    got, n_apply = launches(lambda: one.apply(F))
+    assert torch.equal(got, cuda.apply(F))
+    assert n_apply == (0, 0, 1, 0)
+    sol, n_solve = launches(lambda: one.solve(F, "jacobi", tau=0.5,
+                                              n_iters=20))
+    assert torch.equal(sol.x, cuda.solve(F, "jacobi", tau=0.5, n_iters=20).x)
+    assert n_solve == (0, 0, 0, 1)
+    a = torch.randn(64, 1, 1000, device="cuda")
+    adj, n_adj = launches(lambda: one.apply_adjoint(a))
+    assert n_adj == (20, 0, 0, 0)
+    assert _rel(adj, cuda.apply_adjoint(a)) < 1e-6

@@ -73,6 +73,29 @@ def test_plan_matches_reference_plans(ops120, ref_plans, backend, kind,
                                    err_msg=name)
 
 
+@pytest.mark.parametrize("kind", KINDS + ["solve"])
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_float64_signal_cast_to_plan_dtype(ops120, ref_plans, backend, kind):
+    """A float64 numpy signal is cast to the plan's dtype at its boundary
+    (float32 here: P's own for dense, the packed P's for cuda) and meets
+    the reference, which takes it to float32 under jax's default x64-off
+    (ROADMAP.md, fault 3.1)."""
+    jop, top = ops120
+    rs = np.random.RandomState(0)
+    x = rs.randn(4, jop.eta, 120) if kind == "apply_adjoint" else rs.randn(4, 120)
+    assert x.dtype == np.float64
+    plan = top.plan(backend, device="cpu")
+    if kind == "solve":
+        got = plan.solve(x, "jacobi", tau=0.5, n_iters=20).x
+        want = ref_plans["dense"].solve(x, "jacobi", tau=0.5, n_iters=20).x
+    else:
+        got = getattr(plan, kind)(x)
+        want = getattr(ref_plans["dense"], kind)(x)
+    assert got.dtype == torch.float32
+    assert np.asarray(want).dtype == np.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+
+
 @pytest.mark.parametrize("batch", [(64,), ()])
 @pytest.mark.parametrize("kind", ["apply", "apply_gram"])
 def test_per_order_plan_matches_reference(ops120, ref_plans, kind, batch):
@@ -149,7 +172,8 @@ def test_plan_info_and_metadata(ops120):
     assert np.array_equal(plan.coeffs, jop.coeffs)
     assert plan.error_bound() == pytest.approx(jop.error_bound(), rel=1e-3)
     assert plan.message_counts(10) == jop.message_counts(10)
-    assert available_backends() == ["cuda", "dense"]
+    assert available_backends() == ["allgather", "cuda", "cuda_halo",
+                                    "dense", "halo"]
     with pytest.raises(KeyError):
         get_backend("pallas")
 
