@@ -8,6 +8,8 @@
 * :mod:`repro_torch.dist.comm` — every send, receive and gather of the
   sharded plans, and their count (`CommStats`, `plan_comm_stats`,
   `verify_message_scaling`): the paper's 2K|E| messages made measurable.
+* :mod:`repro_torch.dist.sharded` — what the sharded backends share: the
+  ring matvec, the per-rank plan, the option and leak checks.
 * :mod:`repro_torch.dist.partition` — `OverfullSlotsError` (the general
   partitions are a later slice).
 * :mod:`repro_torch.dist.solvers` — Section-V iterative solvers (Jacobi,

@@ -14,7 +14,7 @@ import torch
 from ...core import chebyshev as cheb
 from .. import comm
 from . import register_backend, resolve_device
-from .halo import check_ported_options, sharded_plan
+from ..sharded import check_ported_options, sharded_plan
 
 Tensor = torch.Tensor
 
@@ -93,7 +93,10 @@ def build(op, *, mesh=None, partition=None, device=None,
         "n_local": nl,
         "exchange_dtype": exchange_dtype,
         "transport": comm.transport(group, dev),
-        "gather_bytes_per_apply": 2 * op.K * total * 4,
+        # what the K gathers of one apply carry, summed over the shards:
+        # each rank contributes its (nl,) iterate per order (as counted
+        # by `comm.all_gather`)
+        "gather_bytes_per_apply": op.K * total * rows.element_size(),
     }
     return sharded_plan(op, "allgather", _allgather_matvec(rows, group),
                         group=group, rank=rank, nl=nl, pnl=nl, device=dev,

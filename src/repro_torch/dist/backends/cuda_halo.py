@@ -15,15 +15,16 @@ packs it); the interior product is the sliced-ELL SpMV kernel
 couplings, applied as two small `torch.matmul` on arrival.  Each rank
 keeps only its own shard on its device.
 
-Per order the matvec posts the exchange of the boundary tiles, launches
-the interior SpMV, then waits: with a gloo group the host exchanges while
-the card computes.  The recurrence runs on the shard's Block-ELL padded
+Per order the matvec (`sharded.ring_matvec`) posts the exchange of the
+boundary tiles, launches the interior SpMV, then waits: with a gloo group
+the host exchanges while the card computes.  The recurrence runs on the shard's Block-ELL padded
 domain pnl, padded once on the way in and cropped once on the way out,
 through `ops.fused_cheb_recurrence`: one SpMV and one `cheb_step` launch
 per order.  On one shard there is nothing to exchange and the matvec is
 tagged with its Block-ELL (``mv.block_ell``), so `apply` is one
 `cheb_sweep` launch and a Jacobi solve one `jacobi_sweep` launch, as in
-the `cuda` backend.
+the `cuda` backend (whose options, such as ``sweep_dtype``, stay with
+``plan("cuda")``).
 
 On a CUDA device every kernel launches (or raises); with
 ``device="cpu"`` the same code runs the kernels' plain PyTorch versions.
@@ -37,12 +38,12 @@ import torch
 
 from ...core import graph as graphmod
 from ...kernels import ops
-from ...kernels.cheb_sweep import check_scratch_dtype
 from .. import comm
 from ..partition import OverfullSlotsError
+from ..sharded import (check_leak, check_ported_options, ring_matvec,
+                       sharded_plan)
 from . import register_backend, resolve_device
-from .halo import (check_leak, check_ported_options, halo_bytes_per_apply,
-                   partition_banded, sharded_plan)
+from .halo import halo_bytes_per_apply, partition_banded
 
 Tensor = torch.Tensor
 
@@ -137,66 +138,27 @@ def partition_block_ell(
 
 
 # ---------------------------------------------------------------------------
-# The per-shard matvec
-# ---------------------------------------------------------------------------
-def _halo_row_matvec(local_A: graphmod.BlockELL, left: Tensor, right: Tensor,
-                     nl: int, h: int, group):
-    """Interior/boundary-split matvec along the last axis of x (..., pnl),
-    on the shard's Block-ELL padded domain (rows past nl are zero and stay
-    zero); left / right are the couplings row-padded to (pnl, h).
-
-    1. post the ring exchange of the first and last h logical entries;
-    2. launch the interior sliced-ELL SpMV over D_s, which reads no
-       remote data;
-    3. wait, then the two (pnl, h) coupling products.
-
-    With one shard (`group` None) the couplings are zero and nothing is
-    sent: y = D x, and the closure is tagged ``mv.block_ell`` so that
-    `ops.fused_cheb_recurrence` and the Section-V solvers collapse the
-    whole iteration into one sweep launch.
-    """
-    if group is None:
-        def mv(x: Tensor) -> Tensor:
-            return ops.spmv(local_A, x.contiguous())
-
-        mv.block_ell = local_A
-        return mv
-
-    def mv(x: Tensor) -> Tensor:
-        pending = comm.ring_exchange(x[..., nl - h:nl], x[..., :h], group)
-        y = ops.spmv(local_A, x.contiguous())
-        from_prev, from_next = pending.wait()
-        return (y + torch.matmul(from_prev, left.mT)
-                + torch.matmul(from_next, right.mT))
-
-    return mv
-
-
-# ---------------------------------------------------------------------------
 # Building the plan
 # ---------------------------------------------------------------------------
 @register_backend("cuda_halo")
 def build(op, *, mesh=None, partition=None, device=None,
-          allow_leak: bool = False, block: Tuple[int, int] = (8, 128),
-          l2_budget: Optional[int] = None, sweep_dtype: Optional[str] = None,
-          exchange_dtype: str = "f32", fault_spec=None, **options):
+          allow_leak: bool = False, exchange_dtype: str = "f32",
+          fault_spec=None, **options):
     """Build this rank's plan: the per-shard Hopper kernels with
     boundary-row exchange over the process group `mesh` (None: the
     default group when one is initialized, else one shard).
 
     Needs a dense, banded P (a spatially sorted sensor graph) or a
-    precomputed `ShardedBlockELL` (``partition=``).  The rank keeps its
-    own D_s (Block-ELL and the sliced layout packed from it) and its
-    couplings on `device` (None: ``cuda:<rank % device_count>``), in
-    float32.  ``l2_budget`` and ``sweep_dtype`` act on the single-shard
-    sweeps, as in the `cuda` backend.
+    precomputed `ShardedBlockELL` (``partition=``; another column block
+    than the default (8, 128) comes from `partition_block_ell`).  The
+    rank keeps its own D_s (Block-ELL and the sliced layout packed from
+    it) and its couplings on `device` (None: ``cuda:<rank %
+    device_count>``), in float32.
     """
     check_ported_options(exchange_dtype, fault_spec, partition)
     if options:
         raise TypeError(f"cuda_halo backend takes no options "
                         f"{sorted(options)}")
-    sweep_dtype = sweep_dtype or "f32"
-    check_scratch_dtype(sweep_dtype)
     group, n_shards, rank = comm.resolve_group(mesh)
     dev = resolve_device(device)
     leak = 0.0
@@ -207,7 +169,7 @@ def build(op, *, mesh=None, partition=None, device=None,
             raise ValueError("cuda_halo backend needs a dense P or "
                              "partition=")
         P32 = torch.as_tensor(op.P).to(torch.float32)
-        parts, leak = partition_block_ell(P32, n_shards, block)
+        parts, leak = partition_block_ell(P32, n_shards)
         check_leak(leak, n_shards, allow_leak)
     else:
         raise TypeError(f"cuda_halo backend takes a ShardedBlockELL, got "
@@ -220,14 +182,19 @@ def build(op, *, mesh=None, partition=None, device=None,
     pnl = local_A.padded_n
     layout = local_A.sliced_ell()     # packed on the device, kept on local_A
 
+    def interior(x: Tensor) -> Tensor:
+        return ops.spmv(local_A, x.contiguous())
+
     def _rows(c: Tensor) -> Tensor:   # (nl, h) -> (pnl, h) on the device
         return torch.nn.functional.pad(c, (0, 0, 0, pnl - nl)).to(dev)
 
-    mv = _halo_row_matvec(local_A, _rows(parts.left[rank]),
-                          _rows(parts.right[rank]), nl, h, group)
+    mv = ring_matvec(interior, _rows(parts.left[rank]),
+                     _rows(parts.right[rank]), nl, h, group)
     if group is None:
-        mv.l2_budget = l2_budget
-        mv.sweep_dtype = sweep_dtype
+        # one shard: y = D x, and the Block-ELL tag lets
+        # `ops.fused_cheb_recurrence` and the Section-V solvers collapse
+        # the whole iteration into one sweep launch
+        mv.block_ell = local_A
     info = {
         "n_shards": n_shards,
         "rank": rank,
@@ -236,19 +203,17 @@ def build(op, *, mesh=None, partition=None, device=None,
         "halo_width": h,
         "partition": "banded",
         "partition_leak": leak,
-        # one exchange round = the pair of directions
-        "exchange_collectives_per_round": 2,
-        "block": tuple(block),
+        "exchange_collectives_per_round": comm.DIRECTIONS_PER_ROUND,
+        "block": tuple(parts.blocks.shape[-2:]),
         "nnz_blocks": parts.nnz_blocks,
         "nnz": layout.nnz,
         "stored_per_nnz": layout.stored_per_nnz,
         "exchange_dtype": exchange_dtype,
         "transport": comm.transport(group, dev),
-        "sweep_dtype": sweep_dtype,
-        "sweep_l2_bytes": ops.cheb_sweep_l2_bytes(
-            pnl, scratch_dtype=sweep_dtype),
-        "sweep_l2_budget": (ops.DEFAULT_SWEEP_L2_BUDGET
-                            if l2_budget is None else l2_budget),
+        # what the 1-shard sweeps hold in L2, and the guard they apply
+        # (a solve's l2_budget= overrides it per call)
+        "sweep_l2_bytes": ops.cheb_sweep_l2_bytes(pnl),
+        "sweep_l2_budget": ops.DEFAULT_SWEEP_L2_BUDGET,
         "halo_bytes_per_apply": halo_bytes_per_apply(parts, op.K),
         "halo_bytes_per_adjoint": halo_bytes_per_apply(parts, op.K, op.eta),
         "block_ell": local_A,
@@ -256,4 +221,3 @@ def build(op, *, mesh=None, partition=None, device=None,
     return sharded_plan(op, "cuda_halo", mv, group=group, rank=rank, nl=nl,
                         pnl=pnl, device=dev, dtype=torch.float32,
                         recurrence=ops.fused_cheb_recurrence, info=info)
-

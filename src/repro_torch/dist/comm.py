@@ -16,8 +16,9 @@ goes through this module, which tallies what really ran while a
   couplings are zero, as the JAX package's ``ppermute`` perms do).  Both
   directions are posted at once and returned pending, so the caller can
   launch its interior product before it waits.  Counted as two
-  ``ppermute`` calls, one per direction (``exchange_collectives_per_round
-  = 2``, as in the JAX package).
+  ``ppermute`` calls, one per direction (:data:`DIRECTIONS_PER_ROUND`,
+  which the ring plans declare as ``exchange_collectives_per_round``, as
+  in the JAX package).
 * :func:`all_gather` — one round of the ``allgather`` backend.
 * :func:`assemble` — gathers a plan's output rows onto every rank.  It is
   the counterpart of shard_map's in and out specs, which the JAX
@@ -51,6 +52,8 @@ Tensor = torch.Tensor
 #: Tags of the two ring directions.  At two shards both directions go to
 #: the same peer, and the tag tells the tiles apart.
 TAG_TO_NEXT, TAG_TO_PREV = 1, 2
+#: ``ppermute`` calls :func:`ring_exchange` counts per round.
+DIRECTIONS_PER_ROUND = 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,7 +87,7 @@ class CommStats:
     collectives: Tuple[CollectiveCall, ...]
     n_shards: int
     batch: int = 1
-    ppermutes_per_round: Optional[int] = None
+    ppermutes_per_round: int = DIRECTIONS_PER_ROUND
     assembly: Tuple[CollectiveCall, ...] = ()
 
     @property
@@ -97,26 +100,19 @@ class CommStats:
         """Neighbour-exchange rounds == matvec applications of P.
 
         The ring backends send one ``ppermute`` pair per matvec and
-        ``allgather`` one ``all_gather``.  Resolution order, as in the JAX
-        package: the plan-declared divisor (`ppermutes_per_round`, from
-        plan.info's ``exchange_collectives_per_round``; at two shards both
-        directions share one peer), then the largest per-perm tally, then
-        the pair assumption.
+        ``allgather`` one ``all_gather``: the ``ppermute`` tally over the
+        plan-declared divisor (`ppermutes_per_round`, from plan.info's
+        ``exchange_collectives_per_round``), plus the gathers.  The
+        counter tallies both directions of every round at the call site,
+        at two shards too, where both go to one peer; so the JAX
+        package's fallbacks for a plan that declares no divisor (grouping
+        its jaxpr's perms) have nothing to do here.
         """
         pp = sum(c.count for c in self.collectives
                  if c.primitive == "ppermute")
         ag = sum(c.count for c in self.collectives
                  if c.primitive == "all_gather")
-        if self.ppermutes_per_round:
-            return pp // self.ppermutes_per_round + ag
-        if pp:
-            by_perm: Dict[Any, int] = {}
-            for c in self.collectives:
-                if c.primitive == "ppermute":
-                    by_perm[c.perm] = by_perm.get(c.perm, 0) + c.count
-            if None not in by_perm:
-                return max(by_perm.values()) + ag
-        return pp // 2 + ag
+        return pp // self.ppermutes_per_round + ag
 
     @property
     def bytes_per_shard(self) -> int:
@@ -173,7 +169,7 @@ class Recorder:
         self.tally[key] = self.tally.get(key, 0) + 1
 
     def stats(self, n_shards: int, batch: int = 1,
-              ppermutes_per_round: Optional[int] = None) -> CommStats:
+              ppermutes_per_round: int = DIRECTIONS_PER_ROUND) -> CommStats:
         calls = [CollectiveCall(primitive=k[0], count=v, elems=k[1],
                                 nbytes=k[2], perm=k[3])
                  for k, v in sorted(self.tally.items(),
@@ -370,7 +366,8 @@ def _count(plan, fn, batch: int) -> CommStats:
     with counting() as rec:
         fn()
     return rec.stats(int(plan.info.get("n_shards", 1)), batch,
-                     plan.info.get("exchange_collectives_per_round"))
+                     plan.info.get("exchange_collectives_per_round",
+                                   DIRECTIONS_PER_ROUND))
 
 
 def plan_comm_stats(plan, n: Optional[int] = None,

@@ -14,7 +14,8 @@ PyTorch versions.  The JAX package's own counter fails on this tree
   (n = 64, K = 10, J = 2, 8 shards): K, K and 2K exchange rounds for
   apply, adjoint and Gram, exactly 2K|E| and 4K|E| paper messages,
   batch-invariant rounds at B = 4, and for the ring backends a halo
-  width of 1, 8 bytes per round and 2 K S 4 bytes per apply;
+  width of 1, 8 bytes per round and 2 K S 4 bytes per apply; every byte
+  model a plan states in its info is the counted total;
 * BENCH_comm.json's f32 setup (n = 512, half-band 24, K = 20, 8 shards):
   20 rounds, 192 bytes per round, relative error against dense <= 1e-5
   (2.68e-7 tracked).
@@ -24,7 +25,6 @@ tolerance of the reference's own backend test (tests/test_backends.py:
 58-67).  The JAX package is imported only inside the fixtures: the ranks
 import this module to find their entry point and need none of it.
 """
-import dataclasses
 import hashlib
 import json
 import os
@@ -122,6 +122,7 @@ def _rank_checks(rank, setup):
             "messages": {k: s.paper_messages(E) for k, s in stats.items()},
             "bytes_per_round": stats["apply"].bytes_per_round,
             "total_bytes": stats["apply"].total_bytes,
+            "adjoint_total_bytes": stats["apply_adjoint"].total_bytes,
             "assembly_calls": sum(c.count for c in stats["apply"].assembly),
             "max_rel_dev": scaling["max_rel_dev"],
             "measured_batched": scaling["measured_batched"],
@@ -307,6 +308,24 @@ def test_ring_bytes_halo_width_one(ranks, backend):
 
 
 @pytest.mark.parametrize("backend", SHARDED)
+def test_byte_models_are_the_counted_bytes(ranks, backend):
+    """What plan.info says an apply and an adjoint send, over all shards,
+    is what the counter tallied: the (..., h) tiles both ways per order
+    for the ring backends (eta streams in the adjoint), the (nl,) iterate
+    per order and shard for allgather."""
+    K, S, eta = K_PATH, WORLD, J_PATH + 1
+    for r in ranks:
+        rec = r[backend]
+        if backend == "allgather":
+            assert rec["total_bytes"] == K * N_PATH * 4
+            assert rec["total_bytes"] == rec["info"]["gather_bytes_per_apply"]
+        else:
+            assert rec["adjoint_total_bytes"] == 2 * K * S * eta * 1 * 4
+            assert (rec["adjoint_total_bytes"]
+                    == rec["info"]["halo_bytes_per_adjoint"])
+
+
+@pytest.mark.parametrize("backend", SHARDED)
 def test_assembly_kept_out_of_the_count(ranks, backend):
     """One gather of the output rows per call, beside the rounds."""
     for r in ranks:
@@ -423,6 +442,16 @@ def test_later_slices_raise_not_implemented(setup, backend, option):
         _path_op(setup).plan(backend, device="cpu", **option)
 
 
+@pytest.mark.parametrize("option", [dict(sweep_dtype="bf16"),
+                                    dict(l2_budget=1 << 20),
+                                    dict(block=(8, 8))])
+def test_cuda_halo_takes_no_single_device_options(setup, option):
+    """The sweep and block settings of plan("cuda") are refused, not
+    ignored; another column block comes in through partition=."""
+    with pytest.raises(TypeError, match="takes no options"):
+        _path_op(setup).plan("cuda_halo", device="cpu", **option)
+
+
 def test_precomputed_partitions(setup):
     """partition= takes the backend's own precomputed partition for the
     plan's shard count, and nothing else."""
@@ -461,7 +490,8 @@ def test_mesh_must_be_a_process_group(setup):
 
 def test_comm_stats_closed_form_arithmetic():
     """rounds x 2|E| (tests/test_commstats.py:55 on the port's data
-    model); the declared divisor wins over the perm grouping, and the
+    model); at two shards both directions share one perm and still make
+    one round, declared or not (the ring exchange counts both), and the
     assembly calls stay out of rounds and bytes."""
     perm = ((0, 1), (1, 0))
     stats = CommStats(
@@ -478,8 +508,9 @@ def test_comm_stats_closed_form_arithmetic():
         CollectiveCall("ppermute", 10, 1, 4, perm)), n_shards=2,
         ppermutes_per_round=2)
     assert two.exchange_rounds == 10 and two.bytes_per_round == 8.0
-    undeclared = dataclasses.replace(two, ppermutes_per_round=None)
-    assert undeclared.exchange_rounds == 20   # both directions share a perm
+    undeclared = CommStats(collectives=two.collectives, n_shards=2)
+    assert undeclared.ppermutes_per_round == comm.DIRECTIONS_PER_ROUND
+    assert undeclared.exchange_rounds == 10
     assert stats.summary()["assembly"][0]["nbytes"] == 256
 
 
