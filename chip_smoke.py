@@ -57,7 +57,22 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    2|E| per round, follow from them), and its counted bytes against the
    byte models in ``plan.info`` (``halo_bytes_per_apply`` and
    ``_per_adjoint``, ``gather_bytes_per_apply``);
-9. shows through the kernels' launch counters that every path ran through
+9. drives the general partitions (edge-cut sharding of an arbitrary sparse
+   graph, one tile per ring offset per order, the couplings added by the
+   SpMV kernel's rectangular, accumulating launch): (a) on one shard in
+   this process, ``plan("cuda_halo", partition=partition_general(L, 1))``
+   `apply` (one sweep launch) and a Jacobi solve (one `jacobi_sweep`
+   launch); (b) in the 4-rank group, ``partition="general"`` (BFS order)
+   on ``cuda_halo`` `apply` and Jacobi solve and on ``halo`` `apply`;
+   (c) in the same group, the million-vertex community graph of the JAX
+   package's ``bench_scaling.py --graph community`` (P never densified),
+   partitioned once here by spectral bisection and read by every rank:
+   ``cuda_halo`` `apply`, `apply_gram` and `apply_adjoint` on B = 16
+   signals, each rank checking more than two offsets, K / 2K rounds, the
+   partition's bytes, its launches and the float64 oracle (the ``dense``
+   plan over the CSR's matvec) on the first 4 signals; rank 0 holds the
+   coupling launch against its plain version at that shape;
+10. shows through the kernels' launch counters that every path ran through
    its kernels: each path is driven once with the counts set to 0 just
    before it and read just after.
 
@@ -165,6 +180,16 @@ EARLIER_SWEEPS = ("quoted from PERF.md, not measured in this run: the "
 # every line it prints carries this label (these are not NCCL numbers).
 SHARDS = 4
 SHARD_LABEL = f"gloo, host-staged, {SHARDS} ranks on one card"
+# Its general-partition phase at full size: the top point of the JAX
+# package's `benchmarks/bench_scaling.py --graph community` (1e6 vertices,
+# seed 0), partitioned once by spectral bisection in (8, 8) blocks (what
+# `bench_scaling.py:_auto_block` picks above n = 20000); the SGWT union
+# at J and K as above on B = 16 signals, and a float64 oracle on the first
+# ORACLE_SIGNALS of them.
+COMMUNITY_N = 1_000_000
+COMMUNITY_BLOCK = (8, 8)
+COMMUNITY_B = 16
+ORACLE_SIGNALS = 4
 
 ROOT = Path(__file__).resolve().parent
 
@@ -334,9 +359,10 @@ def rel_check(got, ref, tol: float, what: str):
 def _sharded_rank(rank: int, world: int, tmp: str) -> None:
     """One rank of the sharded phase, spawned by :func:`main`.  It builds
     the smoke graph from the seed, keeps its own shard, runs every sharded
-    path with the others, checks what it saw and writes it to
-    ``<tmp>/rank<rank>.json``; a failed check raises, which fails the
-    spawn and the script."""
+    path with the others, then the community graph's general plan from
+    the partition the parent left in `tmp`; it checks what it saw and
+    writes it to ``<tmp>/rank<rank>.json``.  A failed check raises, which
+    fails the spawn and the script."""
     import os
     from datetime import timedelta
 
@@ -348,6 +374,8 @@ def _sharded_rank(rank: int, world: int, tmp: str) -> None:
                             timeout=timedelta(seconds=600))
     try:
         out = _sharded_checks(rank, world)
+        torch.cuda.empty_cache()
+        out["community"] = _community_checks(rank, world, tmp)
     finally:
         dist.destroy_process_group()
     with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
@@ -359,14 +387,8 @@ def _sharded_checks(rank: int, world: int) -> dict:
 
     from repro_torch.core import filters, graph, wavelets
     from repro_torch.dist import GraphOperator, comm, plan_comm_stats
-    from repro_torch.kernels.bcsr_spmv import sliced_ell_spmv
-    from repro_torch.kernels.cheb_step import cheb_step
-    from repro_torch.kernels.cheb_sweep import cheb_sweep, jacobi_sweep
-    from repro_torch.kernels.jacobi_step import jacobi_step
-    from repro_torch.kernels.soft_threshold import ista_shrink
 
-    counters = (sliced_ell_spmv, cheb_step, cheb_sweep, jacobi_step,
-                jacobi_sweep, ista_shrink)
+    counters = _graph_counters()
     dev = torch.device("cuda")
     rng = np.random.RandomState(SEED)
     g = graph.connected_sensor_graph(rng, n=N, theta=THETA, kappa=KAPPA)
@@ -379,7 +401,12 @@ def _sharded_checks(rank: int, world: int) -> dict:
     op_n = GraphOperator(P=L_norm, multipliers=ssl_mult, lmax=2.0, K=K)
     plans = {b: op.plan(b) for b in ("cuda_halo", "halo", "allgather")}
     plan_n = op_n.plan("cuda_halo")
-    for p in (*plans.values(), plan_n):
+    # (b) the general partition in its string form: each rank orders the
+    # graph by BFS and keeps its own shard and couplings
+    gen_plans = {b: op.plan(b, partition="general")
+                 for b in ("cuda_halo", "halo")}
+    gen_n = op_n.plan("cuda_halo", partition="general")
+    for p in (*plans.values(), plan_n, *gen_plans.values(), gen_n):
         check(p.info["n_shards"] == world and p.info["rank"] == rank
               and p.info["transport"] == "gloo-host-staged",
               f"{p.backend} plan info {p.info}")
@@ -404,6 +431,16 @@ def _sharded_checks(rank: int, world: int) -> dict:
     check(st.exchange_rounds == K and st.total_bytes
           == plans["allgather"].info["gather_bytes_per_apply"],
           f"allgather bytes at B=1: {st.summary()}")
+    # the general plans: one tile per offset per round, 4 sum(h_k) bytes
+    # at B = 1, the partition's byte model in plan.info
+    ginfo = gen_plans["cuda_halo"].info
+    offsets = ginfo["partition_offsets"]
+    for name, p in gen_plans.items():
+        _check_general_bytes(f"{name}[general]", plan_comm_stats(p), p.info,
+                             K)
+    check(gen_plans["halo"].info["partition_fingerprint"]
+          == ginfo["partition_fingerprint"],
+          "halo and cuda_halo must take the same general partition")
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     F = torch.randn(BATCH, N, generator=gen, device=dev)
     a = torch.randn(BATCH, J + 1, N, generator=gen, device=dev)
@@ -415,26 +452,45 @@ def _sharded_checks(rank: int, world: int) -> dict:
     del L, L_norm
     kw_a = dict(tau=TAU, r=1, n_iters=ROUNDS_A)
     ch = plans["cuda_halo"]
-    paths = [  # name, call, reference, rounds, kernel launches
+    gch = gen_plans["cuda_halo"]
+    # a general round's coupling launch: one per SpMV when any edge is cut
+    couple, couple_n = ({"sliced_ell_spmv_accumulate": 1} if p.info[
+        "partition_offsets"] else {} for p in (gch, gen_n))
+    # name, call, reference, rounds, kernel launches, ppermutes per round
+    # (the plan's exchange_collectives_per_round)
+    ring, gen_pp = comm.DIRECTIONS_PER_ROUND, len(offsets)
+    paths = [
         ("cuda_halo apply", lambda: ch.apply(F),
          lambda: dense.apply(F.double()), K,
-         {"sliced_ell_spmv": K, "cheb_step": K - 1}),
+         {"sliced_ell_spmv": K, "cheb_step": K - 1}, ring),
         ("cuda_halo apply_adjoint", lambda: ch.apply_adjoint(a),
-         lambda: dense.apply_adjoint(a.double()), K, {"sliced_ell_spmv": K}),
+         lambda: dense.apply_adjoint(a.double()), K, {"sliced_ell_spmv": K},
+         ring),
         ("cuda_halo apply_gram", lambda: ch.apply_gram(F),
          lambda: dense.apply_gram(F.double()), 2 * K,
-         {"sliced_ell_spmv": 2 * K, "cheb_step": 2 * K - 1}),
+         {"sliced_ell_spmv": 2 * K, "cheb_step": 2 * K - 1}, ring),
         ("cuda_halo solve[jacobi] (a)",
          lambda: plan_n.solve(Y, "jacobi", **kw_a).x,
          lambda: dense_n.solve(Y.double(), "jacobi", **kw_a).x, ROUNDS_A,
-         {"sliced_ell_spmv": ROUNDS_A, "jacobi_step": ROUNDS_A}),
+         {"sliced_ell_spmv": ROUNDS_A, "jacobi_step": ROUNDS_A}, ring),
         ("halo apply", lambda: plans["halo"].apply(F),
-         lambda: dense.apply(F.double()), K, {}),
+         lambda: dense.apply(F.double()), K, {}, ring),
         ("allgather apply", lambda: plans["allgather"].apply(F),
-         lambda: dense.apply(F.double()), K, {}),
+         lambda: dense.apply(F.double()), K, {}, ring),
+        ("cuda_halo[general] apply", lambda: gch.apply(F),
+         lambda: dense.apply(F.double()), K,
+         _times({"sliced_ell_spmv": 1, **couple}, K, cheb_step=K - 1),
+         gen_pp),
+        ("cuda_halo[general] solve[jacobi] (a)",
+         lambda: gen_n.solve(Y, "jacobi", **kw_a).x,
+         lambda: dense_n.solve(Y.double(), "jacobi", **kw_a).x, ROUNDS_A,
+         _times({"sliced_ell_spmv": 1, "jacobi_step": 1, **couple_n},
+                ROUNDS_A), gen_n.info["exchange_collectives_per_round"]),
+        ("halo[general] apply", lambda: gen_plans["halo"].apply(F),
+         lambda: dense.apply(F.double()), K, {}, gen_pp),
     ]
     rows = []
-    for name, call, ref_fn, rounds, expect in paths:
+    for name, call, ref_fn, rounds, expect, per_round in paths:
         torch.cuda.synchronize()
         for k in counters:
             k.launches = 0
@@ -448,7 +504,7 @@ def _sharded_checks(rank: int, world: int) -> dict:
               f"expected {expect}")
         # paper messages are the counted rounds x 2|E|: the rounds are
         # what is measured
-        st = rec.stats(world, BATCH)
+        st = rec.stats(world, BATCH, per_round)
         check(st.exchange_rounds == rounds,
               f"{name} on rank {rank}: {st.exchange_rounds} rounds; "
               f"expected {rounds}")
@@ -465,36 +521,271 @@ def _sharded_checks(rank: int, world: int) -> dict:
                          max_abs_err=err, rel_err=rel, first_ms=first,
                          steady_ms=ms,
                          exchange_wait_ms=steady.wait_s * 1e3 / calls,
-                         exchange_post_ms=steady.post_s * 1e3 / calls))
+                         exchange_post_ms=steady.post_s * 1e3 / calls,
+                         assembly_ms=steady.assembly_s * 1e3 / calls))
     # where the time of the cuda_halo apply goes: the exchange alone (K
     # rounds of one (B, h) tile each way, no compute) and, on rank 0, one
     # apply under torch.profiler (the other ranks run it beside)
     tile = F[:, :h].contiguous()
-
-    def exchange_only():
-        for _ in range(K):
-            comm.ring_exchange(tile, tile, dist.group.WORLD).wait()
-
-    exchange_ms = time_ms(exchange_only, 3, warmup=1) / K
+    exchange_ms = _exchange_only_ms([tile, tile], (1, -1))
     profile = _profile_call(ch.apply, F) if rank == 0 else None
     if rank != 0:
         ch.apply(F)
         torch.cuda.synchronize()
     return dict(rank=rank, halo_width=h, n_edges=n_edges, paths=rows,
-                exchange_only_ms_per_round=exchange_ms, profile=profile)
+                exchange_only_ms_per_round=exchange_ms, profile=profile,
+                general=dict(offsets=list(offsets),
+                             tile_widths=list(ginfo["partition_tile_widths"]),
+                             edge_cut=ginfo["edge_cut"],
+                             method=ginfo["partition_method"]))
 
 
-def _profile_call(fn, arg):
+def _community_checks(rank: int, world: int, tmp: str) -> dict:
+    """(c) The general exchange at full size: the million-vertex community
+    graph's `cuda_halo` plan over the parent's spectral partition (P never
+    densified), `apply`, `apply_gram` and `apply_adjoint` on B =
+    COMMUNITY_B signals, each held against the float64 oracle (the
+    `dense` plan over the CSR's float64 matvec, on the card) on its first
+    ORACLE_SIGNALS signals; rank 0 also holds the coupling launch against
+    its plain version at this shape and times it."""
+    import torch.distributed as dist
+
+    from repro_torch.core import wavelets
+    from repro_torch.dist import GraphOperator, comm, plan_comm_stats
+    from repro_torch.dist.partition import CSRMatrix, csr_matvec_fn
+
+    dev = torch.device("cuda")
+    saved = torch.load(Path(tmp) / "community.pt", weights_only=False)
+    csr, meta, parts = saved["csr"], saved["meta"], saved["parts"]
+    n = csr.n
+    mult = wavelets.sgwt_multipliers(meta["lmax"], J=J)
+    op = GraphOperator(P=csr_matvec_fn(csr), multipliers=mult,
+                       lmax=meta["lmax"], K=K)
+    t0 = time.perf_counter()
+    plan = op.plan("cuda_halo", partition=parts)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    info = plan.info
+    offsets = info["partition_offsets"]
+    check(len(offsets) > 2 and info["transport"] == "gloo-host-staged"
+          and info["partition_fingerprint"] == parts.fingerprint,
+          f"community plan on rank {rank}: offsets {offsets}, info {info}")
+    st = plan_comm_stats(plan, n=n)
+    _check_general_bytes(f"community on rank {rank}", st, info, K)
+    check(st["apply"].bytes_per_round == parts.wire_bytes_per_round(),
+          "bytes per round must be the partition's wire bytes")
+    oracle = GraphOperator(
+        P=csr_matvec_fn(CSRMatrix(csr.indptr, csr.indices,
+                                  csr.data.astype(np.float64))),
+        multipliers=mult, lmax=meta["lmax"], K=K).plan("dense")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    F = torch.randn(COMMUNITY_B, n, generator=gen, device=dev)
+    a = torch.randn(COMMUNITY_B, J + 1, n, generator=gen, device=dev)
+    few = slice(0, ORACLE_SIGNALS)
+    per_order = {"sliced_ell_spmv": 1, "sliced_ell_spmv_accumulate": 1}
+    paths = [  # name, call, reference, rounds, kernel launches
+        ("community apply", lambda: plan.apply(F),
+         lambda: oracle.apply(F[few].double()), K,
+         _times(per_order, K, cheb_step=K - 1)),
+        ("community apply_gram", lambda: plan.apply_gram(F),
+         lambda: oracle.apply_gram(F[few].double()), 2 * K,
+         _times(per_order, 2 * K, cheb_step=2 * K - 1)),
+        ("community apply_adjoint", lambda: plan.apply_adjoint(a),
+         lambda: oracle.apply_adjoint(a[few].double()), K,
+         _times(per_order, K)),
+    ]
+    counters = _graph_counters()
+    rows = []
+    for name, call, ref_fn, rounds, expect in paths:
+        torch.cuda.synchronize()
+        for k in counters:
+            k.launches = 0
+        with comm.counting() as rec:
+            t0 = time.perf_counter()
+            out = call()
+            torch.cuda.synchronize()
+            first = (time.perf_counter() - t0) * 1e3
+        counts = {k.__name__: k.launches for k in counters if k.launches}
+        check(counts == expect, f"{name} on rank {rank}: launches {counts}, "
+              f"expected {expect}")
+        st = rec.stats(world, COMMUNITY_B,
+                       info["exchange_collectives_per_round"])
+        check(st.exchange_rounds == rounds,
+              f"{name} on rank {rank}: {st.exchange_rounds} rounds; "
+              f"expected {rounds}")
+        err, rel = rel_err(out[few], ref_fn())
+        check(rel <= TOL_PATH, f"{name} on rank {rank}: rel err {rel:.3e}")
+        del out
+        iters = 3
+        with comm.counting() as steady:
+            ms = time_ms(call, iters, warmup=1)
+        calls = iters + 1
+        rows.append(dict(name=name, launches=counts,
+                         rounds=st.exchange_rounds,
+                         messages=st.paper_messages(meta["n_edges"]),
+                         bytes_per_round=st.bytes_per_round,
+                         max_abs_err=err, rel_err=rel, first_ms=first,
+                         steady_ms=ms,
+                         exchange_wait_ms=steady.wait_s * 1e3 / calls,
+                         exchange_post_ms=steady.post_s * 1e3 / calls,
+                         assembly_ms=steady.assembly_s * 1e3 / calls))
+    # the exchange alone: K rounds of one (B, h_k) f32 tile per offset
+    tiles = [F[:, :h].contiguous() for h in info["partition_tile_widths"]]
+    exchange_ms = _exchange_only_ms(tiles, offsets)
+    # where the time of an apply goes, on rank 0 (the others run beside);
+    # the coupling launch is the kernel's accumulating instance
+    profile = None
+    if rank == 0:
+        profile = _profile_call(plan.apply, F, {
+            "coupling": ("sliced_ell_spmv_kernel<8, true>",),
+            "sliced_ell_spmv": ("sliced_ell_spmv",),
+            "cheb_step": ("cheb_step",), "memcpy": ("memcpy",),
+            "index_and_cat": ("index", "cat")})
+    else:
+        plan.apply(F)
+        torch.cuda.synchronize()
+    coupling = _coupling_kernel_row(parts, rank, dev) if rank == 0 else None
+    dist.barrier()
+    return dict(rank=rank, n=n, n_edges=meta["n_edges"], nnz=csr.nnz,
+                lmax=meta["lmax"], offsets=list(offsets),
+                tile_widths=list(info["partition_tile_widths"]),
+                edge_cut=info["edge_cut"], build_ms=build_ms,
+                n_local_padded=info["n_local_padded"],
+                interior_nnz=info["nnz"],
+                stored_per_nnz=info["stored_per_nnz"],
+                coupling_nnz=info["coupling_nnz"], paths=rows,
+                exchange_only_ms_per_round=exchange_ms, profile=profile,
+                coupling=coupling)
+
+
+def _coupling_kernel_row(parts, rank: int, dev) -> dict:
+    """The coupling launch (the SpMV kernel, rectangular and accumulating)
+    against its plain version on this rank's couplings at the community
+    shape, its times, bound and the library call computing y + C r."""
+    from repro_torch.dist.sharded import coupling_layout
+    from repro_torch.kernels.bcsr_spmv import (sliced_ell_spmv_accumulate,
+                                               sliced_ell_spmv_plain)
+
+    C = coupling_layout(parts, rank, parts.n_local_padded, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    r = torch.randn(COMMUNITY_B, C.x_len, generator=gen, device=dev)
+    y0 = torch.randn(COMMUNITY_B, C.padded_n, generator=gen, device=dev)
+    got = sliced_ell_spmv_accumulate(C, r, y0.clone())
+    want = sliced_ell_spmv_plain(C, r, out=y0.clone())
+    torch.cuda.synchronize()
+    err, rel = rel_err(got - y0, want - y0)
+    check(rel <= TOL_SPMV, f"coupling spmv: rel err {rel:.3e}")
+    y = y0.clone()
+    ms = time_ms(lambda: sliced_ell_spmv_accumulate(C, r, y), 20)
+    dev_ms = device_ms(lambda: sliced_ell_spmv_accumulate(C, r, y), 20,
+                       "sliced_ell_spmv_kernel")
+    plain_ms = time_ms(lambda: sliced_ell_spmv_plain(C, r, out=y), 5)
+    # the library yardstick: one cuSPARSE product y^T + C r^T
+    rows = C.entry_rows()[C.values != 0]
+    # y + C r needs only the rows that hold an entry; the kernel reads and
+    # writes every row of a slice that holds one (slice-granular)
+    entry_rows = int(rows.unique().numel())
+    touched_rows = int((C.widths > 0).sum()) * (C.padded_n // C.n_slices)
+    C_csr = torch.sparse_coo_tensor(
+        torch.stack([rows, C.columns[C.values != 0].long()]),
+        C.values[C.values != 0], (C.padded_n, C.x_len)).coalesce(
+        ).to_sparse_csr()
+    yT, rT = y0.t().contiguous(), r.t().contiguous()
+    lib_ms = lib_dev = None
+    try:
+        lib_ms = time_ms(lambda: torch.addmm(yT, C_csr, rT), 20)
+        lib_dev = all_device_ms(lambda: torch.addmm(yT, C_csr, rT), 20)
+    except (RuntimeError, NotImplementedError) as exc:
+        print(f"coupling library call torch.addmm(CSR) refused: {exc}")
+    b_ms, b_by = bound(C.nnz * 8 + COMMUNITY_B * (C.x_len + 2 * entry_rows)
+                       * 4, 2 * C.nnz * COMMUNITY_B)
+    touched_ms, _ = bound(C.nnz * 8 + COMMUNITY_B
+                          * (C.x_len + 2 * touched_rows) * 4,
+                          2 * C.nnz * COMMUNITY_B)
+    return dict(max_abs_err=err, rel_err=rel, ms=ms, device_ms=dev_ms,
+                plain_ms=plain_ms, library_ms=lib_ms,
+                library_device_ms=lib_dev, bound_ms=b_ms, bound_by=b_by,
+                entry_rows=entry_rows, touched_rows=touched_rows,
+                bound_touched_ms=touched_ms,
+                rows=C.padded_n, cols=C.x_len, nnz=C.nnz, stored=C.stored,
+                batch=COMMUNITY_B)
+
+
+def _graph_counters():
+    """The launch counters of the graph kernels' wrappers."""
+    from repro_torch.kernels.bcsr_spmv import (sliced_ell_spmv,
+                                               sliced_ell_spmv_accumulate)
+    from repro_torch.kernels.cheb_step import cheb_step
+    from repro_torch.kernels.cheb_sweep import cheb_sweep, jacobi_sweep
+    from repro_torch.kernels.jacobi_step import jacobi_step
+    from repro_torch.kernels.soft_threshold import ista_shrink
+
+    return (sliced_ell_spmv, sliced_ell_spmv_accumulate, cheb_step,
+            cheb_sweep, jacobi_step, jacobi_sweep, ista_shrink)
+
+
+def _times(per_round: dict, rounds: int, **extra) -> dict:
+    """Expected launches of a per-order path: `per_round` each round."""
+    return {**{k: v * rounds for k, v in per_round.items()}, **extra}
+
+
+def _check_general_bytes(name: str, st: dict, info: dict, K: int) -> None:
+    """At B = 1: K rounds (2K Gram), 4 sum(h_k) bytes per round (one f32
+    tile per offset) and the byte models of plan.info."""
+    wire = 4 * sum(info["partition_tile_widths"])
+    check(st["apply"].exchange_rounds == K
+          and st["apply_adjoint"].exchange_rounds == K
+          and st["apply_gram"].exchange_rounds == 2 * K
+          and st["apply"].bytes_per_round == wire
+          and st["apply"].total_bytes == info["halo_bytes_per_apply"]
+          and st["apply_adjoint"].total_bytes
+          == info["halo_bytes_per_adjoint"],
+          f"{name} rounds and bytes at B=1: {st['apply'].summary()}, "
+          f"{st['apply_adjoint'].summary()}, wire {wire}")
+
+
+def _exchange_only_ms(tiles, offsets, rounds: int = K) -> float:
+    """The exchange alone, per round: `rounds` rounds of `tiles` at
+    `offsets` with no compute (CUDA events, 3 calls after a warm-up)."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import comm
+
+    def exchange_only():
+        for _ in range(rounds):
+            comm.offset_exchange(tiles, offsets, dist.group.WORLD).wait()
+
+    return time_ms(exchange_only, 3, warmup=1) / rounds
+
+
+def _print_sharded_path(row: dict, agg: dict, batch: int) -> None:
+    print(f"path {row['name']} [{SHARD_LABEL}]: h={agg['halo_width']}, "
+          f"steady {row['steady_ms']:.3f} ms on rank 0 (CUDA events; max "
+          f"over ranks {agg['steady_ms_max']:.3f}), exchange wait "
+          f"{row['exchange_wait_ms']:.3f} ms and post "
+          f"{row['exchange_post_ms']:.3f} ms, assembly "
+          f"{row['assembly_ms']:.3f} ms per call on rank 0 (host "
+          f"clock; max wait {agg['exchange_wait_ms_max']:.3f}), first "
+          f"call {row['first_ms']:.1f} ms, {row['rounds']} rounds, "
+          f"{row['messages']} paper messages (rounds x 2|E|), "
+          f"{row['bytes_per_round']:.0f} bytes per round at B={batch}, "
+          f"launches per rank {row['launches']}, rel err max over ranks "
+          f"{agg['rel_err_max']:.3e} (tol {TOL_PATH})")
+
+
+def _profile_call(fn, arg, groups=None):
     """One call of fn(arg) under torch.profiler: the device time of its
-    kernels and copies by group, its share of the wall time, and the
-    host operations with the most self time; None when the trace holds
-    no device time."""
+    kernels and copies by group (the first of `groups`, name ->
+    substrings, that matches), its share of the wall time, and the host
+    operations with the most self time; None when the trace holds no
+    device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    groups = {"sliced_ell_spmv": ("sliced_ell_spmv",),
-              "cheb_step": ("cheb_step",), "memcpy": ("memcpy",),
-              "matmul": ("gemm", "gemv", "cutlass", "xmma", "nvjet")}
+    groups = groups or {
+        "sliced_ell_spmv": ("sliced_ell_spmv",),
+        "cheb_step": ("cheb_step",), "memcpy": ("memcpy",),
+        "matmul": ("gemm", "gemv", "cutlass", "xmma", "nvjet")}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -533,9 +824,12 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import filters, graph, jacobi, lasso, ssl, wavelets
     from repro_torch.dist import METHODS, GraphOperator
+    from repro_torch.dist.partition import (community_graph_csr,
+                                            partition_general)
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.bcsr_spmv import (block_ell_spmv_plain,
                                                sliced_ell_spmv,
+                                               sliced_ell_spmv_accumulate,
                                                sliced_ell_spmv_plain)
     from repro_torch.configs import get_config
     from repro_torch.kernels.cheb_step import cheb_step, cheb_step_plain
@@ -968,9 +1262,9 @@ def main() -> int:
     del q, k, v, got, want
 
     # -- counted paths ----------------------------------------------------------
-    counters = (sliced_ell_spmv, cheb_step, cheb_sweep, jacobi_step,
-                jacobi_sweep, ista_shrink, flash_attention_wgmma,
-                flash_attention_ffma)
+    counters = (sliced_ell_spmv, sliced_ell_spmv_accumulate, cheb_step,
+                cheb_sweep, jacobi_step, jacobi_sweep, ista_shrink,
+                flash_attention_wgmma, flash_attention_ffma)
     names = [k.__name__ for k in counters]
     path_launches = dict.fromkeys(names, 0)
     bf16_launches = dict.fromkeys(names, 0)   # the bf16 sweep paths
@@ -1143,6 +1437,30 @@ def main() -> int:
                         K=K).plan("dense").solve(Y.double(), "jacobi", **kw_a)
     rel_check(res1.x, ref.x, TOL_PATH,
               "cuda_halo[1 shard] solve[jacobi] (a) vs f64 dense")
+    # (a) a general partition on one shard: BFS-ordered, no cut edge, so
+    # the permuted plan is one sweep launch again
+    t0 = time.perf_counter()
+    plan1 = op.plan("cuda_halo", partition=partition_general(L, 1))
+    plan1_n = op_n.plan("cuda_halo", partition=partition_general(L_norm, 1))
+    print(f"general partition, 1 shard: built in "
+          f"{time.perf_counter() - t0:.1f} s (host), offsets "
+          f"{plan1.info['partition_offsets']}, fingerprint "
+          f"{plan1.info['partition_fingerprint']}")
+    check(plan1.info["partition"] == "general"
+          and plan1.info["exchange_collectives_per_round"] == 0,
+          f"the 1-shard general plan's info {plan1.info}")
+    out1, counts = run_path("cuda_halo[general, 1 shard] apply",
+                            lambda: plan1.apply(F))
+    check({k: v for k, v in counts.items() if v} == {"cheb_sweep": 1},
+          f"cuda_halo[general, 1 shard] apply launches {counts}")
+    rel_check(out1, dense.apply(F.double()), TOL_PATH,
+              "cuda_halo[general, 1 shard] apply vs f64 dense")
+    res1, counts = run_path("cuda_halo[general, 1 shard] solve[jacobi] (a)",
+                            lambda: plan1_n.solve(Y, "jacobi", **kw_a))
+    check({k: v for k, v in counts.items() if v} == {"jacobi_sweep": 1},
+          f"cuda_halo[general, 1 shard] solve launches {counts}")
+    rel_check(res1.x, ref.x, TOL_PATH,
+              "cuda_halo[general, 1 shard] solve[jacobi] (a) vs f64 dense")
     del plan1, plan1_n, out1, res1, ref
 
     # -- the bf16 sweep mode: apply and the setting (a) Jacobi solve ---------
@@ -1224,16 +1542,37 @@ def main() -> int:
     import torch.multiprocessing as mp
 
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
+        # (c)'s graph and partition, built once here for every rank
+        t0 = time.perf_counter()
+        csr_c, meta_c = community_graph_csr(COMMUNITY_N, seed=SEED)
+        t_graph = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        parts_c = partition_general(csr_c, SHARDS, method="spectral",
+                                    block=COMMUNITY_BLOCK, seed=SEED)
+        t_part = time.perf_counter() - t0
+        torch.save({"csr": csr_c, "meta": meta_c, "parts": parts_c},
+                   Path(tmp) / "community.pt")
+        print(f"community graph: n={csr_c.n} |E|={meta_c['n_edges']} "
+              f"nnz={csr_c.nnz} lmax={meta_c['lmax']:.4f} built in "
+              f"{t_graph:.1f} s; spectral partition over {SHARDS} shards in "
+              f"{t_part:.1f} s (host): offsets {parts_c.offsets}, tiles "
+              f"{parts_c.tile_widths}, edge cut {parts_c.edge_cut}, blocks "
+              f"{tuple(parts_c.blocks.shape)}")
+        del csr_c, parts_c
+        t0 = time.perf_counter()
         mp.spawn(_sharded_rank, args=(SHARDS, tmp), nprocs=SHARDS, join=True)
         ranks = []
         for r in range(SHARDS):
             with open(Path(tmp) / f"rank{r}.json") as f:
                 ranks.append(json.load(f))
+    gen_c = ranks[0]["general"]
     print(f"sharded: {SHARDS} ranks, {SHARD_LABEL}: "
           f"{time.perf_counter() - t0:.1f} s including the spawn; halo "
-          f"width h={ranks[0]['halo_width']}, |E|={ranks[0]['n_edges']}")
+          f"width h={ranks[0]['halo_width']}, |E|={ranks[0]['n_edges']}; "
+          f"general partition ({gen_c['method']}): offsets "
+          f"{gen_c['offsets']}, tiles {gen_c['tile_widths']}, edge cut "
+          f"{gen_c['edge_cut']}")
     sharded_rows = []
     for i, row in enumerate(ranks[0]["paths"]):
         per_rank = [r["paths"][i] for r in ranks]
@@ -1241,23 +1580,15 @@ def main() -> int:
             launched = sum(p["launches"][k] for p in per_rank)
             path_launches[k] += launched
             sharded_launches[k] += launched
-        agg = dict(row, label=SHARD_LABEL, halo_width=ranks[0]["halo_width"],
+        h = (max(gen_c["tile_widths"]) if "[general]" in row["name"]
+             else ranks[0]["halo_width"])
+        agg = dict(row, label=SHARD_LABEL, halo_width=h,
                    steady_ms_max=max(p["steady_ms"] for p in per_rank),
                    exchange_wait_ms_max=max(p["exchange_wait_ms"]
                                             for p in per_rank),
                    rel_err_max=max(p["rel_err"] for p in per_rank))
         sharded_rows.append(agg)
-        print(f"path {row['name']} [{SHARD_LABEL}]: h={agg['halo_width']}, "
-              f"steady {row['steady_ms']:.3f} ms on rank 0 (CUDA events; max "
-              f"over ranks {agg['steady_ms_max']:.3f}), exchange wait "
-              f"{row['exchange_wait_ms']:.3f} ms and post "
-              f"{row['exchange_post_ms']:.3f} ms per call on rank 0 (host "
-              f"clock; max wait {agg['exchange_wait_ms_max']:.3f}), first "
-              f"call {row['first_ms']:.1f} ms, {row['rounds']} rounds, "
-              f"{row['messages']} paper messages (rounds x 2|E|), "
-              f"{row['bytes_per_round']:.0f} bytes per round at B={BATCH}, "
-              f"launches per rank {row['launches']}, rel err max over ranks "
-              f"{agg['rel_err_max']:.3e} (tol {TOL_PATH})")
+        _print_sharded_path(row, agg, BATCH)
     exchange = [r["exchange_only_ms_per_round"] for r in ranks]
     print(f"sharded exchange alone [{SHARD_LABEL}]: one (B={BATCH}, "
           f"h={ranks[0]['halo_width']}) f32 tile each way per round, "
@@ -1269,7 +1600,55 @@ def main() -> int:
     path_rows.append(dict(name="sharded exchange alone", label=SHARD_LABEL,
                           ms_per_round=exchange,
                           profile_cuda_halo_apply=ranks[0]["profile"]))
-    del ranks
+    # (c) the community graph
+    com = [r["community"] for r in ranks]
+    c0 = com[0]
+    print(f"community [{SHARD_LABEL}]: n={c0['n']}, |E|={c0['n_edges']}, "
+          f"offsets {c0['offsets']}, h per offset {c0['tile_widths']}, "
+          f"edge cut {c0['edge_cut']}; per rank: padded rows "
+          f"{c0['n_local_padded']}, interior nnz "
+          f"{[c['interior_nnz'] for c in com]}, stored_per_nnz "
+          f"{[round(c['stored_per_nnz'], 4) for c in com]}, coupling nnz "
+          f"{[c['coupling_nnz'] for c in com]}, plan build "
+          f"{[round(c['build_ms'], 1) for c in com]} ms")
+    for i, row in enumerate(c0["paths"]):
+        per_rank = [c["paths"][i] for c in com]
+        for k in row["launches"]:
+            launched = sum(p["launches"][k] for p in per_rank)
+            path_launches[k] += launched
+            sharded_launches[k] += launched
+        agg = dict(row, label=SHARD_LABEL, halo_width=max(c0["tile_widths"]),
+                   steady_ms_max=max(p["steady_ms"] for p in per_rank),
+                   exchange_wait_ms_max=max(p["exchange_wait_ms"]
+                                            for p in per_rank),
+                   rel_err_max=max(p["rel_err"] for p in per_rank))
+        _print_sharded_path(row, agg, COMMUNITY_B)
+        path_rows.append(agg)
+    exchange = [c["exchange_only_ms_per_round"] for c in com]
+    print(f"community exchange alone [{SHARD_LABEL}]: one (B={COMMUNITY_B}, "
+          f"h_k) f32 tile per offset {c0['offsets']} per round, "
+          f"{min(exchange):.3f} to {max(exchange):.3f} ms per round over "
+          f"ranks (CUDA events, {K} rounds per call)")
+    print(f"community apply under torch.profiler on rank 0 "
+          f"[{SHARD_LABEL}]: {c0['profile']}")
+    path_rows.append(dict(name="community exchange alone", label=SHARD_LABEL,
+                          ms_per_round=exchange,
+                          profile_apply=c0["profile"]))
+    coupling = c0["coupling"]
+    print(f"kernel sliced_ell_spmv_accumulate (the couplings of rank 0, "
+          f"{coupling['rows']} x {coupling['cols']}, nnz {coupling['nnz']}, "
+          f"stored {coupling['stored']}) B={COMMUNITY_B}: max_abs_err="
+          f"{coupling['max_abs_err']:.3e} rel={coupling['rel_err']:.3e} (tol "
+          f"{TOL_SPMV}) ms={coupling['ms']:.4f} device_ms="
+          f"{coupling['device_ms']} plain_ms={coupling['plain_ms']:.4f} "
+          f"library_ms(torch.addmm CSR)={coupling['library_ms']} "
+          f"library_device_ms={coupling['library_device_ms']} bound_ms="
+          f"{coupling['bound_ms']:.5f} ({coupling['bound_by']}, y over the "
+          f"{coupling['entry_rows']} rows that hold an entry) "
+          f"bound_touched_ms={coupling['bound_touched_ms']:.5f} (y over the "
+          f"{coupling['touched_rows']} rows of the slices that hold one) "
+          f"[{SHARD_LABEL}]")
+    del ranks, com
 
     # -- the dense LM forward: starcoder2-3b, full width and depth -----------
     t0 = time.perf_counter()
@@ -1371,6 +1750,17 @@ def main() -> int:
             also_replaces="src/repro/kernels/bcsr_spmv.py:56",
             batch=BATCH, stored_per_nnz=SL.stored_per_nnz,
             b1=spmv_rows[1], b448=spmv_rows[BATCH * eta]),
+        # the same kernel's rectangular, accumulating launch: a general
+        # partition's couplings (the JAX package scattered them with
+        # y.at[rows].add around its Block-ELL SpMV)
+        row("sliced_ell_spmv_accumulate", "sliced_ell_spmv.cu",
+            "src/repro/kernels/bcsr_spmv.py:106", coupling,
+            scatters="src/repro/dist/partition.py:784",
+            batch=COMMUNITY_B, shape=[coupling["rows"], coupling["cols"]],
+            nnz=coupling["nnz"], entry_rows=coupling["entry_rows"],
+            touched_rows=coupling["touched_rows"],
+            bound_touched_ms=coupling["bound_touched_ms"],
+            label=SHARD_LABEL),
         row("cheb_step", "cheb_step.cu", "src/repro/kernels/cheb_step.py:66",
             step_row),
         row("cheb_sweep", "cheb_sweep.cu",

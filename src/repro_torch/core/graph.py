@@ -184,6 +184,17 @@ def ring_graph(n: int, weight: float = 1.0) -> Graph:
     return Graph(W=torch.from_numpy(W))
 
 
+def torus_graph(rows: int, cols: int, weight: float = 1.0) -> Graph:
+    """2-D torus graph (device mesh topology analog: ICI torus)."""
+    n = rows * cols
+    W = np.zeros((n, n), dtype=np.float32)
+    r, c = np.divmod(np.arange(n), cols)
+    for v in ((r + 1) % rows * cols + c, r * cols + (c + 1) % cols):
+        W[np.arange(n), v] = weight
+        W[v, np.arange(n)] = weight
+    return Graph(W=torch.from_numpy(W))
+
+
 def path_graph(n: int, weight: float = 1.0) -> Graph:
     W = np.zeros((n, n), dtype=np.float32)
     i = np.arange(n - 1)
@@ -346,6 +357,10 @@ class SlicedELL:
       n:       logical dimension; rows and columns run to `padded_n`, the
                rows past n empty; n_slices = ceil(padded_n / 32)
       nnz:     non-zeros stored (the rest of `stored` is padding)
+      n_cols:  columns of a rectangular layout (the length of the signals
+               it reads), or None for a square one (`padded_n`); padding
+               past a row's last entry points at column 0 where the row's
+               own index is not a column
     """
 
     values: Tensor
@@ -356,6 +371,13 @@ class SlicedELL:
     n: int
     padded_n: int
     nnz: int
+    n_cols: Optional[int] = None
+
+    @property
+    def x_len(self) -> int:
+        """Length of the signals the SpMV reads: `n_cols`, or `padded_n`
+        for a square layout."""
+        return self.padded_n if self.n_cols is None else self.n_cols
 
     @property
     def n_slices(self) -> int:
@@ -481,16 +503,22 @@ def _sliced_from_blocks(A: BlockELL) -> SlicedELL:
     """:func:`to_sliced_ell` of a Block-ELL matrix in torch ops on the
     blocks' own device: the same layout, bit for bit, without copying the
     blocks to the host."""
-    dev = A.device
     br, bc = A.block_shape
-    padded_n = A.padded_n
     # non-zeros in (row block, row, slot, column) order: by row, then by
     # column, since a row block's slots run in increasing column block
     nz = (A.blocks != 0).permute(0, 2, 1, 3).nonzero()
     rb, i, s, j = nz.unbind(1)
-    rows = rb * br + i
-    cols = A.indices.long()[rb, s] * bc + j
-    vals = A.blocks[rb, s, i, j]
+    return sliced_ell_from_coo(rb * br + i, A.indices.long()[rb, s] * bc + j,
+                               A.blocks[rb, s, i, j], A.n, A.padded_n)
+
+
+def sliced_ell_from_coo(rows: Tensor, cols: Tensor, vals: Tensor, n: int,
+                        padded_n: int,
+                        n_cols: Optional[int] = None) -> SlicedELL:
+    """Pack COO entries into the sliced-ELL layout in torch ops on their
+    own device.  `rows` must be sorted, and each row's `cols` increasing;
+    the layout has `padded_n` rows and `n_cols` columns (None: square)."""
+    dev = rows.device
     n_slices = -(-padded_n // SLICE_ROWS)
     counts = torch.bincount(rows, minlength=n_slices * SLICE_ROWS)
     widths = counts.reshape(n_slices, SLICE_ROWS).amax(dim=1)
@@ -499,12 +527,14 @@ def _sliced_from_blocks(A: BlockELL) -> SlicedELL:
     stored = int(sizes.sum())
     if stored >= 2**31:
         raise ValueError(f"{stored} stored entries do not fit int32 offsets")
-    # padding: value 0 at the row's own index (column 0 past padded_n)
+    # padding: value 0 at the row's own index (column 0 where that is not
+    # a column)
     pos = torch.arange(stored, device=dev)
     columns = (torch.repeat_interleave(
         torch.arange(n_slices, device=dev), sizes) * SLICE_ROWS
         + pos % SLICE_ROWS)
-    columns = torch.where(columns < padded_n, columns, 0)
+    columns = torch.where(
+        columns < (padded_n if n_cols is None else n_cols), columns, 0)
     values = torch.zeros(stored, dtype=torch.float32, device=dev)
     row_start = torch.cumsum(counts, 0) - counts
     slot = torch.arange(rows.numel(), device=dev) - row_start[rows]
@@ -515,8 +545,9 @@ def _sliced_from_blocks(A: BlockELL) -> SlicedELL:
     return SlicedELL(values=values, values_bf16=values.to(torch.bfloat16),
                      columns=columns.to(torch.int32),
                      offsets=offsets.to(torch.int32),
-                     widths=widths.to(torch.int32), n=int(A.n),
-                     padded_n=int(padded_n), nnz=int(rows.numel()))
+                     widths=widths.to(torch.int32), n=int(n),
+                     padded_n=int(padded_n), nnz=int(rows.numel()),
+                     n_cols=n_cols)
 
 
 def spatial_sort(graph: Graph) -> Tuple[Graph, np.ndarray]:

@@ -9,9 +9,11 @@
   sharded plans, and their count (`CommStats`, `plan_comm_stats`,
   `verify_message_scaling`): the paper's 2K|E| messages made measurable.
 * :mod:`repro_torch.dist.sharded` — what the sharded backends share: the
-  ring matvec, the per-rank plan, the option and leak checks.
-* :mod:`repro_torch.dist.partition` — `OverfullSlotsError` (the general
-  partitions are a later slice).
+  exchange matvec (banded and general partitions), the per-rank plan,
+  the option and leak checks.
+* :mod:`repro_torch.dist.partition` — edge-cut partitions of arbitrary
+  sparse graphs (`GeneralPartition`, `partition_general`), the CSR
+  container and the million-vertex community graph.
 * :mod:`repro_torch.dist.solvers` — Section-V iterative solvers (Jacobi,
   Chebyshev-accelerated Jacobi, parallel ARMA) behind `plan.solve`,
   running inside every backend via the `matvec_runner` primitive.
@@ -21,13 +23,15 @@ from .backends import available_backends, get_backend, register_backend
 from .comm import (CommStats, plan_comm_stats, solve_comm_stats,
                    verify_message_scaling)
 from .operator import ExecutionPlan, GraphOperator, canonical_kwarg
-from .partition import OverfullSlotsError
+from .partition import (CSRMatrix, GeneralPartition, OverfullSlotsError,
+                        community_graph_csr, partition_general)
 from .solvers import METHODS, SolveResult, solve_plan
 
 __all__ = [
-    "CommStats", "ExecutionPlan", "GraphOperator", "METHODS",
-    "OverfullSlotsError", "SolveResult", "available_backends",
-    "canonical_kwarg", "comm", "get_backend", "partition",
+    "CSRMatrix", "CommStats", "ExecutionPlan", "GeneralPartition",
+    "GraphOperator", "METHODS", "OverfullSlotsError", "SolveResult",
+    "available_backends", "canonical_kwarg", "comm", "community_graph_csr",
+    "get_backend", "partition", "partition_general",
     "plan_comm_stats", "register_backend", "solve_comm_stats", "solve_plan",
     "solvers", "verify_message_scaling",
 ]

@@ -13,8 +13,9 @@ import torch
 
 from ...core import chebyshev as cheb
 from .. import comm
-from . import register_backend, resolve_device
+from ..partition import GeneralPartition
 from ..sharded import check_ported_options, sharded_plan
+from . import register_backend, resolve_device
 
 Tensor = torch.Tensor
 
@@ -72,6 +73,10 @@ def build(op, *, mesh=None, partition=None, device=None,
     shard): the rank keeps its nl rows of P on `device` (None:
     ``cuda:<rank % device_count>``), at P's dtype."""
     check_ported_options(exchange_dtype, fault_spec, partition)
+    if partition == "general" or isinstance(partition, GeneralPartition):
+        raise ValueError("the allgather backend shards the rows of a dense "
+                         "P and takes no general partition; use 'halo' or "
+                         "'cuda_halo'")
     if options:
         raise TypeError(f"allgather backend takes no options "
                         f"{sorted(options)}")

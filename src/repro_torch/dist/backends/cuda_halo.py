@@ -26,6 +26,20 @@ tagged with its Block-ELL (``mv.block_ell``), so `apply` is one
 the `cuda` backend (whose options, such as ``sweep_dtype``, stay with
 ``plan("cuda")``).
 
+``partition="general"`` (or a `GeneralPartition`) shards an arbitrary
+sparse P by an edge-cut order (`dist.partition`), the counterpart of the
+JAX package's `build_general_plan` with the Block-ELL interior.  Each
+rank takes its own shard of the partition's Block-ELL to its device and
+packs the sliced layout there; per order it posts one tile per ring
+offset (`sharded.offset_matvec`), launches the interior SpMV, and on
+arrival adds its couplings — every offset's packed into one row-sorted
+rectangular sliced-ELL matrix at plan build, never densified — with one
+accumulating launch of the same kernel (`sliced_ell_spmv_accumulate`);
+then
+`cheb_step`.  Both kernels sum each row in a fixed order, so two calls
+give the same bits.  A 1-shard general plan is tagged like the banded
+one: one `cheb_sweep` launch per `apply`.
+
 On a CUDA device every kernel launches (or raises); with
 ``device="cpu"`` the same code runs the kernels' plain PyTorch versions.
 """
@@ -38,10 +52,13 @@ import torch
 
 from ...core import graph as graphmod
 from ...kernels import ops
+from ...kernels.bcsr_spmv import sliced_ell_spmv_accumulate
 from .. import comm
-from ..partition import OverfullSlotsError
-from ..sharded import (check_leak, check_ported_options, ring_matvec,
-                       sharded_plan)
+from ..partition import (GeneralPartition, OverfullSlotsError,
+                         resolve_partition_arg)
+from ..sharded import (check_leak, check_ported_options, coupling_layout,
+                       general_info, general_sends, offset_matvec,
+                       ring_matvec, sharded_plan)
 from . import register_backend, resolve_device
 from .halo import halo_bytes_per_apply, partition_banded
 
@@ -143,17 +160,22 @@ def partition_block_ell(
 @register_backend("cuda_halo")
 def build(op, *, mesh=None, partition=None, device=None,
           allow_leak: bool = False, exchange_dtype: str = "f32",
-          fault_spec=None, **options):
+          fault_spec=None, partition_method: Optional[str] = None,
+          **options):
     """Build this rank's plan: the per-shard Hopper kernels with
     boundary-row exchange over the process group `mesh` (None: the
     default group when one is initialized, else one shard).
 
-    Needs a dense, banded P (a spatially sorted sensor graph) or a
-    precomputed `ShardedBlockELL` (``partition=``; another column block
-    than the default (8, 128) comes from `partition_block_ell`).  The
-    rank keeps its own D_s (Block-ELL and the sliced layout packed from
-    it) and its couplings on `device` (None: ``cuda:<rank %
-    device_count>``), in float32.
+    ``partition=`` takes None / ``"banded"`` (a dense, banded P: a
+    spatially sorted sensor graph), a precomputed `ShardedBlockELL`
+    (another column block than the default (8, 128) comes from
+    `partition_block_ell`), ``"general"`` (edge-cut sharding of a dense P
+    of any sparsity, ordered by ``partition_method``: "bfs", the default,
+    or "spectral", in (8, 128) blocks; with any other partition it
+    raises `TypeError`) or a precomputed `GeneralPartition`
+    (which a callable P needs).  The rank keeps its own D_s (Block-ELL
+    and the sliced layout packed from it) and its couplings on `device`
+    (None: ``cuda:<rank % device_count>``), in float32.
     """
     check_ported_options(exchange_dtype, fault_spec, partition)
     if options:
@@ -161,6 +183,10 @@ def build(op, *, mesh=None, partition=None, device=None,
                         f"{sorted(options)}")
     group, n_shards, rank = comm.resolve_group(mesh)
     dev = resolve_device(device)
+    general = resolve_partition_arg(op, partition, n_shards,
+                                    method=partition_method)
+    if general is not None:
+        return _general_plan(op, general, group, rank, dev)
     leak = 0.0
     if isinstance(partition, ShardedBlockELL):
         parts = partition
@@ -172,8 +198,8 @@ def build(op, *, mesh=None, partition=None, device=None,
         parts, leak = partition_block_ell(P32, n_shards)
         check_leak(leak, n_shards, allow_leak)
     else:
-        raise TypeError(f"cuda_halo backend takes a ShardedBlockELL, got "
-                        f"{type(partition).__name__}")
+        raise TypeError(f"cuda_halo backend takes a ShardedBlockELL or a "
+                        f"GeneralPartition, got {type(partition).__name__}")
     if parts.n_shards != n_shards:
         raise ValueError(f"partition has {parts.n_shards} shards but the "
                          f"group has {n_shards}")
@@ -221,3 +247,42 @@ def build(op, *, mesh=None, partition=None, device=None,
     return sharded_plan(op, "cuda_halo", mv, group=group, rank=rank, nl=nl,
                         pnl=pnl, device=dev, dtype=torch.float32,
                         recurrence=ops.fused_cheb_recurrence, info=info)
+
+
+def _general_plan(op, parts: GeneralPartition, group, rank: int,
+                  dev: torch.device):
+    """This rank's plan over a general partition: its Block-ELL shard and
+    the sliced layouts of its interior and couplings, on `dev`."""
+    nl = parts.n_local
+    local_A = parts.shard(rank).to(dev)
+    pnl = local_A.padded_n
+    layout = local_A.sliced_ell()     # packed on the device, kept on local_A
+    sends = general_sends(parts, rank, dev)
+    C = coupling_layout(parts, rank, pnl, dev) if sends else None
+
+    def interior(x: Tensor) -> Tensor:
+        return ops.spmv(local_A, x.contiguous())
+
+    def couple(y: Tensor, received) -> Tensor:
+        return sliced_ell_spmv_accumulate(C, torch.cat(received, -1), y)
+
+    mv = offset_matvec(interior, sends, couple, group)
+    if group is None:
+        # one shard: no cut edge, and the sweeps take the whole iteration
+        mv.block_ell = local_A
+    info = dict(
+        general_info(op, parts, rank),
+        n_local_padded=pnl,
+        block=tuple(parts.blocks.shape[-2:]),
+        nnz_blocks=parts.nnz_blocks,
+        nnz=layout.nnz,
+        stored_per_nnz=layout.stored_per_nnz,
+        coupling_nnz=0 if C is None else C.nnz,
+        transport=comm.transport(group, dev),
+        sweep_l2_bytes=ops.cheb_sweep_l2_bytes(pnl),
+        sweep_l2_budget=ops.DEFAULT_SWEEP_L2_BUDGET,
+        block_ell=local_A)
+    return sharded_plan(op, "cuda_halo", mv, group=group, rank=rank, nl=nl,
+                        pnl=pnl, device=dev, dtype=torch.float32,
+                        recurrence=ops.fused_cheb_recurrence, info=info,
+                        parts=parts)

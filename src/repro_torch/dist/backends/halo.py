@@ -14,20 +14,32 @@ computes the interior product D_s x_s while it is in flight, and applies
 the two (nl, h) couplings on arrival.  The products are plain
 `torch.matmul`, as the JAX package computes them with einsum outside any
 kernel; `cuda_halo` is the same exchange around the Hopper kernels.
+
+``partition="general"`` (or a `GeneralPartition`) shards an arbitrary
+sparse P by an edge-cut order instead (`dist.partition`): one tile per
+ring offset per order (`sharded.offset_matvec`), the interior the
+shard's dense diagonal block (`dense_diag`, small n only) and the
+couplings one sparse sliced-ELL matrix applied by the plain version of
+the SpMV (`sliced_ell_spmv_plain`; its sums on a card run in
+`index_add_`'s atomic order, so `cuda_halo` is the backend that gives
+the same bits on every call).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from ...core import chebyshev as cheb
 from ...kernels import ops
+from ...kernels.bcsr_spmv import sliced_ell_spmv_plain
 from .. import comm
-from ..sharded import (check_leak, check_ported_options, ring_matvec,
-                       sharded_plan)
+from ..partition import GeneralPartition, resolve_partition_arg
+from ..sharded import (check_leak, check_ported_options, coupling_layout,
+                       general_info, general_sends, offset_matvec,
+                       ring_matvec, sharded_plan)
 from . import register_backend, resolve_device
 
 Tensor = torch.Tensor
@@ -154,22 +166,32 @@ def halo_bytes_per_apply(parts, K: int, eta: int = 1,
 @register_backend("halo")
 def build(op, *, mesh=None, partition=None, device=None,
           allow_leak: bool = False, exchange_dtype: str = "f32",
-          fault_spec=None, **options):
+          fault_spec=None, partition_method: Optional[str] = None,
+          **options):
     """Build the ring-halo plan of this rank over the process group
     `mesh` (None: the default group when one is initialized, else one
     shard).
 
-    Needs a dense P or a precomputed `BandedPartition` (``partition=``;
-    None or ``"banded"`` split P here).  P must be leak-free under the
-    contiguous split unless ``allow_leak=True``.  The rank keeps only its
-    own diagonal block and (nl, h) couplings on `device` (None:
-    ``cuda:<rank % device_count>``), at P's dtype.
+    ``partition=`` takes None / ``"banded"`` (split a dense P into the
+    block-tridiagonal ring plan here; P must be leak-free under the
+    contiguous split unless ``allow_leak=True``), a precomputed
+    `BandedPartition`, ``"general"`` (edge-cut sharding of a dense P of
+    any sparsity, ordered by ``partition_method``: "bfs", the default, or
+    "spectral"; with any other partition it raises `TypeError`)
+    or a precomputed `GeneralPartition` (which a callable P needs).  The
+    rank keeps only its own diagonal block and couplings on `device`
+    (None: ``cuda:<rank % device_count>``), at P's dtype (float32 for a
+    general partition).
     """
     check_ported_options(exchange_dtype, fault_spec, partition)
     if options:
         raise TypeError(f"halo backend takes no options {sorted(options)}")
     group, n_shards, rank = comm.resolve_group(mesh)
     dev = resolve_device(device)
+    general = resolve_partition_arg(op, partition, n_shards,
+                                    method=partition_method)
+    if general is not None:
+        return _general_plan(op, general, group, rank, dev)
     leak = 0.0
     if isinstance(partition, BandedPartition):
         parts = partition
@@ -179,8 +201,8 @@ def build(op, *, mesh=None, partition=None, device=None,
         parts, leak = partition_banded(op.P, n_shards)
         check_leak(leak, n_shards, allow_leak)
     else:
-        raise TypeError(f"halo backend takes a BandedPartition, got "
-                        f"{type(partition).__name__}")
+        raise TypeError(f"halo backend takes a BandedPartition or a "
+                        f"GeneralPartition, got {type(partition).__name__}")
     if parts.n_shards != n_shards:
         raise ValueError(f"partition has {parts.n_shards} shards but the "
                          f"group has {n_shards}")
@@ -209,3 +231,25 @@ def build(op, *, mesh=None, partition=None, device=None,
     return sharded_plan(op, "halo", mv, group=group, rank=rank, nl=nl,
                         pnl=nl, device=dev, dtype=diag.dtype,
                         recurrence=cheb.cheb_apply, info=info)
+
+
+def _general_plan(op, parts: GeneralPartition, group, rank: int,
+                  dev: torch.device):
+    """This rank's plan over a general partition: its dense diagonal
+    block, one tile per offset, its couplings as one sparse layout."""
+    nl = parts.n_local
+    diag = parts.shard(rank).todense().to(dev)
+    sends = general_sends(parts, rank, dev)
+    C = coupling_layout(parts, rank, nl, dev) if sends else None
+
+    def couple(y: Tensor, received) -> Tensor:
+        return sliced_ell_spmv_plain(C, torch.cat(received, -1), out=y)
+
+    mv = offset_matvec(lambda x: torch.matmul(x, diag.mT), sends, couple,
+                       group)
+    info = dict(general_info(op, parts, rank),
+                transport=comm.transport(group, dev))
+    return sharded_plan(op, "halo", mv, group=group, rank=rank, nl=nl,
+                        pnl=nl, device=dev, dtype=diag.dtype,
+                        recurrence=cheb.cheb_apply, info=info,
+                        parts=parts)

@@ -10,20 +10,22 @@ the messages are sent: every send, receive and gather of a sharded plan
 goes through this module, which tallies what really ran while a
 :func:`counting` context is open on the rank.
 
-* :func:`ring_exchange` — one exchange round of the ring backends: rank s
-  sends its tail tile to s + 1 and its head tile to s − 1, always over
-  the full ring (the first and last shard send on the wrap too, where the
-  couplings are zero, as the JAX package's ``ppermute`` perms do).  Both
-  directions are posted at once and returned pending, so the caller can
-  launch its interior product before it waits.  Counted as two
-  ``ppermute`` calls, one per direction (:data:`DIRECTIONS_PER_ROUND`,
-  which the ring plans declare as ``exchange_collectives_per_round``, as
-  in the JAX package).
+* :func:`offset_exchange` — one exchange round: for each ring offset d,
+  rank s sends a tile to s + d and receives one from s − d, always over
+  the full ring (a rank with nothing to send at an offset sends a tile
+  that meets zero couplings, as the JAX package's ``ppermute`` perms
+  do).  Every send and receive of the round is posted at once and
+  returned pending, so the caller can launch its interior product before
+  it waits.  Counted as one ``ppermute`` per offset, which the plans
+  declare as ``exchange_collectives_per_round``, as in the JAX package.
+  The banded plans' round is the offsets (1, −1), i.e. (1, S − 1): the
+  tail tile to s + 1, the head tile to s − 1
+  (:data:`DIRECTIONS_PER_ROUND` tiles).
 * :func:`all_gather` — one round of the ``allgather`` backend.
 * :func:`assemble` — gathers a plan's output rows onto every rank.  It is
   the counterpart of shard_map's in and out specs, which the JAX
-  package's measurement never sees, so it is tallied apart (``assembly``)
-  and kept out of the rounds and the byte counts.
+  package's measurement never sees, so it is tallied apart (``assembly``,
+  with its own host time) and kept out of the rounds and the byte counts.
 
 Transport: with an NCCL group tensors go card to card.  Gloo sends and
 receives only host tensors, so with a gloo group and CUDA tensors every
@@ -42,17 +44,15 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import time
-from typing import Any, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 Tensor = torch.Tensor
 
-#: Tags of the two ring directions.  At two shards both directions go to
-#: the same peer, and the tag tells the tiles apart.
-TAG_TO_NEXT, TAG_TO_PREV = 1, 2
-#: ``ppermute`` calls :func:`ring_exchange` counts per round.
+#: Tiles of a banded plan's round: offsets (1, −1), one ``ppermute``
+#: each.
 DIRECTIONS_PER_ROUND = 2
 
 
@@ -99,20 +99,20 @@ class CommStats:
     def exchange_rounds(self) -> int:
         """Neighbour-exchange rounds == matvec applications of P.
 
-        The ring backends send one ``ppermute`` pair per matvec and
-        ``allgather`` one ``all_gather``: the ``ppermute`` tally over the
-        plan-declared divisor (`ppermutes_per_round`, from plan.info's
+        The ring backends send one ``ppermute`` per offset per matvec
+        and ``allgather`` one ``all_gather``: the ``ppermute`` tally over
+        the plan-declared divisor (`ppermutes_per_round`, from plan.info's
         ``exchange_collectives_per_round``), plus the gathers.  The
-        counter tallies both directions of every round at the call site,
-        at two shards too, where both go to one peer; so the JAX
-        package's fallbacks for a plan that declares no divisor (grouping
-        its jaxpr's perms) have nothing to do here.
+        counter tallies every offset of every round at the call site, at
+        two shards too, where the banded plan's two tiles go to one peer;
+        so the JAX package's fallbacks for a plan that declares no divisor
+        (grouping its jaxpr's perms) have nothing to do here.
         """
         pp = sum(c.count for c in self.collectives
                  if c.primitive == "ppermute")
         ag = sum(c.count for c in self.collectives
                  if c.primitive == "all_gather")
-        return pp // self.ppermutes_per_round + ag
+        return (pp // self.ppermutes_per_round if pp else 0) + ag
 
     @property
     def bytes_per_shard(self) -> int:
@@ -121,8 +121,9 @@ class CommStats:
 
     @property
     def bytes_per_round(self) -> float:
-        """Average exchange bytes per round: ``2 * h * 4`` for a ring
-        backend in f32 at B = 1 (both directions of one boundary tile)."""
+        """Average exchange bytes per round: ``4 * sum(h_k)`` in f32 at
+        B = 1, the tiles of every offset (``2 * h * 4`` for a banded
+        plan)."""
         r = self.exchange_rounds
         return self.bytes_per_shard / r if r else 0.0
 
@@ -156,13 +157,15 @@ class CommStats:
 class Recorder:
     """What ran on this rank while a :func:`counting` context was open:
     the tally of calls, and the host seconds spent posting the exchange
-    (`post_s`: staging the tiles and posting the sends and receives) and
-    waiting for it (`wait_s`: receives and gathers, and copying back)."""
+    (`post_s`: staging the tiles and posting the sends and receives),
+    waiting for it (`wait_s`: receives and gathers, and copying back) and
+    assembling the outputs (`assembly_s`)."""
 
     def __init__(self):
         self.tally: Dict[Tuple, int] = {}
         self.post_s = 0.0
         self.wait_s = 0.0
+        self.assembly_s = 0.0
 
     def add(self, primitive: str, t: Tensor, perm=None) -> None:
         key = (primitive, t.numel(), t.numel() * t.element_size(), perm)
@@ -268,9 +271,8 @@ def _peer(group, group_rank: int) -> int:
 # The three communication calls
 # ---------------------------------------------------------------------------
 class PendingExchange:
-    """A posted ring exchange; :meth:`wait` returns ``(from_prev,
-    from_next)``: rank s − 1's tail and rank s + 1's head, on the tiles'
-    device."""
+    """A posted exchange round; :meth:`wait` returns the received tiles,
+    one per offset in the order posted, on the tiles' device."""
 
     def __init__(self, works, sent, received, device):
         self._works = works
@@ -278,7 +280,7 @@ class PendingExchange:
         self._received = received
         self._device = device
 
-    def wait(self) -> Tuple[Tensor, Tensor]:
+    def wait(self) -> Tuple[Tensor, ...]:
         t0 = time.perf_counter()
         for w in self._works:
             w.wait()
@@ -289,32 +291,34 @@ class PendingExchange:
         return out
 
 
-def ring_exchange(tail: Tensor, head: Tensor,
-                  group: dist.ProcessGroup) -> PendingExchange:
-    """Post one exchange round: `tail` to rank s + 1, `head` to rank
-    s − 1 (group ranks, modulo the group size), and both receives.
+def offset_exchange(tiles: Sequence[Tensor], offsets: Sequence[int],
+                    group: dist.ProcessGroup) -> PendingExchange:
+    """Post one exchange round: for each k, `tiles[k]` to group rank
+    s + offsets[k] and a tile of the same shape from s − offsets[k]
+    (modulo the group size).  Every rank passes tiles of the same shapes.
     Nothing waits here; call ``.wait()`` on the result."""
     t0 = time.perf_counter()
     size, rank = dist.get_world_size(group), dist.get_rank(group)
-    nxt, prv = _peer(group, (rank + 1) % size), _peer(group, (rank - 1) % size)
-    staged = _staged(group, tail)
-    sent = (_host(tail, head) if staged
-            else [t.contiguous() for t in (tail, head)])
+    staged = _staged(group, tiles[0])
+    sent = (_host(*tiles) if staged else [t.contiguous() for t in tiles])
     received = [torch.empty(t.shape, dtype=t.dtype, pin_memory=staged,
                             device=None if staged else t.device)
                 for t in sent]
-    # the same order on every rank: NCCL matches a pair's sends and
-    # receives in order, gloo by tag
-    works = dist.batch_isend_irecv([
-        dist.P2POp(dist.isend, sent[0], nxt, group, TAG_TO_NEXT),
-        dist.P2POp(dist.isend, sent[1], prv, group, TAG_TO_PREV),
-        dist.P2POp(dist.irecv, received[0], prv, group, TAG_TO_NEXT),
-        dist.P2POp(dist.irecv, received[1], nxt, group, TAG_TO_PREV),
-    ])
-    _record("ppermute", tail, tuple((i, (i + 1) % size) for i in range(size)))
-    _record("ppermute", head, tuple((i, (i - 1) % size) for i in range(size)))
+    # the same order on every rank, one tag per offset: NCCL matches a
+    # pair's sends and receives in order, gloo by tag (a pair can share
+    # two offsets, as the banded plan's (1, 1) at two shards does)
+    works = dist.batch_isend_irecv(
+        [dist.P2POp(dist.isend, t, _peer(group, (rank + d) % size), group,
+                    k + 1)
+         for k, (t, d) in enumerate(zip(sent, offsets))]
+        + [dist.P2POp(dist.irecv, t, _peer(group, (rank - d) % size), group,
+                      k + 1)
+           for k, (t, d) in enumerate(zip(received, offsets))])
+    for t, d in zip(tiles, offsets):
+        _record("ppermute", t, tuple((i, (i + d) % size)
+                                     for i in range(size)))
     _timed("post_s", t0)
-    return PendingExchange(works, sent, received, tail.device)
+    return PendingExchange(works, sent, received, tiles[0].device)
 
 
 def _gather_last(x: Tensor, group: dist.ProcessGroup) -> Tensor:
@@ -346,8 +350,10 @@ def assemble(y: Tensor, group: Optional[dist.ProcessGroup]) -> Tensor:
     every rank; `y` itself when there is one shard."""
     if group is None:
         return y
+    t0 = time.perf_counter()
     out = _gather_last(y, group)
     _record("assembly", y)
+    _timed("assembly_s", t0)
     return out
 
 

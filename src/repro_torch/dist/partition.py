@@ -1,10 +1,45 @@
-"""Partitions of P over the shards of a sharded plan (PyTorch port).
+"""Pluggable graph partitions: edge-cut sharding of arbitrary sparse graphs
+(PyTorch port).
 
-The JAX package's ``repro.dist.partition`` holds the edge-cut partitions
-of arbitrary sparse graphs (`GeneralPartition`); they are ported with
-``partition="general"`` (ROADMAP queue 1, item 6).  For now this module
-holds only the error that the Block-ELL partitions raise.
+The paper's systems claim, 2K|E| messages per filter application, holds
+for *any* sparse graph (Section IV-B); the banded partition of the `halo`
+backends is only one exchange plan, one boundary tile to each ring
+neighbour per order.  This module holds the general one:
+
+* :class:`GeneralPartition` — the per-shard Block-ELL of the interior
+  (intra-shard) edges and an explicit exchange plan for the cut edges: a
+  static tuple of ring **offsets**.  In round ``d`` shard ``i`` sends a
+  gathered boundary tile to shard ``(i + d) % S``, so each round is a
+  complete permutation of the ranks and no rank waits on a partner that
+  does not send; shards with no cut edge at an offset send a padded tile
+  that meets zero couplings, so every rank sends tiles of the same width.
+* :func:`edge_cut_order` — greedy-BFS (default) or recursive spectral
+  bisection vertex ordering, chopped into S contiguous blocks of
+  ``nl = ceil(n / S)``.
+* :func:`partition_general` — builds the partition from a dense matrix
+  or a :class:`CSRMatrix`, which at n = 1e6 is never densified.
+* :func:`resolve_partition_arg` — the ``partition=`` argument of the
+  ring backends ``halo`` and ``cuda_halo``, whose general plans are built
+  on `dist.sharded`.
+
+The partitioner is the JAX package's numpy logic, kept as it is (the
+orders, offsets and tiles are equal integer for integer, and
+`GeneralPartition.fingerprint` is the same string); its arrays are torch
+tensors on the host.  Communication per application is exactly K exchange
+rounds, each of ``len(offsets)`` tile sends, counted by `dist.comm`.
 """
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+from typing import Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..core import graph as graphmod
+
+Tensor = torch.Tensor
 
 
 class OverfullSlotsError(ValueError):
@@ -15,3 +50,668 @@ class OverfullSlotsError(ValueError):
     budget, use a smaller column block, or let the slot count float
     (``max_slots=None`` sizes slots to the actual max).
     """
+
+
+# ---------------------------------------------------------------------------
+# CSR container + synthetic community graphs (million-vertex scale)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class CSRMatrix:
+    """A square sparse matrix in CSR form (numpy, host-side).
+
+    The partitioner's native input: at N = 1e6 a dense P would be 4 TB, so
+    the whole partition pipeline (ordering, Block-ELL packing, exchange
+    plan) is built from CSR without ever materializing a dense array.
+    """
+
+    indptr: np.ndarray   # (n + 1,) int64
+    indices: np.ndarray  # (nnz,) column ids
+    data: np.ndarray     # (nnz,) values
+
+    @property
+    def n(self) -> int:
+        return len(self.indptr) - 1
+
+    @property
+    def nnz(self) -> int:
+        return int(self.indptr[-1])
+
+    @property
+    def n_edges(self) -> int:
+        """|E| — undirected off-diagonal edges (assumes symmetric support)."""
+        rows = self.row_ids()
+        return int(np.count_nonzero((rows < self.indices)
+                                    & (self.data != 0)))
+
+    def row_ids(self) -> np.ndarray:
+        return np.repeat(np.arange(self.n, dtype=np.int64),
+                         np.diff(self.indptr))
+
+    def matvec(self, x: np.ndarray) -> np.ndarray:
+        out = np.zeros(self.n, dtype=np.result_type(self.data, x))
+        np.add.at(out, self.row_ids(), self.data * x[self.indices])
+        return out
+
+    def to_dense(self) -> np.ndarray:
+        out = np.zeros((self.n, self.n), dtype=self.data.dtype)
+        out[self.row_ids(), self.indices] = self.data
+        return out
+
+    @classmethod
+    def from_coo(cls, n: int, rows, cols, vals) -> "CSRMatrix":
+        rows = np.asarray(rows, np.int64)
+        cols = np.asarray(cols, np.int64)
+        vals = np.asarray(vals)
+        order = np.lexsort((cols, rows))
+        rows, cols, vals = rows[order], cols[order], vals[order]
+        indptr = np.searchsorted(rows, np.arange(n + 1))
+        return cls(indptr=indptr, indices=cols, data=vals)
+
+    @classmethod
+    def from_dense(cls, M) -> "CSRMatrix":
+        M = M.numpy(force=True) if isinstance(M, Tensor) else np.asarray(M)
+        rows, cols = np.nonzero(M)
+        return cls.from_coo(M.shape[0], rows, cols, M[rows, cols])
+
+
+def as_csr(Pmat: Union[np.ndarray, Tensor, CSRMatrix]) -> CSRMatrix:
+    if isinstance(Pmat, CSRMatrix):
+        return Pmat
+    return CSRMatrix.from_dense(Pmat)
+
+
+def csr_matvec_fn(csr: CSRMatrix):
+    """A torch closure ``x -> P x`` over the (..., N) contract — the
+    callable P for `GraphOperator` when the graph is too large to
+    densify.  It computes in x's dtype on x's device (the CSR's values are
+    cast to it), so a float64 CSR gives a float64 oracle on the card; the
+    sums go through `index_add_`, whose order on a card is the atomics'."""
+    rows = torch.from_numpy(csr.row_ids())
+    cols = torch.from_numpy(np.asarray(csr.indices, np.int64))
+    vals = torch.from_numpy(np.asarray(csr.data))
+    n = csr.n
+    on_device = {}
+
+    def mv(x: Tensor) -> Tensor:
+        key = (x.device, x.dtype)
+        if key not in on_device:
+            on_device[key] = (rows.to(x.device), cols.to(x.device),
+                              vals.to(x.device, x.dtype))
+        r, c, v = on_device[key]
+        out = torch.zeros(x.shape[:-1] + (n,), dtype=x.dtype,
+                          device=x.device)
+        return out.index_add_(x.ndim - 1, r, v * x.index_select(-1, c))
+
+    return mv
+
+
+def community_graph_csr(
+    n: int,
+    n_communities: Optional[int] = None,
+    inter_per_comm: int = 2,
+    seed: int = 0,
+) -> Tuple[CSRMatrix, dict]:
+    """Synthetic community graph, Laplacian in CSR, at any scale.
+
+    Each community is a chain + a ring-closing wrap edge; communities are
+    linked by a spanning chain of random-endpoint edges plus
+    ``inter_per_comm`` extra edges to uniformly random other communities.
+    Random endpoints make the inter-community edges *long-range* in any
+    contiguous vertex order, so the graph is genuinely non-banded — the
+    `GeneralPartition` workload — while the intra-community chains keep it
+    connected and give the partitioner real structure to find.  Fully
+    vectorized numpy: N = 1e6 builds in about a second.
+
+    Returns ``(L, meta)`` with ``meta = {"n_edges", "lmax",
+    "n_communities"}`` — ``lmax`` is the Anderson-Morley bound computed
+    from local degrees only (Section IV-B), so no dense spectral work.
+    """
+    if n < 4:
+        raise ValueError(f"community graph needs n >= 4, got {n}")
+    if n_communities is None:
+        n_communities = max(2, n // 250)
+    n_communities = min(n_communities, n // 2)
+    c = -(-n // n_communities)
+    comm = np.arange(n) // c
+    starts = np.arange(n_communities) * c
+    ends = np.minimum(starts + c, n) - 1
+    rng = np.random.default_rng(seed)
+
+    # chain within each community
+    i = np.arange(n - 1)
+    keep = comm[i] == comm[i + 1]
+    e_u = [i[keep]]
+    e_v = [i[keep] + 1]
+    # ring-closing wrap edge per community (size >= 3)
+    big = (ends - starts) >= 2
+    e_u.append(starts[big])
+    e_v.append(ends[big])
+
+    def _rand_in(comms):
+        sizes = ends[comms] - starts[comms] + 1
+        return starts[comms] + rng.integers(0, sizes)
+
+    # spanning inter-community chain (random endpoints: long-range edges)
+    k = np.arange(n_communities - 1)
+    e_u.append(_rand_in(k))
+    e_v.append(_rand_in(k + 1))
+    # extra inter edges to random other communities
+    if inter_per_comm > 0 and n_communities > 1:
+        src = np.repeat(np.arange(n_communities), inter_per_comm)
+        dst = rng.integers(0, n_communities - 1, src.size)
+        dst = np.where(dst >= src, dst + 1, dst)
+        e_u.append(_rand_in(src))
+        e_v.append(_rand_in(dst))
+
+    u = np.concatenate(e_u)
+    v = np.concatenate(e_v)
+    lo, hi = np.minimum(u, v), np.maximum(u, v)
+    keep = lo != hi
+    lo, hi = lo[keep], hi[keep]
+    key = lo * n + hi
+    _, uniq_idx = np.unique(key, return_index=True)
+    lo, hi = lo[uniq_idx], hi[uniq_idx]
+    m = lo.size
+    w = rng.uniform(0.5, 1.5, m).astype(np.float32)
+
+    deg = np.zeros(n, np.float64)
+    np.add.at(deg, lo, w)
+    np.add.at(deg, hi, w)
+    lmax = float((deg[lo] + deg[hi]).max())
+
+    rows = np.concatenate([lo, hi, np.arange(n)])
+    cols = np.concatenate([hi, lo, np.arange(n)])
+    vals = np.concatenate([-w, -w, deg.astype(np.float32)]).astype(np.float32)
+    L = CSRMatrix.from_coo(n, rows, cols, vals)
+    return L, {"n_edges": int(m), "lmax": lmax,
+               "n_communities": int(n_communities)}
+
+
+# ---------------------------------------------------------------------------
+# Edge-cut orderings (dependency-free: greedy BFS / spectral bisection)
+# ---------------------------------------------------------------------------
+def _ragged_gather(indptr: np.ndarray, indices: np.ndarray,
+                   verts: np.ndarray) -> np.ndarray:
+    """All CSR column ids of `verts`, concatenated (vectorized ragged
+    gather — the partitioner's frontier-expansion primitive)."""
+    starts = indptr[verts]
+    lens = indptr[verts + 1] - starts
+    total = int(lens.sum())
+    if total == 0:
+        return np.empty(0, indices.dtype)
+    offs = np.repeat(starts - np.concatenate(([0], np.cumsum(lens)[:-1])),
+                     lens)
+    return indices[offs + np.arange(total)]
+
+
+def _bfs_order(csr: CSRMatrix) -> np.ndarray:
+    """Global BFS ordering with min-degree restarts (handles disconnected
+    graphs); chopping it into contiguous blocks is the greedy-BFS
+    partition.  Each frontier expansion is one vectorized ragged gather."""
+    n = csr.n
+    deg = np.diff(csr.indptr)
+    visited = np.zeros(n, bool)
+    order = np.empty(n, np.int64)
+    pos = 0
+    while pos < n:
+        unv = np.flatnonzero(~visited)
+        frontier = np.array([unv[np.argmin(deg[unv])]])
+        visited[frontier] = True
+        while frontier.size:
+            order[pos:pos + frontier.size] = frontier
+            pos += frontier.size
+            nbr = _ragged_gather(csr.indptr, csr.indices, frontier)
+            nbr = nbr[~visited[nbr]]
+            frontier = np.unique(nbr)
+            visited[frontier] = True
+    return order
+
+
+def _sub_csr(csr: CSRMatrix, idx: np.ndarray):
+    """Extract the principal submatrix on `idx` with remapped local ids."""
+    n = csr.n
+    local = np.full(n, -1, np.int64)
+    local[idx] = np.arange(idx.size)
+    rows_l = np.repeat(np.arange(idx.size),
+                       csr.indptr[idx + 1] - csr.indptr[idx])
+    cols_g = _ragged_gather(csr.indptr, csr.indices, idx)
+    starts = csr.indptr[idx]
+    lens = csr.indptr[idx + 1] - starts
+    offs = (np.repeat(starts - np.concatenate(([0], np.cumsum(lens)[:-1])),
+                      lens) + np.arange(int(lens.sum())))
+    vals = csr.data[offs]
+    keep = local[cols_g] >= 0
+    return rows_l[keep], local[cols_g[keep]], vals[keep]
+
+
+def _fiedler_vector(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
+                    n: int, rng, iters: int = 80) -> np.ndarray:
+    """Approximate Fiedler vector of the Laplacian submatrix by power
+    iteration on sigma*I - L (constant mode deflated each step)."""
+    diag = np.zeros(n)
+    on_diag = rows == cols
+    np.add.at(diag, rows[on_diag], vals[on_diag])
+    absrow = np.zeros(n)
+    np.add.at(absrow, rows, np.abs(vals))
+    sigma = float(absrow.max()) + 1.0  # Gershgorin upper bound on lmax
+    v = rng.standard_normal(n)
+    for _ in range(iters):
+        Lv = np.zeros(n)
+        np.add.at(Lv, rows, vals * v[cols])
+        v = sigma * v - Lv
+        v = v - v.mean()
+        nrm = np.linalg.norm(v)
+        if nrm < 1e-12:
+            v = rng.standard_normal(n)
+            v = v - v.mean()
+            nrm = np.linalg.norm(v)
+        v = v / nrm
+    return v
+
+
+def _spectral_order(csr: CSRMatrix, n_shards: int, nl: int,
+                    seed: int = 0) -> np.ndarray:
+    """Recursive spectral bisection; split sizes are multiples of nl so the
+    recursion's cut planes coincide with the final contiguous shard
+    boundaries."""
+    rng = np.random.default_rng(seed)
+
+    def bisect(idx: np.ndarray, parts: int) -> list:
+        if parts <= 1 or idx.size <= 2:
+            return [idx]
+        rows, cols, vals = _sub_csr(csr, idx)
+        f = _fiedler_vector(rows, cols, vals, idx.size, rng)
+        left_parts = parts // 2
+        n_left = min(left_parts * nl, idx.size)
+        sel = np.argsort(f, kind="stable")
+        return (bisect(idx[sel[:n_left]], left_parts)
+                + bisect(idx[sel[n_left:]], parts - left_parts))
+
+    chunks = bisect(np.arange(csr.n, dtype=np.int64), n_shards)
+    return np.concatenate(chunks)
+
+
+def edge_cut_order(Pmat, n_shards: int, method: str = "bfs",
+                   seed: int = 0) -> np.ndarray:
+    """Vertex ordering whose contiguous nl-chunks form the edge-cut
+    partition.  `method`: "bfs" (greedy BFS, vectorized frontier
+    expansion — the million-vertex default) or "spectral" (recursive
+    spectral bisection via power-iteration Fiedler vectors)."""
+    csr = as_csr(Pmat)
+    if method == "bfs":
+        return _bfs_order(csr)
+    if method == "spectral":
+        nl = -(-csr.n // n_shards)
+        return _spectral_order(csr, n_shards, nl, seed=seed)
+    raise ValueError(f"unknown partition method {method!r}; "
+                     "use 'bfs' or 'spectral'")
+
+
+# ---------------------------------------------------------------------------
+# Vectorized COO -> per-shard Block-ELL
+# ---------------------------------------------------------------------------
+def _block_ell_shards(shard: np.ndarray, rows: np.ndarray, cols: np.ndarray,
+                      vals: np.ndarray, n_shards: int, nl: int,
+                      block: Tuple[int, int],
+                      max_slots: Optional[int] = None):
+    """Pack per-shard COO triples (local rows/cols in [0, nl)) into a
+    uniform-slot Block-ELL stack (S, nrb, slots, br, bc) — O(nnz log nnz),
+    no python loop over blocks (a dense scan is quadratic in the block
+    count and unusable at N = 1e6)."""
+    br, bc = block
+    unit = int(np.lcm(br, bc))
+    pnl = -(-nl // unit) * unit
+    nrb, ncb = pnl // br, pnl // bc
+    dtype = vals.dtype if vals.size else np.float32
+
+    nz = vals != 0
+    shard, rows, cols, vals = shard[nz], rows[nz], cols[nz], vals[nz]
+    if rows.size == 0:
+        slots = 1
+        blocks = np.zeros((n_shards, nrb, slots, br, bc), dtype)
+        indices = np.zeros((n_shards, nrb, slots), np.int32)
+        mask = np.zeros((n_shards, nrb, slots), bool)
+        return blocks, indices, mask, pnl
+
+    rb, cb = rows // br, cols // bc
+    gkey = (shard.astype(np.int64) * nrb + rb) * ncb + cb
+    uniq, inv = np.unique(gkey, return_inverse=True)
+    urow = uniq // ncb  # shard * nrb + rb, sorted non-decreasing
+    firsts = np.flatnonzero(np.r_[True, urow[1:] != urow[:-1]])
+    counts = np.diff(np.r_[firsts, uniq.size])
+    slots = int(counts.max())
+    if max_slots is not None and slots > max_slots:
+        raise OverfullSlotsError(
+            f"a row block couples {slots} column blocks but the uniform "
+            f"slot budget is {max_slots} — refusing to truncate (silently "
+            "dropped blocks = silently wrong matvecs); raise max_slots or "
+            "shrink the column block")
+    slot_of_uniq = np.arange(uniq.size) - np.repeat(firsts, counts)
+    flat_blocks = np.zeros((n_shards * nrb * slots, br, bc), dtype)
+    block_id = urow * slots + slot_of_uniq
+    np.add.at(flat_blocks, (block_id[inv], rows % br, cols % bc), vals)
+    flat_idx = np.zeros((n_shards * nrb, slots), np.int32)
+    flat_mask = np.zeros((n_shards * nrb, slots), bool)
+    flat_idx[urow, slot_of_uniq] = (uniq % ncb).astype(np.int32)
+    flat_mask[urow, slot_of_uniq] = True
+    return (flat_blocks.reshape(n_shards, nrb, slots, br, bc),
+            flat_idx.reshape(n_shards, nrb, slots),
+            flat_mask.reshape(n_shards, nrb, slots),
+            pnl)
+
+
+# ---------------------------------------------------------------------------
+# The partition contract
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class GeneralPartition:
+    """Edge-cut partition of a sparse P over S shards + explicit exchange
+    plan (host tensors).
+
+    Vertices are relabeled by `order` (original vertex id at partition slot
+    i) and chopped into S contiguous blocks of nl rows.  Intra-shard
+    entries live in the per-shard Block-ELL stack; every cut entry
+    P[u, v] with u on shard r and v on shard o is realized as one exchange
+    round at ring offset ``d = (r - o) % S`` plus one scatter coupling:
+
+      blocks/indices/mask: (S, nrb, slots, br, bc) / (S, nrb, slots)
+          per-shard Block-ELL of the interior (diagonal) block.
+      offsets: static ring offsets, ascending.  Round k: every shard i
+          gathers its boundary tile ``x[send_idx[k][i]]`` and sends it to
+          shard ``(i + offsets[k]) % S``.
+      send_idx[k]: (S, h_k) int32 — local rows shard i ships at offset k
+          (padded with row 0; receivers index only real positions).
+      send_counts[k]: (S,) — how many of the h_k rows are real per shard.
+      cpl_rows/cpl_cols/cpl_vals[k]: (S, m_k) — receiver-side scatter:
+          shard i adds ``vals * tile[cols]`` into its rows, where `tile`
+          arrived from shard ``(i - offsets[k]) % S`` (zero-val padding).
+      order / n / n_local / edge_cut / method: bookkeeping.
+
+    A banded graph under the identity order reduces exactly to the ring
+    plan: offsets (1, S-1) with the tail/head boundary tiles.
+    """
+
+    blocks: Tensor
+    indices: Tensor
+    mask: Tensor
+    offsets: Tuple[int, ...]
+    send_idx: Tuple[Tensor, ...]
+    send_counts: Tuple[Tuple[int, ...], ...]
+    cpl_rows: Tuple[Tensor, ...]
+    cpl_cols: Tuple[Tensor, ...]
+    cpl_vals: Tuple[Tensor, ...]
+    order: np.ndarray
+    n: int
+    n_local: int
+    edge_cut: int
+    method: str
+
+    @property
+    def n_shards(self) -> int:
+        return self.blocks.shape[0]
+
+    @property
+    def n_padded(self) -> int:
+        """Global padded signal size (S * nl)."""
+        return self.n_shards * self.n_local
+
+    @property
+    def n_local_padded(self) -> int:
+        """Per-shard Block-ELL padded domain (nrb * br >= nl)."""
+        return self.blocks.shape[1] * self.blocks.shape[3]
+
+    @property
+    def nnz_blocks(self) -> int:
+        return int(self.mask.sum())
+
+    @property
+    def tile_widths(self) -> Tuple[int, ...]:
+        return tuple(int(s.shape[1]) for s in self.send_idx)
+
+    @property
+    def halo(self) -> int:
+        """Widest exchange tile (the banded plan's h analog; 0 = no cut)."""
+        return max(self.tile_widths, default=0)
+
+    @property
+    def inv_order(self) -> np.ndarray:
+        inv = self.__dict__.get("_inv_order")
+        if inv is None:
+            inv = np.empty_like(self.order)
+            inv[self.order] = np.arange(self.order.size)
+            self.__dict__["_inv_order"] = inv
+        return inv
+
+    @property
+    def fingerprint(self) -> str:
+        """Stable identity of the partition (order + exchange plan shape),
+        the JAX package's string for the same partition: plans built over
+        different partitions never share a compiled entry."""
+        fp = self.__dict__.get("_fingerprint")
+        if fp is None:
+            h = hashlib.sha1()
+            h.update(np.ascontiguousarray(self.order).tobytes())
+            h.update(repr((self.n, self.n_local, self.offsets,
+                           self.tile_widths)).encode())
+            fp = h.hexdigest()[:12]
+            self.__dict__["_fingerprint"] = fp
+        return fp
+
+    def order_on(self, device: torch.device) -> Tuple[Tensor, Tensor]:
+        """`order` and `inv_order` as tensors on `device` (cached)."""
+        cache = self.__dict__.setdefault("_order_t", {})
+        if device not in cache:
+            cache[device] = (torch.from_numpy(self.order).to(device),
+                             torch.from_numpy(self.inv_order).to(device))
+        return cache[device]
+
+    def to_partition_order(self, x: Tensor) -> Tensor:
+        """Permute the trailing (vertex) axis into partition order."""
+        return x.index_select(-1, self.order_on(x.device)[0])
+
+    def from_partition_order(self, y: Tensor) -> Tensor:
+        """Inverse of :meth:`to_partition_order` (trailing axis length n)."""
+        return y.index_select(-1, self.order_on(y.device)[1])
+
+    def shard(self, s: int) -> graphmod.BlockELL:
+        """Shard s's interior block as a Block-ELL matrix of logical size
+        nl (host tensors)."""
+        return graphmod.BlockELL(blocks=self.blocks[s],
+                                 indices=self.indices[s],
+                                 mask=self.mask[s], n=self.n_local)
+
+    def dense_diag(self) -> Tensor:
+        """(S, nl, nl) dense per-shard diagonal blocks — the `halo`
+        backend's interior representation (small-n use only)."""
+        return torch.stack([self.shard(s).todense()
+                            for s in range(self.n_shards)])
+
+    def wire_bytes_per_round(self, exchange_dtype: str = "f32") -> int:
+        """Bytes ONE shard ships per exchange round (= per matvec): the sum
+        of its per-offset f32 tiles, 4 bytes per row."""
+        if exchange_dtype != "f32":
+            raise NotImplementedError(
+                f"exchange_dtype={exchange_dtype!r} is not ported to PyTorch "
+                "yet (ROADMAP.md, queue 1: item 7, compressed exchange and "
+                "faults); the exchange is f32")
+        return sum(4 * h for h in self.tile_widths)
+
+
+def general_bytes_per_apply(parts: GeneralPartition, K: int, eta: int = 1,
+                            exchange_dtype: str = "f32") -> int:
+    """Collective-traffic model for one application under a general
+    partition: K rounds x S shards x the per-shard wire bytes of all
+    offset tiles (eta-wide iterates for the adjoint) — the arbitrary-graph
+    analog of `halo.halo_bytes_per_apply`."""
+    return K * parts.n_shards * eta * parts.wire_bytes_per_round(
+        exchange_dtype)
+
+
+def partition_general(
+    Pmat: Union[np.ndarray, Tensor, CSRMatrix],
+    n_shards: int,
+    *,
+    method: str = "bfs",
+    block: Tuple[int, int] = (8, 128),
+    max_slots: Optional[int] = None,
+    order: Optional[np.ndarray] = None,
+    seed: int = 0,
+) -> GeneralPartition:
+    """Build a :class:`GeneralPartition` from a dense matrix or CSRMatrix.
+
+    `order` overrides the partitioner (method becomes "precomputed") —
+    pass ``np.arange(n)`` to shard an already-sorted graph in place.
+    ``max_slots`` bounds the uniform Block-ELL slot count and *raises*
+    :class:`OverfullSlotsError` when exceeded (never truncates).
+    """
+    csr = as_csr(Pmat)
+    n = csr.n
+    if n_shards < 1:
+        raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+    if order is None:
+        order = edge_cut_order(csr, n_shards, method=method, seed=seed)
+    else:
+        order = np.asarray(order, np.int64)
+        if sorted(order.tolist()) != list(range(n)):
+            raise ValueError("order= must be a permutation of range(n)")
+        method = "precomputed"
+    nl = -(-n // n_shards)
+    pos = np.empty(n, np.int64)
+    pos[order] = np.arange(n)
+
+    rows_g = csr.row_ids()
+    nz = csr.data != 0
+    pr = pos[rows_g[nz]]
+    pc = pos[csr.indices[nz]]
+    w = csr.data[nz].astype(np.float32)
+    sr, sc = pr // nl, pc // nl
+
+    intra = sr == sc
+    blocks, indices, mask, _pnl = _block_ell_shards(
+        sr[intra], pr[intra] - sr[intra] * nl, pc[intra] - sc[intra] * nl,
+        w[intra], n_shards, nl, block, max_slots=max_slots)
+
+    cut = ~intra
+    d_all = (sr[cut] - sc[cut]) % n_shards
+    offsets, send_idx, send_counts = [], [], []
+    cpl_rows, cpl_cols, cpl_vals = [], [], []
+    for d in np.unique(d_all).tolist():
+        sel = d_all == d
+        snd = sc[cut][sel]                  # sender shard per cut entry
+        lv = pc[cut][sel] - snd * nl        # sender-local boundary row
+        rcv = sr[cut][sel]                  # receiver shard
+        lu = pr[cut][sel] - rcv * nl        # receiver-local target row
+        wv = w[cut][sel]
+
+        okey = snd * nl + lv
+        u = np.unique(okey)
+        uo, ulv = u // nl, u % nl
+        counts = np.bincount(uo, minlength=n_shards)
+        h = int(counts.max())
+        first = np.concatenate(([0], np.cumsum(counts)))[:-1]
+        rank_u = np.arange(u.size) - first[uo]
+        sidx = np.zeros((n_shards, h), np.int32)
+        sidx[uo, rank_u] = ulv.astype(np.int32)
+        col_pos = rank_u[np.searchsorted(u, okey)]
+
+        mcounts = np.bincount(rcv, minlength=n_shards)
+        m = int(mcounts.max())
+        firstm = np.concatenate(([0], np.cumsum(mcounts)))[:-1]
+        eidx = np.argsort(rcv, kind="stable")
+        rank_e = np.arange(eidx.size) - firstm[rcv[eidx]]
+        crows = np.zeros((n_shards, m), np.int32)
+        ccols = np.zeros((n_shards, m), np.int32)
+        cvals = np.zeros((n_shards, m), np.float32)
+        crows[rcv[eidx], rank_e] = lu[eidx].astype(np.int32)
+        ccols[rcv[eidx], rank_e] = col_pos[eidx].astype(np.int32)
+        cvals[rcv[eidx], rank_e] = wv[eidx]
+
+        offsets.append(int(d))
+        send_idx.append(torch.from_numpy(sidx))
+        send_counts.append(tuple(int(c) for c in counts))
+        cpl_rows.append(torch.from_numpy(crows))
+        cpl_cols.append(torch.from_numpy(ccols))
+        cpl_vals.append(torch.from_numpy(cvals))
+
+    return GeneralPartition(
+        blocks=torch.from_numpy(blocks),
+        indices=torch.from_numpy(indices),
+        mask=torch.from_numpy(mask),
+        offsets=tuple(offsets),
+        send_idx=tuple(send_idx),
+        send_counts=tuple(send_counts),
+        cpl_rows=tuple(cpl_rows),
+        cpl_cols=tuple(cpl_cols),
+        cpl_vals=tuple(cpl_vals),
+        order=order,
+        n=n,
+        n_local=nl,
+        edge_cut=int(cut.sum()) // 2,
+        method=method,
+    )
+
+
+def partition_to_dense(parts: GeneralPartition) -> np.ndarray:
+    """Reassemble the dense P from interior blocks + exchange plan, back in
+    the ORIGINAL vertex order — the correctness oracle of the partition:
+    equality with the input P proves every edge is covered exactly once
+    across intra-shard blocks and the exchange plan (a dropped edge shows
+    as a zero, a double-covered one as a doubled weight)."""
+    S, nl = parts.n_shards, parts.n_local
+    np_tot = parts.n_padded
+    A = np.zeros((np_tot, np_tot), np.float64)
+    diag = parts.dense_diag().numpy()
+    for s in range(S):
+        A[s * nl:(s + 1) * nl, s * nl:(s + 1) * nl] += diag[s]
+    for k, d in enumerate(parts.offsets):
+        sidx = parts.send_idx[k].numpy()
+        crows = parts.cpl_rows[k].numpy()
+        ccols = parts.cpl_cols[k].numpy()
+        cvals = parts.cpl_vals[k].numpy()
+        for r in range(S):
+            o = (r - d) % S
+            nzc = cvals[r] != 0
+            gr = r * nl + crows[r][nzc]
+            gc = o * nl + sidx[o][ccols[r][nzc]]
+            np.add.at(A, (gr, gc), cvals[r][nzc])
+    A = A[:parts.n, :parts.n]
+    inv = parts.inv_order
+    return A[np.ix_(inv, inv)]
+
+
+def resolve_partition_arg(op, partition, n_shards: int,
+                          block: Tuple[int, int] = (8, 128),
+                          method: Optional[str] = None):
+    """Normalize a ring backend's ``partition=`` argument.
+
+    Returns a `GeneralPartition` when the general path should run (the
+    instance itself, or one built from a dense P for ``"general"``, ordered
+    by `method`: "bfs" when None), else None (banded family: None /
+    "banded" / a backend's own banded partition are handled by the calling
+    backend).  `method` orders only the string form: given with anything
+    else it would be ignored, so it raises `TypeError`."""
+    if method is not None and not (isinstance(partition, str)
+                                   and partition == "general"):
+        raise TypeError("partition_method= orders partition='general' only; "
+                        f"got partition={type(partition).__name__}"
+                        + (f" {partition!r}" if isinstance(partition, str)
+                           else ""))
+    if isinstance(partition, GeneralPartition):
+        if partition.n_shards != n_shards:
+            raise ValueError(
+                f"partition has {partition.n_shards} shards but the group "
+                f"has {n_shards}")
+        return partition
+    if isinstance(partition, str):
+        if partition == "banded":
+            return None
+        if partition == "general":
+            if callable(op.P):
+                raise ValueError(
+                    "partition='general' needs a dense P (or pass a "
+                    "precomputed GeneralPartition built from CSR)")
+            return partition_general(op.P, n_shards,
+                                     method=method or "bfs", block=block)
+        raise ValueError(f"unknown partition {partition!r}; use 'banded', "
+                         "'general', or a partition instance")
+    return None

@@ -1,29 +1,33 @@
 """What every sharded backend shares: the option and leak checks, the
-ring matvec of the banded backends, and the per-rank plan.
+exchange matvec of the ring backends (banded and general partitions), and
+the per-rank plan.
 
 A sharded plan runs on one rank of a `torch.distributed` group and owns
-the global rows [rank * nl, (rank + 1) * nl).  Every rank passes the same
-global (..., N) signal and gets the same global result: it runs the
-recurrence on its own rows with a per-shard matvec and gathers the output
-rows onto every rank at the end (`comm.assemble`).
+the rows [rank * nl, (rank + 1) * nl) of the signal (in partition order
+for a general partition).  Every rank passes the same global (..., N)
+signal and gets the same global result: it runs the recurrence on its own
+rows with a per-shard matvec and gathers the output rows onto every rank
+at the end (`comm.assemble`).
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..core import chebyshev as cheb
+from ..core import graph as graphmod
 from ..kernels import ops
 from . import comm
+from .partition import GeneralPartition, general_bytes_per_apply
 
 Tensor = torch.Tensor
 
 
 def check_ported_options(exchange_dtype: str, fault_spec, partition) -> None:
     """Raise `NotImplementedError` for the sharded options of later
-    slices."""
+    slices, `ValueError` for an unknown partition name."""
     if exchange_dtype != "f32":
         raise NotImplementedError(
             f"exchange_dtype={exchange_dtype!r} is not ported to PyTorch yet "
@@ -33,12 +37,9 @@ def check_ported_options(exchange_dtype: str, fault_spec, partition) -> None:
         raise NotImplementedError(
             "fault_spec= is not ported to PyTorch yet (ROADMAP.md, queue 1: "
             "item 7, compressed exchange and faults)")
-    if isinstance(partition, str) and partition != "banded":
-        if partition == "general":
-            raise NotImplementedError(
-                "partition='general' is not ported to PyTorch yet "
-                "(ROADMAP.md, queue 1: item 6, general partitions)")
-        raise ValueError(f"unknown partition {partition!r}")
+    if isinstance(partition, str) and partition not in ("banded", "general"):
+        raise ValueError(f"unknown partition {partition!r}; use 'banded', "
+                         "'general', or a partition instance")
 
 
 def check_leak(leak: float, n_shards: int, allow_leak: bool) -> None:
@@ -49,65 +50,157 @@ def check_leak(leak: float, n_shards: int, allow_leak: bool) -> None:
             "allow_leak=True, or use backend='allgather'")
 
 
-def ring_matvec(interior: Callable[[Tensor], Tensor], left: Tensor,
-                right: Tensor, nl: int, h: int,
-                group) -> Callable[[Tensor], Tensor]:
-    """Interior/boundary-split matvec of a banded backend, along the last
-    axis of x (..., m), m >= nl (the shard's domain, padded or not):
+def offset_matvec(interior: Callable[[Tensor], Tensor],
+                  sends: Sequence[Tuple[object, int]],
+                  couple: Callable[[Tensor, Tuple[Tensor, ...]], Tensor],
+                  group) -> Callable[[Tensor], Tensor]:
+    """Interior/boundary-split matvec over an exchange plan of ring
+    offsets, along the last axis of x (..., m) (the shard's domain):
 
-        y_s = D_s x_s  +  L_s x_{s-1}[-h:]  +  R_s x_{s+1}[:h]
+    1. every boundary tile ``x[..., index]`` of `sends` (``(index, d)``
+       pairs: a slice or a long tensor, and the ring offset d) is gathered
+       and goes on the wire to rank s + d, all in one posted round
+       (Algorithm 1 lines 6-7);
+    2. `interior` (the shard's own block), which reads no remote data,
+       runs while the exchange is in flight;
+    3. on arrival, ``couple(y, received)`` adds the couplings of the
+       received tiles (one per offset, from rank s − d) into y.
 
-    1. the boundary tiles go on the wire first: rank s sends its last h
-       logical entries to s + 1 and its first h to s − 1 (Algorithm 1
-       lines 6-7);
-    2. `interior` (D_s x_s), which reads no remote data, runs while the
-       exchange is in flight;
-    3. on arrival, the two (m, h) coupling products `left` and `right`.
-
-    The ring wraps; the first and last shard's wrapped tiles meet zero
-    couplings.  With one shard (`group` None) there is nothing to send
-    and the matvec is `interior` itself.
+    With one shard (`group` None), or no cut edge, there is nothing to
+    send and the matvec is `interior` itself.
     """
-    if group is None:
+    if group is None or not sends:
         return interior
+    offsets = tuple(d for _, d in sends)
 
     def mv(x: Tensor) -> Tensor:
-        pending = comm.ring_exchange(x[..., nl - h:nl], x[..., :h], group)
+        pending = comm.offset_exchange([x[..., idx] for idx, _ in sends],
+                                       offsets, group)
         y = interior(x)
-        from_prev, from_next = pending.wait()
-        return (y + torch.matmul(from_prev, left.mT)
-                + torch.matmul(from_next, right.mT))
+        return couple(y, pending.wait())
 
     return mv
 
 
+def ring_matvec(interior: Callable[[Tensor], Tensor], left: Tensor,
+                right: Tensor, nl: int, h: int,
+                group) -> Callable[[Tensor], Tensor]:
+    """The banded partition's matvec, along the last axis of x (..., m),
+    m >= nl (the shard's domain, padded or not):
+
+        y_s = D_s x_s  +  L_s x_{s-1}[-h:]  +  R_s x_{s+1}[:h]
+
+    `offset_matvec` at offsets (1, −1): rank s sends its last h logical
+    entries to s + 1 and its first h to s − 1, and applies the two (m, h)
+    coupling products `left` and `right` on arrival.  The ring wraps; the
+    first and last shard's wrapped tiles meet zero couplings.
+    """
+    def couple(y: Tensor, received: Tuple[Tensor, ...]) -> Tensor:
+        from_prev, from_next = received
+        return (y + torch.matmul(from_prev, left.mT)
+                + torch.matmul(from_next, right.mT))
+
+    return offset_matvec(interior, ((slice(nl - h, nl), 1), (slice(0, h), -1)),
+                         couple, group)
+
+
+def general_sends(parts: GeneralPartition, rank: int,
+                  device: torch.device) -> Tuple[Tuple[Tensor, int], ...]:
+    """Shard `rank`'s boundary gathers, one ``(rows, d)`` per offset of a
+    general partition: the (h_k,) local rows it ships to rank + d (padded
+    with row 0, which its receivers' couplings never read)."""
+    return tuple((parts.send_idx[k][rank].long().to(device), d)
+                 for k, d in enumerate(parts.offsets))
+
+
+def coupling_layout(parts: GeneralPartition, rank: int, n_rows: int,
+                    device: torch.device) -> graphmod.SlicedELL:
+    """Shard `rank`'s couplings of every offset packed into one row-sorted
+    sliced-ELL matrix C of `n_rows` rows and sum(h_k) columns, packed on
+    `device`: C r adds every cut edge's term, where r is the received
+    tiles concatenated in offset order.  The zero-valued padding of the
+    JAX package's scatters is dropped; nothing is densified."""
+    base = np.concatenate(([0], np.cumsum(parts.tile_widths)))
+    rows, cols, vals = [], [], []
+    for k in range(len(parts.offsets)):
+        v = parts.cpl_vals[k][rank]
+        real = v != 0
+        rows.append(parts.cpl_rows[k][rank][real].long())
+        cols.append(parts.cpl_cols[k][rank][real].long() + int(base[k]))
+        vals.append(v[real])
+    rows, cols, vals = (torch.cat(t) for t in (rows, cols, vals))
+    n_cols = int(base[-1])
+    order = torch.argsort(rows * n_cols + cols, stable=True)
+    return graphmod.sliced_ell_from_coo(
+        rows[order].to(device), cols[order].to(device),
+        vals[order].to(device), parts.n_local, n_rows, n_cols=n_cols)
+
+
+def general_info(op, parts: GeneralPartition, rank: int) -> dict:
+    """plan.info keys of a general partition (the JAX package's
+    `build_general_plan` info, less its mesh axis and item-7 keys)."""
+    S = parts.n_shards
+    return {
+        "n_shards": S,
+        "rank": rank,
+        "n_local": parts.n_local,
+        "halo_width": parts.halo,
+        "partition": "general",
+        "partition_method": parts.method,
+        "partition_fingerprint": parts.fingerprint,
+        "partition_offsets": parts.offsets,
+        "partition_tile_widths": parts.tile_widths,
+        "edge_cut": parts.edge_cut,
+        "exchange_dtype": "f32",
+        "exchange_collectives_per_round": (len(parts.offsets)
+                                           if S > 1 else 0),
+        "halo_bytes_per_apply": (general_bytes_per_apply(parts, op.K)
+                                 if S > 1 else 0),
+        "halo_bytes_per_adjoint": (general_bytes_per_apply(parts, op.K,
+                                                           op.eta)
+                                   if S > 1 else 0),
+    }
+
+
 def sharded_plan(op, backend: str, mv, *, group, rank: int, nl: int,
                  pnl: int, device: torch.device, dtype: torch.dtype,
-                 recurrence, info: dict):
+                 recurrence, info: dict,
+                 parts: Optional[GeneralPartition] = None):
     """An ExecutionPlan whose methods run on this rank's rows with the
     per-shard matvec `mv` and gather the output rows onto every rank.
 
     `mv` works on the shard's padded domain of `pnl` >= nl entries
     (padded once on the way in, cropped once on the way out).  Every
-    signal is cast to `dtype` at the boundary.  `recurrence(mv, x,
-    coeffs, lmax)` runs the forward Chebyshev recurrence:
-    `cheb.cheb_apply` (plain) or `ops.fused_cheb_recurrence` (the Hopper
-    kernels).  Solver and lasso outputs are assembled before anything
-    takes a norm over them.
+    signal is cast to `dtype` at the boundary.  A general partition
+    `parts` makes the rank's rows those of its partition slots, and the
+    assembled outputs are permuted back (`from_partition_order`); every
+    vertex-indexed signal, solver state such as Jacobi's 1/diag included,
+    goes through the same permutation.
+    `recurrence(mv, x, coeffs, lmax)` runs the forward Chebyshev
+    recurrence: `cheb.cheb_apply` (plain) or `ops.fused_cheb_recurrence`
+    (the Hopper kernels).  Solver and lasso outputs are assembled before
+    anything takes a norm over them.
     """
     from ..core.lasso import LassoResult, _mu_threshold, soft_threshold
     from .operator import ExecutionPlan
 
-    n = op.P.shape[0]
     lo = rank * nl
     coeffs, lmax = op.coeffs, op.lmax
+    if parts is None:
+        n = op.P.shape[0]
+        mine = slice(lo, lo + nl)
+    else:
+        n = parts.n
+        mine = parts.order_on(device)[0][lo:lo + nl]
 
     def _local(x) -> Tensor:
         x = torch.as_tensor(x, dtype=dtype, device=device)
-        return ops.pad_trailing(x[..., lo:lo + nl], pnl).contiguous()
+        x = x[..., mine] if parts is None else x.index_select(-1, mine)
+        return ops.pad_trailing(x, pnl).contiguous()
 
     def _global(y: Tensor) -> Tensor:
-        return comm.assemble(y[..., :nl].contiguous(), group)[..., :n]
+        out = comm.assemble(y[..., :nl].contiguous(), group)[..., :n]
+        return out if parts is None else parts.from_partition_order(out)
 
     def apply(f) -> Tensor:
         return _global(recurrence(mv, _local(f), np.atleast_2d(coeffs),
@@ -128,8 +221,8 @@ def sharded_plan(op, backend: str, mv, *, group, rank: int, nl: int,
         phi_y = recurrence(mv, yl, coeffs, lmax)
         a = torch.zeros_like(phi_y)
         for _ in range(n_iters):
-            back = cheb.cheb_apply_adjoint(mv, a, coeffs, lmax)
-            gram_a = recurrence(mv, back, coeffs, lmax)
+            synth = cheb.cheb_apply_adjoint(mv, a, coeffs, lmax)
+            gram_a = recurrence(mv, synth, coeffs, lmax)
             a = soft_threshold(a + gamma * (phi_y - gram_a), thresh)
         y_star = cheb.cheb_apply_adjoint(mv, a, coeffs, lmax)
         return LassoResult(coeffs=_global(a), signal=_global(y_star),

@@ -14,6 +14,12 @@ The Block-ELL plain version (`block_ell_spmv_plain`) stays as the bridge
 the parity tests hold against the JAX kernels.  The whole-iteration
 sweeps (`kernels/cheb_sweep.py`) read the same sliced layout.
 
+`sliced_ell_spmv_accumulate` launches the same kernel on a rectangular
+layout in its accumulating mode, Y += C R: the couplings of a general
+partition's shard (`dist/sharded.py`), which the JAX package scattered
+with ``y.at[rows].add`` around its Block-ELL SpMV.  It counts its own
+launches.
+
 Dispatch: a tensor on the CPU takes the plain PyTorch version
 (`sliced_ell_spmv_plain`); a CUDA tensor launches the kernel or raises.
 """
@@ -45,25 +51,47 @@ def block_ell_spmv_plain(blocks: Tensor, indices: Tensor, x: Tensor) -> Tensor:
 
 
 def sliced_ell_spmv_plain(S: SlicedELL, x: Tensor,
-                          values: Optional[Tensor] = None) -> Tensor:
-    """y = A @ x in plain PyTorch for sliced-ELL A and x (..., padded_n)
+                          values: Optional[Tensor] = None, *,
+                          out: Optional[Tensor] = None) -> Tensor:
+    """y = A @ x in plain PyTorch for sliced-ELL A and x (..., A.x_len)
     with any leading batch dims: every stored entry's product gathered,
-    then summed into its row (padding entries add 0).  `values` replaces
-    the layout's f32 values (the sweeps' bf16 mode passes its bf16
-    copy); products and sums are in x's dtype."""
+    then summed into its row (padding entries add 0).  A may be
+    rectangular (`SlicedELL.n_cols` columns); the result has A's
+    `padded_n` rows.  `values` replaces the layout's f32 values (the
+    sweeps' bf16 mode passes its bf16 copy); products and sums are in x's
+    dtype.  With `out` (..., padded_n) the product is added into it in
+    place and `out` returned (the accumulating mode)."""
     _check_width(S, x)
     values = S.values if values is None else values
     prod = values.to(x.dtype) * x[..., S.columns.long()]
     y = torch.zeros(x.shape[:-1] + (S.n_slices * SLICE_ROWS,),
                     dtype=x.dtype, device=x.device)
     y.index_add_(y.ndim - 1, S.entry_rows(), prod)
-    return y[..., :S.padded_n]
+    y = y[..., :S.padded_n]
+    return y if out is None else out.add_(y)
 
 
 def _check_width(S: SlicedELL, x: Tensor) -> None:
-    if x.shape[-1] != S.padded_n:
+    if x.shape[-1] != S.x_len:
+        width = (f"padded n {S.padded_n}" if S.n_cols is None
+                 else f"{S.n_cols} columns")
         raise ValueError(f"signal length {x.shape[-1]} != the layout's "
-                         f"padded n {S.padded_n}")
+                         f"{width}")
+
+
+def _check_launch(S: SlicedELL, x: Tensor, what: str) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} runs on CUDA tensors, got {x.device}")
+    _check_width(S, x)
+    if S.device != x.device:
+        raise ValueError(f"layout on {S.device}, signals on {x.device}")
+    if x.dtype != torch.float32 or S.values.dtype != torch.float32:
+        raise TypeError(f"{what} takes float32 values and signals")
+    if S.columns.dtype != torch.int32 or S.offsets.dtype != torch.int32 \
+            or S.widths.dtype != torch.int32:
+        raise TypeError("sliced-ELL columns, offsets and widths are int32")
+    if not x.is_contiguous():
+        raise ValueError(f"{what} takes contiguous signals")
 
 
 def _lib() -> ctypes.CDLL:
@@ -74,11 +102,24 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int]
                        + [ctypes.c_longlong] + [ctypes.c_int]
                        + [ctypes.c_void_p])
+    fn = lib.sliced_ell_spmv_acc_f32
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int]
+                       + [ctypes.c_longlong] * 2 + [ctypes.c_int]
+                       + [ctypes.c_void_p])
     return lib
 
 
+def _batch(x: Tensor) -> int:
+    B = math.prod(x.shape[:-1])
+    if B >= 2**31 // 16:
+        raise ValueError(f"batch {B} too large for one launch")
+    return B
+
+
 def sliced_ell_spmv(S: SlicedELL, x: Tensor) -> Tensor:
-    """Y = A @ X^T for sliced-ELL A and signals x (..., padded_n).
+    """Y = A @ X^T for square sliced-ELL A and signals x (..., padded_n).
 
     Returns (..., padded_n).  CPU tensors take the plain version; CUDA
     tensors launch ``csrc/sliced_ell_spmv.cu`` (counted in
@@ -86,26 +127,16 @@ def sliced_ell_spmv(S: SlicedELL, x: Tensor) -> Tensor:
     """
     if x.device.type == "cpu":
         return sliced_ell_spmv_plain(S, x)
-    if x.device.type != "cuda":
-        raise ValueError(f"sliced_ell_spmv runs on CUDA tensors, got "
-                         f"{x.device}")
-    _check_width(S, x)
-    if S.device != x.device:
-        raise ValueError(f"layout on {S.device}, signals on {x.device}")
-    if x.dtype != torch.float32 or S.values.dtype != torch.float32:
-        raise TypeError("sliced_ell_spmv takes float32 values and signals")
-    if S.columns.dtype != torch.int32 or S.offsets.dtype != torch.int32 \
-            or S.widths.dtype != torch.int32:
-        raise TypeError("sliced-ELL columns, offsets and widths are int32")
-    if not x.is_contiguous():
-        raise ValueError("sliced_ell_spmv takes contiguous signals")
-    lead = x.shape[:-1]
-    B = math.prod(lead)
-    y = torch.empty(lead + (S.padded_n,), dtype=x.dtype, device=x.device)
+    _check_launch(S, x, "sliced_ell_spmv")
+    if S.n_cols is not None:
+        raise ValueError("sliced_ell_spmv takes a square layout; a "
+                         "rectangular one is applied by "
+                         "sliced_ell_spmv_accumulate")
+    y = torch.empty(x.shape[:-1] + (S.padded_n,), dtype=x.dtype,
+                    device=x.device)
+    B = _batch(x)
     if B == 0:
         return y
-    if B >= 2**31 // 16:
-        raise ValueError(f"batch {B} too large for one launch")
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -119,3 +150,40 @@ def sliced_ell_spmv(S: SlicedELL, x: Tensor) -> Tensor:
 
 
 sliced_ell_spmv.launches = 0
+
+
+def sliced_ell_spmv_accumulate(C: SlicedELL, r: Tensor, y: Tensor) -> Tensor:
+    """y += C @ r in place, for a sliced-ELL C of `C.padded_n` rows and
+    `C.x_len` columns (square or rectangular): r (..., x_len), y (...,
+    padded_n) with the same leading dims.  Returns y.
+
+    CPU tensors take the plain version; CUDA tensors launch
+    ``csrc/sliced_ell_spmv.cu`` in its rectangular, accumulating mode
+    (counted in ``sliced_ell_spmv_accumulate.launches``).  Each row is
+    summed by one thread in a fixed order: no atomics, the same bits on
+    every call.
+    """
+    if r.device.type == "cpu":
+        return sliced_ell_spmv_plain(C, r, out=y)
+    _check_launch(C, r, "sliced_ell_spmv_accumulate")
+    if (y.shape != r.shape[:-1] + (C.padded_n,) or y.device != r.device
+            or y.dtype != torch.float32 or not y.is_contiguous()):
+        raise ValueError(f"y {tuple(y.shape)} {y.dtype} on {y.device} does "
+                         f"not take C r for r {tuple(r.shape)}: it must be a "
+                         f"contiguous float32 (..., {C.padded_n}) beside r")
+    B = _batch(r)
+    if B == 0 or C.stored == 0:
+        return y
+    lib = _lib()
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.sliced_ell_spmv_acc_f32(
+            C.values.data_ptr(), C.columns.data_ptr(), C.offsets.data_ptr(),
+            C.widths.data_ptr(), r.data_ptr(), y.data_ptr(), C.n_slices,
+            C.padded_n, C.x_len, B, stream)
+    _build.check(lib, err, "sliced_ell_spmv_accumulate")
+    sliced_ell_spmv_accumulate.launches += 1
+    return y
+
+
+sliced_ell_spmv_accumulate.launches = 0

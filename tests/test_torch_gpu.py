@@ -4,7 +4,9 @@ against float64 dense; both flash-attention kernels (tensor cores for
 bf16 at D = 64 and 128, FFMA otherwise) and the reduced dense LM forward
 through them; the bf16 instances of the two sweeps; float64 signals cast
 at the plans' boundary; the 1-shard `cuda_halo` plan against the `cuda`
-plan.
+plan; the SpMV's rectangular, accumulating launch on a general
+partition's couplings, and two calls of a 1-shard general plan bit for
+bit.
 
 They carry the `gpu` marker and skip without a card (decided inside the
 `cuda` fixture, never at import).  The machine with the card has no JAX,
@@ -36,8 +38,11 @@ from repro_torch.core import ssl as tssl
 from repro_torch.core import wavelets as twav
 from repro_torch.configs import get_config
 from repro_torch.dist import METHODS, GraphOperator
+from repro_torch.dist import partition as tpm
+from repro_torch.dist.sharded import coupling_layout
 from repro_torch.kernels.bcsr_spmv import (block_ell_spmv_plain,
                                            sliced_ell_spmv,
+                                           sliced_ell_spmv_accumulate,
                                            sliced_ell_spmv_plain)
 from repro_torch.kernels.cheb_step import cheb_step, cheb_step_plain
 from repro_torch.kernels.cheb_sweep import (cheb_sweep, cheb_sweep_plain,
@@ -540,3 +545,55 @@ def test_one_shard_cuda_halo_is_the_cuda_plan(solver_graph):
     adj, n_adj = launches(lambda: one.apply_adjoint(a))
     assert n_adj == (20, 0, 0, 0)
     assert _rel(adj, cuda.apply_adjoint(a)) < 1e-6
+
+
+@pytest.mark.parametrize("B", [1, 5, 16, 112])
+@pytest.mark.parametrize("shards", [2, 4])
+def test_coupling_spmv_kernel_matches_plain(cuda, shards, B):
+    """y += C r on a general partition's couplings (a rectangular layout:
+    the shard's padded rows by the received tiles' sum(h_k) columns, most
+    slices empty) against the plain version, every rank's C; the launch
+    counts on its own counter, and y outside C's rows is left as it was."""
+    csr, _ = tpm.community_graph_csr(20000, seed=1)
+    parts = tpm.partition_general(csr, shards, method="spectral",
+                                  block=(8, 8))
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    for s in range(shards):
+        C = coupling_layout(parts, s, parts.n_local_padded, cuda)
+        r = torch.randn(B, C.x_len, generator=gen, device=cuda)
+        y0 = torch.randn(B, C.padded_n, generator=gen, device=cuda)
+        before = (sliced_ell_spmv.launches,
+                  sliced_ell_spmv_accumulate.launches)
+        got = sliced_ell_spmv_accumulate(C, r, y0.clone())
+        torch.cuda.synchronize()
+        assert (sliced_ell_spmv.launches,
+                sliced_ell_spmv_accumulate.launches) == (before[0],
+                                                         before[1] + 1)
+        want = sliced_ell_spmv_plain(C, r, out=y0.clone())
+        assert _rel(got - y0, want - y0) < 1e-5
+        # no atomics: a second launch on the same inputs gives the same bits
+        assert torch.equal(sliced_ell_spmv_accumulate(C, r, y0.clone()), got)
+        empty = torch.ones(C.padded_n, dtype=torch.bool, device=cuda)
+        empty[C.entry_rows()[C.values != 0]] = False
+        assert torch.equal(got[:, empty], y0[:, empty])
+
+
+def test_general_plan_same_bits_twice(cuda):
+    """Two calls of a 1-shard general cuda_halo plan on the same input give
+    the same bits (apply: one sweep; adjoint: K SpMVs), and match float64
+    dense."""
+    csr, meta = tpm.community_graph_csr(3000, seed=4)
+    P = torch.from_numpy(csr.to_dense())
+    op = GraphOperator(P=P, multipliers=twav.sgwt_multipliers(meta["lmax"],
+                                                              J=3),
+                       lmax=meta["lmax"], K=20)
+    plan = op.plan("cuda_halo", partition="general",
+                   partition_method="spectral")
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    F = torch.randn(16, 3000, generator=gen, device=cuda)
+    a = torch.randn(16, 4, 3000, generator=gen, device=cuda)
+    assert torch.equal(plan.apply(F), plan.apply(F))
+    assert torch.equal(plan.apply_adjoint(a), plan.apply_adjoint(a))
+    dense = GraphOperator(P=P.double(), multipliers=op.multipliers,
+                          lmax=meta["lmax"], K=20).plan("dense")
+    assert _rel(plan.apply(F).double(), dense.apply(F.double())) < 1e-4

@@ -35,6 +35,11 @@ def test_port_files_found():
                    "models/params.py", "models/layers.py", "models/model.py",
                    "models/steps.py"):
         assert f"src/repro_torch/{module}" in names, module
+    # the sharded apply and the general partitions
+    for module in ("dist/comm.py", "dist/sharded.py", "dist/partition.py",
+                   "dist/backends/halo.py", "dist/backends/cuda_halo.py",
+                   "dist/backends/allgather.py"):
+        assert f"src/repro_torch/{module}" in names, module
     assert len(names) >= 39
 
 

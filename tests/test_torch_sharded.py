@@ -434,11 +434,13 @@ def test_one_shard_plans_send_nothing(setup, backend):
 
 @pytest.mark.parametrize("option", [
     dict(exchange_dtype="int8"), dict(exchange_dtype="bf16"),
-    dict(fault_spec={"p": 0.05}), dict(partition="general")])
+    dict(fault_spec={"p": 0.05}),
+    dict(partition="general", exchange_dtype="int8")])
 @pytest.mark.parametrize("backend", SHARDED)
 def test_later_slices_raise_not_implemented(setup, backend, option):
-    item = "item 6" if "partition" in option else "item 7"
-    with pytest.raises(NotImplementedError, match=item):
+    # general partitions are ported (tests/test_torch_general.py); their
+    # compressed exchange is item 7 like the banded plans'
+    with pytest.raises(NotImplementedError, match="item 7"):
         _path_op(setup).plan(backend, device="cpu", **option)
 
 
