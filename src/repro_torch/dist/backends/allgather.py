@@ -12,9 +12,9 @@ from __future__ import annotations
 import torch
 
 from ...core import chebyshev as cheb
-from .. import comm
+from .. import comm, faults
 from ..partition import GeneralPartition
-from ..sharded import check_ported_options, sharded_plan
+from ..sharded import check_partition_name, sharded_plan
 from . import register_backend, resolve_device
 
 Tensor = torch.Tensor
@@ -71,8 +71,19 @@ def build(op, *, mesh=None, partition=None, device=None,
     """This rank's plan for an arbitrary dense P over the process group
     `mesh` (None: the default group when one is initialized, else one
     shard): the rank keeps its nl rows of P on `device` (None:
-    ``cuda:<rank % device_count>``), at P's dtype."""
-    check_ported_options(exchange_dtype, fault_spec, partition)
+    ``cuda:<rank % device_count>``), at P's dtype.
+
+    The gather has no compressed wire and no links to fail: another
+    ``exchange_dtype`` than "f32", or an active ``fault_spec``, raises
+    `ValueError` (the JAX package's allgather ignores them); a malformed
+    spec raises `TypeError` as on the ring backends."""
+    spec = faults.resolve_fault_spec(fault_spec)
+    if exchange_dtype != "f32" or (spec is not None and spec.active):
+        raise ValueError(
+            "allgather gathers whole iterates and has no compressed "
+            "exchange or link faults; use 'halo' or 'cuda_halo' for "
+            "exchange_dtype= and fault_spec=")
+    check_partition_name(partition)
     if partition == "general" or isinstance(partition, GeneralPartition):
         raise ValueError("the allgather backend shards the rows of a dense "
                          "P and takes no general partition; use 'halo' or "

@@ -40,6 +40,13 @@ then
 give the same bits.  A 1-shard general plan is tagged like the banded
 one: one `cheb_sweep` launch per `apply`.
 
+``exchange_dtype=``, ``error_feedback=``, ``fault_spec=`` and
+``degradation=`` are the `halo` backend's: the wire codec and the link
+faults live in the one exchange matvec (`sharded.offset_matvec`), between
+the posted round and the couplings, so the coupling launch of a general
+plan reads the decoded (and faulted) tiles.  On one shard they are inert
+and the sweeps still take the whole iteration.
+
 On a CUDA device every kernel launches (or raises); with
 ``device="cpu"`` the same code runs the kernels' plain PyTorch versions.
 """
@@ -56,9 +63,9 @@ from ...kernels.bcsr_spmv import sliced_ell_spmv_accumulate
 from .. import comm
 from ..partition import (GeneralPartition, OverfullSlotsError,
                          resolve_partition_arg)
-from ..sharded import (check_leak, check_ported_options, coupling_layout,
+from ..sharded import (check_leak, check_partition_name, coupling_layout,
                        general_info, general_sends, offset_matvec,
-                       ring_matvec, sharded_plan)
+                       ring_matvec, sharded_plan, wire_info, wire_options)
 from . import register_backend, resolve_device
 from .halo import halo_bytes_per_apply, partition_banded
 
@@ -160,8 +167,9 @@ def partition_block_ell(
 @register_backend("cuda_halo")
 def build(op, *, mesh=None, partition=None, device=None,
           allow_leak: bool = False, exchange_dtype: str = "f32",
-          fault_spec=None, partition_method: Optional[str] = None,
-          **options):
+          error_feedback: bool = True, fault_spec=None,
+          degradation: str = "zero_fill",
+          partition_method: Optional[str] = None, **options):
     """Build this rank's plan: the per-shard Hopper kernels with
     boundary-row exchange over the process group `mesh` (None: the
     default group when one is initialized, else one shard).
@@ -175,9 +183,12 @@ def build(op, *, mesh=None, partition=None, device=None,
     raises `TypeError`) or a precomputed `GeneralPartition`
     (which a callable P needs).  The rank keeps its own D_s (Block-ELL
     and the sliced layout packed from it) and its couplings on `device`
-    (None: ``cuda:<rank % device_count>``), in float32.
+    (None: ``cuda:<rank % device_count>``), in float32.  The wire
+    options are the `halo` backend's.
     """
-    check_ported_options(exchange_dtype, fault_spec, partition)
+    wire = wire_options(exchange_dtype, error_feedback, fault_spec,
+                        degradation)
+    check_partition_name(partition)
     if options:
         raise TypeError(f"cuda_halo backend takes no options "
                         f"{sorted(options)}")
@@ -186,7 +197,7 @@ def build(op, *, mesh=None, partition=None, device=None,
     general = resolve_partition_arg(op, partition, n_shards,
                                     method=partition_method)
     if general is not None:
-        return _general_plan(op, general, group, rank, dev)
+        return _general_plan(op, general, group, rank, dev, wire)
     leak = 0.0
     if isinstance(partition, ShardedBlockELL):
         parts = partition
@@ -215,7 +226,7 @@ def build(op, *, mesh=None, partition=None, device=None,
         return torch.nn.functional.pad(c, (0, 0, 0, pnl - nl)).to(dev)
 
     mv = ring_matvec(interior, _rows(parts.left[rank]),
-                     _rows(parts.right[rank]), nl, h, group)
+                     _rows(parts.right[rank]), nl, h, group, **wire)
     if group is None:
         # one shard: y = D x, and the Block-ELL tag lets
         # `ops.fused_cheb_recurrence` and the Section-V solvers collapse
@@ -234,14 +245,16 @@ def build(op, *, mesh=None, partition=None, device=None,
         "nnz_blocks": parts.nnz_blocks,
         "nnz": layout.nnz,
         "stored_per_nnz": layout.stored_per_nnz,
-        "exchange_dtype": exchange_dtype,
+        **wire_info(wire),
         "transport": comm.transport(group, dev),
         # what the 1-shard sweeps hold in L2, and the guard they apply
         # (a solve's l2_budget= overrides it per call)
         "sweep_l2_bytes": ops.cheb_sweep_l2_bytes(pnl),
         "sweep_l2_budget": ops.DEFAULT_SWEEP_L2_BUDGET,
-        "halo_bytes_per_apply": halo_bytes_per_apply(parts, op.K),
-        "halo_bytes_per_adjoint": halo_bytes_per_apply(parts, op.K, op.eta),
+        "halo_bytes_per_apply": halo_bytes_per_apply(
+            parts, op.K, exchange_dtype=exchange_dtype),
+        "halo_bytes_per_adjoint": halo_bytes_per_apply(
+            parts, op.K, op.eta, exchange_dtype=exchange_dtype),
         "block_ell": local_A,
     }
     return sharded_plan(op, "cuda_halo", mv, group=group, rank=rank, nl=nl,
@@ -250,7 +263,7 @@ def build(op, *, mesh=None, partition=None, device=None,
 
 
 def _general_plan(op, parts: GeneralPartition, group, rank: int,
-                  dev: torch.device):
+                  dev: torch.device, wire: dict):
     """This rank's plan over a general partition: its Block-ELL shard and
     the sliced layouts of its interior and couplings, on `dev`."""
     nl = parts.n_local
@@ -266,12 +279,12 @@ def _general_plan(op, parts: GeneralPartition, group, rank: int,
     def couple(y: Tensor, received) -> Tensor:
         return sliced_ell_spmv_accumulate(C, torch.cat(received, -1), y)
 
-    mv = offset_matvec(interior, sends, couple, group)
+    mv = offset_matvec(interior, sends, couple, group, **wire)
     if group is None:
         # one shard: no cut edge, and the sweeps take the whole iteration
         mv.block_ell = local_A
     info = dict(
-        general_info(op, parts, rank),
+        general_info(op, parts, rank, wire),
         n_local_padded=pnl,
         block=tuple(parts.blocks.shape[-2:]),
         nnz_blocks=parts.nnz_blocks,

@@ -15,6 +15,12 @@ the two (nl, h) couplings on arrival.  The products are plain
 `torch.matmul`, as the JAX package computes them with einsum outside any
 kernel; `cuda_halo` is the same exchange around the Hopper kernels.
 
+``exchange_dtype=`` ("f32", "bf16", "int8") sets the wire of the boundary
+tiles (`dist.quantize`; ``error_feedback`` threads int8's residual across
+the orders) and ``fault_spec=`` / ``degradation=`` inject seeded link
+faults on the receive side (`dist.faults`); both live in the one exchange
+matvec, so the rounds stay K.
+
 ``partition="general"`` (or a `GeneralPartition`) shards an arbitrary
 sparse P by an edge-cut order instead (`dist.partition`): one tile per
 ring offset per order (`sharded.offset_matvec`), the interior the
@@ -37,9 +43,10 @@ from ...kernels import ops
 from ...kernels.bcsr_spmv import sliced_ell_spmv_plain
 from .. import comm
 from ..partition import GeneralPartition, resolve_partition_arg
-from ..sharded import (check_leak, check_ported_options, coupling_layout,
+from ..quantize import tile_wire_bytes
+from ..sharded import (check_leak, check_partition_name, coupling_layout,
                        general_info, general_sends, offset_matvec,
-                       ring_matvec, sharded_plan)
+                       ring_matvec, sharded_plan, wire_info, wire_options)
 from . import register_backend, resolve_device
 
 Tensor = torch.Tensor
@@ -152,12 +159,19 @@ def pad_signal(x, parts) -> Tensor:
 
 
 def halo_bytes_per_apply(parts, K: int, eta: int = 1,
-                         dtype_bytes: int = 4) -> int:
+                         dtype_bytes: int = 4,
+                         exchange_dtype: Optional[str] = None) -> int:
     """Exchange bytes of one sharded application over all shards: per
     order each shard sends its h-row boundary tile left and right, K
     orders, S shards (`parts`: a `BandedPartition` or a
-    `cuda_halo.ShardedBlockELL`)."""
-    return 2 * K * parts.n_shards * eta * parts.halo * dtype_bytes
+    `cuda_halo.ShardedBlockELL`).  A row is `exchange_dtype`'s wire row
+    (`quantize.tile_wire_bytes`: 4h, 2h or h + 4 bytes); without it, h
+    elements of `dtype_bytes`."""
+    if exchange_dtype is not None:
+        row = tile_wire_bytes(parts.halo, exchange_dtype)
+    else:
+        row = parts.halo * dtype_bytes
+    return 2 * K * parts.n_shards * eta * row
 
 
 # ---------------------------------------------------------------------------
@@ -166,8 +180,9 @@ def halo_bytes_per_apply(parts, K: int, eta: int = 1,
 @register_backend("halo")
 def build(op, *, mesh=None, partition=None, device=None,
           allow_leak: bool = False, exchange_dtype: str = "f32",
-          fault_spec=None, partition_method: Optional[str] = None,
-          **options):
+          error_feedback: bool = True, fault_spec=None,
+          degradation: str = "zero_fill",
+          partition_method: Optional[str] = None, **options):
     """Build the ring-halo plan of this rank over the process group
     `mesh` (None: the default group when one is initialized, else one
     shard).
@@ -182,8 +197,17 @@ def build(op, *, mesh=None, partition=None, device=None,
     rank keeps only its own diagonal block and couplings on `device`
     (None: ``cuda:<rank % device_count>``), at P's dtype (float32 for a
     general partition).
+
+    ``exchange_dtype`` ("f32" | "bf16" | "int8") is the wire of the
+    boundary tiles and ``error_feedback`` (int8 only) threads the
+    quantization residual across the orders (`dist.quantize`);
+    ``fault_spec`` (None, a `FaultSpec`, a dict or a drop probability)
+    and ``degradation`` ("zero_fill" | "hold_last") inject seeded link
+    faults (`dist.faults`).
     """
-    check_ported_options(exchange_dtype, fault_spec, partition)
+    wire = wire_options(exchange_dtype, error_feedback, fault_spec,
+                        degradation)
+    check_partition_name(partition)
     if options:
         raise TypeError(f"halo backend takes no options {sorted(options)}")
     group, n_shards, rank = comm.resolve_group(mesh)
@@ -191,7 +215,7 @@ def build(op, *, mesh=None, partition=None, device=None,
     general = resolve_partition_arg(op, partition, n_shards,
                                     method=partition_method)
     if general is not None:
-        return _general_plan(op, general, group, rank, dev)
+        return _general_plan(op, general, group, rank, dev, wire)
     leak = 0.0
     if isinstance(partition, BandedPartition):
         parts = partition
@@ -209,8 +233,10 @@ def build(op, *, mesh=None, partition=None, device=None,
     nl, h = parts.n_local, parts.halo
     left_h, right_h = parts.boundary_couplings()
     diag = parts.diag[rank].to(dev)
+    wire_dt = None if exchange_dtype == "f32" else exchange_dtype
     mv = ring_matvec(lambda x: torch.matmul(x, diag.mT),
-                     left_h[rank].to(dev), right_h[rank].to(dev), nl, h, group)
+                     left_h[rank].to(dev), right_h[rank].to(dev), nl, h, group,
+                     **wire)
     info = {
         "n_shards": n_shards,
         "rank": rank,
@@ -219,14 +245,17 @@ def build(op, *, mesh=None, partition=None, device=None,
         "partition": "banded",
         "partition_leak": leak,
         "exchange_collectives_per_round": comm.DIRECTIONS_PER_ROUND,
-        "exchange_dtype": exchange_dtype,
+        **wire_info(wire),
         "transport": comm.transport(group, dev),
         # forward and Gram ship an (..., h) tile per order; the adjoint's
-        # iterate carries the eta streams
+        # iterate carries the eta streams.  The f32 wire is the identity
+        # and carries P's own dtype (8 bytes for a float64 P).
         "halo_bytes_per_apply": halo_bytes_per_apply(
-            parts, op.K, dtype_bytes=diag.element_size()),
+            parts, op.K, dtype_bytes=diag.element_size(),
+            exchange_dtype=wire_dt),
         "halo_bytes_per_adjoint": halo_bytes_per_apply(
-            parts, op.K, op.eta, dtype_bytes=diag.element_size()),
+            parts, op.K, op.eta, dtype_bytes=diag.element_size(),
+            exchange_dtype=wire_dt),
     }
     return sharded_plan(op, "halo", mv, group=group, rank=rank, nl=nl,
                         pnl=nl, device=dev, dtype=diag.dtype,
@@ -234,7 +263,7 @@ def build(op, *, mesh=None, partition=None, device=None,
 
 
 def _general_plan(op, parts: GeneralPartition, group, rank: int,
-                  dev: torch.device):
+                  dev: torch.device, wire: dict):
     """This rank's plan over a general partition: its dense diagonal
     block, one tile per offset, its couplings as one sparse layout."""
     nl = parts.n_local
@@ -246,8 +275,8 @@ def _general_plan(op, parts: GeneralPartition, group, rank: int,
         return sliced_ell_spmv_plain(C, torch.cat(received, -1), out=y)
 
     mv = offset_matvec(lambda x: torch.matmul(x, diag.mT), sends, couple,
-                       group)
-    info = dict(general_info(op, parts, rank),
+                       group, **wire)
+    info = dict(general_info(op, parts, rank, wire),
                 transport=comm.transport(group, dev))
     return sharded_plan(op, "halo", mv, group=group, rank=rank, nl=nl,
                         pnl=nl, device=dev, dtype=diag.dtype,

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ..core import graph as graphmod
+from .quantize import tile_wire_bytes
 
 Tensor = torch.Tensor
 
@@ -528,13 +529,10 @@ class GeneralPartition:
 
     def wire_bytes_per_round(self, exchange_dtype: str = "f32") -> int:
         """Bytes ONE shard ships per exchange round (= per matvec): the sum
-        of its per-offset f32 tiles, 4 bytes per row."""
-        if exchange_dtype != "f32":
-            raise NotImplementedError(
-                f"exchange_dtype={exchange_dtype!r} is not ported to PyTorch "
-                "yet (ROADMAP.md, queue 1: item 7, compressed exchange and "
-                "faults); the exchange is f32")
-        return sum(4 * h for h in self.tile_widths)
+        of its per-offset tiles at the wire dtype (`quantize.
+        tile_wire_bytes`: 4, 2 or 1 byte per row entry, + 4 per int8 row)."""
+        return sum(tile_wire_bytes(h, exchange_dtype)
+                   for h in self.tile_widths)
 
 
 def general_bytes_per_apply(parts: GeneralPartition, K: int, eta: int = 1,

@@ -1,6 +1,6 @@
 """What every sharded backend shares: the option and leak checks, the
-exchange matvec of the ring backends (banded and general partitions), and
-the per-rank plan.
+exchange matvec of the ring backends (banded and general partitions, with
+the wire codec and the fault injector), and the per-rank plan.
 
 A sharded plan runs on one rank of a `torch.distributed` group and owns
 the rows [rank * nl, (rank + 1) * nl) of the signal (in partition order
@@ -15,31 +15,47 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core import chebyshev as cheb
 from ..core import graph as graphmod
 from ..kernels import ops
-from . import comm
+from . import comm, faults, quantize
 from .partition import GeneralPartition, general_bytes_per_apply
 
 Tensor = torch.Tensor
 
 
-def check_ported_options(exchange_dtype: str, fault_spec, partition) -> None:
-    """Raise `NotImplementedError` for the sharded options of later
-    slices, `ValueError` for an unknown partition name."""
-    if exchange_dtype != "f32":
-        raise NotImplementedError(
-            f"exchange_dtype={exchange_dtype!r} is not ported to PyTorch yet "
-            "(ROADMAP.md, queue 1: item 7, compressed exchange and faults); "
-            "the exchange is f32")
-    if fault_spec is not None:
-        raise NotImplementedError(
-            "fault_spec= is not ported to PyTorch yet (ROADMAP.md, queue 1: "
-            "item 7, compressed exchange and faults)")
+def check_partition_name(partition) -> None:
+    """Raise `ValueError` for an unknown partition name."""
     if isinstance(partition, str) and partition not in ("banded", "general"):
         raise ValueError(f"unknown partition {partition!r}; use 'banded', "
                          "'general', or a partition instance")
+
+
+def wire_options(exchange_dtype: str = "f32", error_feedback: bool = True,
+                 fault_spec=None, degradation: str = "zero_fill") -> dict:
+    """The validated wire options of a ring backend, as the keyword
+    arguments of :func:`offset_matvec`: an unknown dtype or degradation
+    raises `ValueError` (at p = 0 too), a spec that is not None, a
+    `FaultSpec`, a dict or a float raises `TypeError` (the JAX package's
+    `pallas_halo.build`)."""
+    quantize.validate_exchange_dtype(exchange_dtype)
+    faults.validate_degradation(degradation)
+    return dict(exchange_dtype=exchange_dtype,
+                error_feedback=bool(error_feedback),
+                fault_spec=faults.resolve_fault_spec(fault_spec),
+                degradation=degradation)
+
+
+def wire_info(wire: dict) -> dict:
+    """plan.info keys of the wire options (`pallas_halo.py:435-439`)."""
+    return {"exchange_dtype": wire["exchange_dtype"],
+            "error_feedback": wire["error_feedback"],
+            "fault_spec": faults.spec_info(wire["fault_spec"]),
+            "degradation": wire["degradation"],
+            "fault_key": faults.fault_key(wire["fault_spec"],
+                                          wire["degradation"])}
 
 
 def check_leak(leak: float, n_shards: int, allow_leak: bool) -> None:
@@ -53,47 +69,107 @@ def check_leak(leak: float, n_shards: int, allow_leak: bool) -> None:
 def offset_matvec(interior: Callable[[Tensor], Tensor],
                   sends: Sequence[Tuple[object, int]],
                   couple: Callable[[Tensor, Tuple[Tensor, ...]], Tensor],
-                  group) -> Callable[[Tensor], Tensor]:
+                  group, *, exchange_dtype: str = "f32",
+                  error_feedback: bool = True, fault_spec=None,
+                  degradation: str = "zero_fill"):
     """Interior/boundary-split matvec over an exchange plan of ring
-    offsets, along the last axis of x (..., m) (the shard's domain):
+    offsets, along the last axis of x (..., m) (the shard's domain), in
+    the order of the JAX package's `make_exchange_matvec`:
 
     1. every boundary tile ``x[..., index]`` of `sends` (``(index, d)``
-       pairs: a slice or a long tensor, and the ring offset d) is gathered
-       and goes on the wire to rank s + d, all in one posted round
+       pairs: a slice or a long tensor, and the ring offset d) is gathered,
+       encoded to `exchange_dtype` (`quantize`; with error feedback under
+       int8) and goes on the wire to rank s + d, all in one posted round
        (Algorithm 1 lines 6-7);
     2. `interior` (the shard's own block), which reads no remote data,
        runs while the exchange is in flight;
-    3. on arrival, ``couple(y, received)`` adds the couplings of the
-       received tiles (one per offset, from rank s − d) into y.
+    3. on arrival every wire takes the injector's bit noise, is decoded to
+       x's dtype and takes its stale and drop faults (`faults`; link id:
+       the offset index); then ``couple(y, received)`` adds the couplings
+       of the received tiles (one per offset, from rank s - d) into y.
 
     With one shard (`group` None), or no cut edge, there is nothing to
-    send and the matvec is `interior` itself.
+    send and the matvec is `interior` itself.  Without error feedback and
+    an active `fault_spec` it is stateless; the f32 wire's encode and
+    decode return the tile itself, so the clean f32 matvec makes only the
+    calls of steps 1-3 without codec and faults.  With error feedback (int8) or an active spec it
+    follows the dual-signature stateful protocol of
+    `core.chebyshev._stateful_matvec`: ``mv(x, state) -> (y, state)``
+    and ``mv.init_state(x)``, the state being (round, carried tiles,
+    residuals) with faults and the residuals alone without; a stateless
+    call under faults starts from a fresh round-0 state.
     """
     if group is None or not sends:
         return interior
     offsets = tuple(d for _, d in sends)
+    dt = quantize.validate_exchange_dtype(exchange_dtype)
+    inj = faults.make_injector(fault_spec, degradation,
+                               dist.get_rank(group), True)
 
-    def mv(x: Tensor) -> Tensor:
-        pending = comm.offset_exchange([x[..., idx] for idx, _ in sends],
-                                       offsets, group)
+    use_ef = dt == "int8" and error_feedback
+
+    def _run(x: Tensor, state):
+        if inj is not None:
+            k, carried, ef_state = state
+        else:
+            ef_state = state
+        tiles = [x[..., idx] for idx, _ in sends]
+        if ef_state is None:
+            wires, new_ef = [quantize.encode(t, dt) for t in tiles], None
+        else:
+            pairs = [quantize.ef_encode(t, r, dt)
+                     for t, r in zip(tiles, ef_state)]
+            wires = [w for w, _ in pairs]
+            new_ef = tuple(r for _, r in pairs)
+        pending = comm.offset_exchange(wires, offsets, group)
         y = interior(x)
-        return couple(y, pending.wait())
+        recvs = pending.wait()
+        if inj is not None:
+            recvs = [inj.wire(rv, k, j, dt) for j, rv in enumerate(recvs)]
+        recvs = [quantize.decode(rv, dt, x.dtype) for rv in recvs]
+        if inj is None:
+            return couple(y, tuple(recvs)), new_ef
+        delivered = [inj.recv(rv, c, k, j)
+                     for j, (rv, c) in enumerate(zip(recvs, carried))]
+        return (couple(y, tuple(t for t, _ in delivered)),
+                (k + 1, tuple(c for _, c in delivered), new_ef))
 
+    if inj is None and not use_ef:
+        def mv(x: Tensor) -> Tensor:
+            return _run(x, None)[0]
+
+        return mv
+
+    def init_state(x: Tensor):
+        tiles = [x[..., idx] for idx, _ in sends]
+        ef0 = tuple(quantize.ef_init(t) for t in tiles) if use_ef else None
+        if inj is None:
+            return ef0
+        return inj.init_round(), inj.init_carried(tiles), ef0
+
+    def mv(x: Tensor, state=None):
+        if state is None:
+            # a one-shot call: plain encoding, faults from a fresh round 0
+            return _run(x, None if inj is None else init_state(x))[0]
+        return _run(x, state)
+
+    mv.init_state = init_state
     return mv
 
 
 def ring_matvec(interior: Callable[[Tensor], Tensor], left: Tensor,
-                right: Tensor, nl: int, h: int,
-                group) -> Callable[[Tensor], Tensor]:
+                right: Tensor, nl: int, h: int, group, **wire):
     """The banded partition's matvec, along the last axis of x (..., m),
     m >= nl (the shard's domain, padded or not):
 
         y_s = D_s x_s  +  L_s x_{s-1}[-h:]  +  R_s x_{s+1}[:h]
 
-    `offset_matvec` at offsets (1, −1): rank s sends its last h logical
-    entries to s + 1 and its first h to s − 1, and applies the two (m, h)
-    coupling products `left` and `right` on arrival.  The ring wraps; the
-    first and last shard's wrapped tiles meet zero couplings.
+    `offset_matvec` at offsets (1, −1), with the wire options `wire`
+    (:func:`wire_options`): rank s sends its last h logical entries to
+    s + 1 (link 0 of the receiver) and its first h to s − 1 (link 1), and
+    applies the two (m, h) coupling products `left` and `right` on
+    arrival.  The ring wraps; the first and last shard's wrapped tiles
+    meet zero couplings.
     """
     def couple(y: Tensor, received: Tuple[Tensor, ...]) -> Tensor:
         from_prev, from_next = received
@@ -101,7 +177,7 @@ def ring_matvec(interior: Callable[[Tensor], Tensor], left: Tensor,
                 + torch.matmul(from_next, right.mT))
 
     return offset_matvec(interior, ((slice(nl - h, nl), 1), (slice(0, h), -1)),
-                         couple, group)
+                         couple, group, **wire)
 
 
 def general_sends(parts: GeneralPartition, rank: int,
@@ -136,10 +212,13 @@ def coupling_layout(parts: GeneralPartition, rank: int, n_rows: int,
         vals[order].to(device), parts.n_local, n_rows, n_cols=n_cols)
 
 
-def general_info(op, parts: GeneralPartition, rank: int) -> dict:
+def general_info(op, parts: GeneralPartition, rank: int,
+                 wire: dict) -> dict:
     """plan.info keys of a general partition (the JAX package's
-    `build_general_plan` info, less its mesh axis and item-7 keys)."""
+    `build_general_plan` info, less its mesh axis), the byte models at the
+    wire dtype of `wire` (:func:`wire_options`)."""
     S = parts.n_shards
+    dt = wire["exchange_dtype"]
     return {
         "n_shards": S,
         "rank": rank,
@@ -151,14 +230,13 @@ def general_info(op, parts: GeneralPartition, rank: int) -> dict:
         "partition_offsets": parts.offsets,
         "partition_tile_widths": parts.tile_widths,
         "edge_cut": parts.edge_cut,
-        "exchange_dtype": "f32",
+        **wire_info(wire),
         "exchange_collectives_per_round": (len(parts.offsets)
                                            if S > 1 else 0),
-        "halo_bytes_per_apply": (general_bytes_per_apply(parts, op.K)
-                                 if S > 1 else 0),
-        "halo_bytes_per_adjoint": (general_bytes_per_apply(parts, op.K,
-                                                           op.eta)
-                                   if S > 1 else 0),
+        "halo_bytes_per_apply": (general_bytes_per_apply(
+            parts, op.K, exchange_dtype=dt) if S > 1 else 0),
+        "halo_bytes_per_adjoint": (general_bytes_per_apply(
+            parts, op.K, op.eta, exchange_dtype=dt) if S > 1 else 0),
     }
 
 

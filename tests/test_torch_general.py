@@ -388,9 +388,15 @@ def test_partition_orders_and_byte_model():
     assert parts.wire_bytes_per_round() == 4 * sum(parts.tile_widths)
     assert (tpm.general_bytes_per_apply(parts, 12, 4)
             == 12 * 8 * 4 * 4 * sum(parts.tile_widths))
-    for dtype in ("bf16", "int8"):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            parts.wire_bytes_per_round(dtype)
+    # the compressed wires: 2 bytes per row entry (bf16), 1 + 4 per row
+    # of every offset's tile (int8, the packed scale)
+    assert parts.wire_bytes_per_round("bf16") == 2 * sum(parts.tile_widths)
+    assert parts.wire_bytes_per_round("int8") == sum(
+        h + 4 for h in parts.tile_widths)
+    assert (tpm.general_bytes_per_apply(parts, 12, 4, "int8")
+            == 12 * 8 * 4 * parts.wire_bytes_per_round("int8"))
+    with pytest.raises(ValueError):
+        parts.wire_bytes_per_round("f16")
     assert tuple(parts.dense_diag().shape) == (8, parts.n_local,
                                               parts.n_local)
 

@@ -6,7 +6,8 @@ through them; the bf16 instances of the two sweeps; float64 signals cast
 at the plans' boundary; the 1-shard `cuda_halo` plan against the `cuda`
 plan; the SpMV's rectangular, accumulating launch on a general
 partition's couplings, and two calls of a 1-shard general plan bit for
-bit.
+bit; the wire codec on the card byte for byte the CPU's, and the faulted
+sharded apply (2 gloo ranks on the card) equal to the CPU's.
 
 They carry the `gpu` marker and skip without a card (decided inside the
 `cuda` fixture, never at import).  The machine with the card has no JAX,
@@ -39,6 +40,7 @@ from repro_torch.core import wavelets as twav
 from repro_torch.configs import get_config
 from repro_torch.dist import METHODS, GraphOperator
 from repro_torch.dist import partition as tpm
+from repro_torch.dist import quantize as tq
 from repro_torch.dist.sharded import coupling_layout
 from repro_torch.kernels.bcsr_spmv import (block_ell_spmv_plain,
                                            sliced_ell_spmv,
@@ -597,3 +599,81 @@ def test_general_plan_same_bits_twice(cuda):
     dense = GraphOperator(P=P.double(), multipliers=op.multipliers,
                           lmax=meta["lmax"], K=20).plan("dense")
     assert _rel(plan.apply(F).double(), dense.apply(F.double())) < 1e-4
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("shape", [(64, 327), (16, 22086), (3, 7),
+                                   (2, 5, 24)])
+def test_codec_wire_on_the_card_equals_cpu(cuda, shape, dtype):
+    """The wire codec is torch ops on the tile's device: the card's int8
+    and bf16 wires are the CPU's byte for byte, and so is their decode."""
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    x = torch.randn(shape, generator=gen, device=cuda) * 3.0
+    x[(0,) * (len(shape) - 1)] = 0.0                  # an all-zero row
+    w, wc = tq.encode(x, dtype), tq.encode(x.cpu(), dtype)
+    words = torch.int16 if dtype == "bf16" else torch.int8
+    assert torch.equal(w.cpu().view(words), wc.view(words))
+    assert torch.equal(tq.decode(w, dtype).cpu(), tq.decode(wc, dtype))
+
+
+FAULT_WORLD = 2
+FAULT_TOL = 1e-5
+
+
+def _faulted_rank(rank, world, tmp):
+    """One of FAULT_WORLD gloo ranks on the card: the faulted `cuda_halo`
+    and `halo` applies on the card against the `halo` plan on the CPU of
+    the same ranks (BENCH_faults.json's banded setup, n = 256)."""
+    import json
+    import os
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from repro_torch.dist import FaultSpec
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=120))
+    try:
+        rng = np.random.default_rng(0)
+        n, bw = 256, 8
+        Bm = np.zeros((n, n), np.float32)
+        for i in range(n):
+            lo, hi = max(0, i - bw), min(n, i + bw + 1)
+            Bm[i, lo:hi] = rng.standard_normal(hi - lo) * 0.1
+        Bm = np.abs(Bm + Bm.T) / 2
+        op = GraphOperator(P=torch.from_numpy(np.diag(Bm.sum(1)) - Bm),
+                           multipliers=[lambda lam: np.exp(-lam)],
+                           lmax=float(2 * Bm.sum(1).max()), K=10)
+        x = rng.standard_normal((4, n)).astype(np.float32)
+        spec = FaultSpec(drop_prob=0.2, stale_prob=0.1, noise_prob=0.05,
+                         seed=3)
+        out = {}
+        for dt in ("f32", "int8"):
+            cpu = op.plan("halo", device="cpu", exchange_dtype=dt,
+                          fault_spec=spec).apply(x)
+            for backend in ("cuda_halo", "halo"):
+                card = op.plan(backend, exchange_dtype=dt,
+                               fault_spec=spec).apply(x).cpu()
+                out[f"{backend}/{dt}"] = _rel(card.double(), cpu.double())
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def test_faulted_apply_on_the_card_equals_cpu(cuda, tmp_path):
+    """The fault draws are the host's, so the faulted output on the card
+    is the CPU's within 1e-5 at both wires."""
+    import json
+
+    import torch.multiprocessing as mp
+
+    mp.spawn(_faulted_rank, args=(FAULT_WORLD, str(tmp_path)),
+             nprocs=FAULT_WORLD, join=True)
+    for r in range(FAULT_WORLD):
+        with open(tmp_path / f"rank{r}.json") as f:
+            rec = json.load(f)
+        for key, rel in rec.items():
+            assert rel <= FAULT_TOL, (r, key, rel)

@@ -40,7 +40,10 @@ def test_port_files_found():
                    "dist/backends/halo.py", "dist/backends/cuda_halo.py",
                    "dist/backends/allgather.py"):
         assert f"src/repro_torch/{module}" in names, module
-    assert len(names) >= 39
+    # the compressed exchange, the link faults and gossip
+    for module in ("dist/quantize.py", "dist/faults.py", "dist/gossip.py"):
+        assert f"src/repro_torch/{module}" in names, module
+    assert len(names) >= 42
 
 
 @pytest.mark.parametrize("path", FILES,

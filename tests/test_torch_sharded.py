@@ -438,10 +438,23 @@ def test_one_shard_plans_send_nothing(setup, backend):
     dict(partition="general", exchange_dtype="int8")])
 @pytest.mark.parametrize("backend", SHARDED)
 def test_later_slices_raise_not_implemented(setup, backend, option):
-    # general partitions are ported (tests/test_torch_general.py); their
-    # compressed exchange is item 7 like the banded plans'
-    with pytest.raises(NotImplementedError, match="item 7"):
-        _path_op(setup).plan(backend, device="cpu", **option)
+    # the compressed exchange and the faults are ported
+    # (tests/test_torch_quantize.py, tests/test_torch_faults.py): the ring
+    # backends take the wire options (inert on one shard), allgather
+    # refuses them, and a malformed spec raises TypeError as in the JAX
+    # package (no NotImplementedError is left)
+    op = _path_op(setup)
+    if "fault_spec" in option:
+        with pytest.raises(TypeError):
+            op.plan(backend, device="cpu", **option)
+    elif backend == "allgather":
+        with pytest.raises(ValueError, match="no compressed exchange"):
+            op.plan(backend, device="cpu", **option)
+    else:
+        plan = op.plan(backend, device="cpu", **option)
+        assert plan.info["exchange_dtype"] == option["exchange_dtype"]
+        np.testing.assert_allclose(plan.apply(setup["x"]).numpy(),
+                                   setup["ref"]["apply"], atol=1e-4)
 
 
 @pytest.mark.parametrize("option", [dict(sweep_dtype="bf16"),
