@@ -94,9 +94,30 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    against all_reduce, clean, quantized and under the mild spec, its
    rounds and `cheb_step` launches, and `cheb_step` at the largest leaf
    against its plain version;
-11. shows through the kernels' launch counters that every path ran through
+11. serves the main path (`repro_torch.serve`): (a) in this process, a
+   `ServeEngine` over the cuda plan above with the default buckets
+   (1, 8, 64), max_wait 5 ms and the reference's DEFAULT_MIX (80%
+   `apply`, 20% Jacobi `solve`, tau 0.5, 8 rounds); every entry
+   (`apply`, `apply_adjoint`, `apply_gram`, the solve) is captured as
+   one CUDA graph per bucket (`dist.capture`), each replay equal to the
+   eager call bit for bit and timed beside it and under the profiler
+   (three replays: the hand-written kernels, no host-to-device copy); a
+   virtual-clock
+   replay of 512 Poisson requests at 20000 /s (every row its bucket's
+   direct call bit for bit, float64 dense within 1e-4, exactly once)
+   and wall-clock replays at 1000, 10000 and 50000 requests /s (p50 /
+   p99, signals /s, occupancy, padding; exactly once, occupancy >= 2 at
+   the top rate); (b) in the 4-rank group, one engine per rank over
+   ``cuda_halo`` (eager: its exchange runs through the host): 64
+   submits make one batch of K counted rounds and 64 x
+   ``halo_bytes_per_apply`` bytes, bit for bit the direct call, float64
+   dense within 1e-4, a faulted plan beside the clean one never sharing
+   a batch, and a wall-clock engine over the group refused;
+12. shows through the kernels' launch counters that every path ran through
    its kernels: each path is driven once with the counts set to 0 just
-   before it and read just after.
+   before it and read just after (a replayed graph launches without its
+   wrappers: the served launches are each capture's launches times its
+   replays, `served_launches`).
 
 Kernel times are CUDA events around back-to-back calls of each wrapper
 (``ms``) and, where torch.profiler traces the card, the device time per
@@ -253,6 +274,19 @@ LADDER_SOLVE_ROUNDS = 12
 TOL_GOSSIP = 1e-5
 TOL_GOSSIP_Q = 5e-2
 GOSSIP_MILD_BOUND = 1.0
+# Serving (`repro_torch.serve`) over the main path's cuda plan: the
+# engine's default buckets (1, 8, 64) and max_wait, the reference's
+# DEFAULT_MIX (80% apply, 20% Jacobi solve at tau 0.5, 8 rounds); a
+# virtual-clock replay of SERVE_VIRTUAL Poisson requests at
+# SERVE_VIRTUAL_RATE; wall-clock replays at SERVE_RATES, SERVE_WALL
+# requests each (the protocol of the JAX package's
+# benchmarks/bench_serving.py, its rates 200 / 1000 / 4000 scaled to the
+# card), held to its --check-occupancy default at the top rate.
+SERVE_MAX_WAIT = 0.005
+SERVE_VIRTUAL, SERVE_VIRTUAL_RATE = 512, 20000.0
+SERVE_RATES, SERVE_WALL = (1000.0, 10000.0, 50000.0), 2000
+SERVE_MIN_OCCUPANCY = 2.0
+TRACE_REPLAYS = 3
 
 ROOT = Path(__file__).resolve().parent
 
@@ -609,13 +643,319 @@ def _sharded_checks(rank: int, world: int) -> dict:
     wires = _wire_checks(rank, world, op, op_n, wparts, nparts, dense, F, Y,
                          plan_n, kw_a)
     faulted = _fault_checks(rank, world, op, wparts, F)
+    serving = _serving_rank(rank, world, op, wparts["banded"], dense)
     return dict(rank=rank, halo_width=h, n_edges=n_edges, paths=rows,
-                wires=wires, faults=faulted,
+                wires=wires, faults=faulted, serving=serving,
                 exchange_only_ms_per_round=exchange_ms, profile=profile,
                 general=dict(offsets=list(offsets),
                              tile_widths=list(ginfo["partition_tile_widths"]),
                              edge_cut=ginfo["edge_cut"],
                              method=ginfo["partition_method"]))
+
+
+def _serving_rank(rank: int, world: int, op, parts, dense) -> dict:
+    """(b) of the serving phase, on one rank of the group: a virtual-clock
+    engine over `cuda_halo` (eager by the capture rule: its exchange goes
+    through the host) coalesces BATCH submits into one batch of K counted
+    rounds and `halo_bytes_per_apply` x BATCH bytes, whose rows equal the
+    direct call bit for bit and float64 dense within TOL_PATH; a plan
+    under FAULT_ARGS registered beside the clean one never shares its
+    batches, and its labels carry the reference's fault key; a wall-clock
+    engine over the group raises."""
+    from repro_torch.dist import FaultSpec, comm
+    from repro_torch.serve import (DEFAULT_BUCKETS, ServeEngine,
+                                   VirtualClock, WallClock)
+
+    dev = torch.device("cuda")
+    counters = _graph_counters()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    X = torch.randn(BATCH, N, generator=gen, device=dev)
+    plan = op.plan("cuda_halo", partition=parts)
+    check(plan.compiled("apply").mode == "eager",
+          "the sharded entries are eager by the capture rule")
+    eng = ServeEngine(plan, buckets=DEFAULT_BUCKETS, max_wait=SERVE_MAX_WAIT,
+                      clock=VirtualClock(), sync_results=False)
+    per_round = plan.info["exchange_collectives_per_round"]
+    torch.cuda.synchronize()
+    for k in counters:
+        k.launches = 0
+    with comm.counting() as rec:
+        t0 = time.perf_counter()
+        futs = [eng.submit(x) for x in X]
+        torch.cuda.synchronize()
+        first = (time.perf_counter() - t0) * 1e3
+    counts = {k.__name__: k.launches for k in counters if k.launches}
+    st = rec.stats(world, BATCH, per_round)
+    batches = [(b.bucket, b.occupancy) for b in eng.metrics.batches]
+    check(all(f.done() for f in futs) and batches == [(BATCH, BATCH)],
+          f"serving on rank {rank}: batches {batches}")
+    check(st.exchange_rounds == K
+          and st.total_bytes == BATCH * plan.info["halo_bytes_per_apply"],
+          f"serving on rank {rank}: {st.exchange_rounds} rounds, "
+          f"{st.total_bytes} bytes; expected {K} and "
+          f"{BATCH * plan.info['halo_bytes_per_apply']}")
+    check(counts == {"sliced_ell_spmv": K, "cheb_step": K - 1},
+          f"serving on rank {rank}: launches {counts}")
+    rows = torch.stack([f.result() for f in futs])
+    check(bool(torch.equal(rows, plan.compiled("apply")(X))),
+          f"serving on rank {rank}: served rows differ from the direct call")
+    err, rel = rel_err(rows, dense.apply(X.double()))
+    check(rel <= TOL_PATH, f"serving on rank {rank}: rel err {rel:.3e}")
+    try:
+        ServeEngine(plan, clock=WallClock())
+        wall = None
+    except ValueError as exc:
+        wall = str(exc)
+    check(wall is not None and "advance_to" in wall,
+          f"serving on rank {rank}: a wall-clock engine over the group must "
+          "raise")
+    faulty = op.plan("cuda_halo", partition=parts,
+                     fault_spec=FaultSpec(**FAULT_ARGS))
+    both = ServeEngine({"clean": plan, "faulty": faulty},
+                       buckets=DEFAULT_BUCKETS, max_wait=SERVE_MAX_WAIT,
+                       clock=VirtualClock(), sync_results=False)
+    mixed = [both.submit(x, op=("clean", "faulty")[i % 2])
+             for i, x in enumerate(X[:16])]
+    both.run_until_idle()
+    labels = sorted({b.key.label() for b in both.metrics.batches})
+    want = sorted([f"clean:apply:order={K}",
+                   f"faulty:apply:order={K}:faults="
+                   f"{faulty.info['fault_key']}"])
+    check(all(f.response.ok for f in mixed) and labels == want
+          and all(b.occupancy == 8 for b in both.metrics.batches),
+          f"serving on rank {rank}: clean and faulted batches {labels}")
+    return dict(batches=batches, rounds=st.exchange_rounds,
+                total_bytes=st.total_bytes, launches=counts,
+                max_abs_err=err, rel_err=rel, first_ms=first,
+                fault_labels=labels)
+
+
+def _serving_phase(plan, dense, smi: str):
+    """(a) of the serving phase, in this process, over the main path's
+    cuda plan: warm-up (every apply kind and the mix's Jacobi solve
+    captured at each bucket), replay vs eager vs device ms per kind and
+    bucket, one replay per kind under torch.profiler, a virtual-clock
+    replay of SERVE_VIRTUAL requests checked bit for bit against the
+    direct calls and against float64 dense, and the wall-clock replays.
+    Returns (the path record, the launches the replays made)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.dist.capture import kernel_counters
+    from repro_torch.serve import (DEFAULT_BUCKETS, ServeEngine,
+                                   VirtualClock, WallClock, poisson_arrivals,
+                                   replay_virtual, signal_for)
+    from repro_torch.serve.loadgen import DEFAULT_MIX
+
+    dev, eta = plan.device, plan.eta
+    _, _, method, skw = DEFAULT_MIX[1]
+    counters = kernel_counters()
+    entries = {"apply": plan.compiled("apply"),
+               "apply_adjoint": plan.compiled("apply_adjoint"),
+               "apply_gram": plan.compiled("apply_gram"),
+               "solve": plan.compiled_solve(method, **skw)}
+    eager = {"apply": plan.apply, "apply_adjoint": plan.apply_adjoint,
+             "apply_gram": plan.apply_gram,
+             "solve": lambda y: plan.solve(y, method, **skw).x}
+    expect = {"apply": {"cheb_sweep": 1}, "apply_adjoint":
+              {"sliced_ell_spmv": K}, "apply_gram": {"cheb_sweep": 1},
+              "solve": {"jacobi_sweep": 1}}
+    kernel = {"apply": "cheb_sweep_kernel", "apply_gram":
+              "cheb_sweep_kernel", "apply_adjoint": "sliced_ell_spmv_kernel",
+              "solve": "jacobi_sweep_kernel"}
+    for name, e in entries.items():
+        check(e.mode == "graph", f"serving entry {name}: mode {e.mode}; the "
+              "capture rule puts every kind of a cuda plan on the card in "
+              "a graph")
+    # -- warm-up: every capture, the solver setup -------------------------
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for k in counters:
+        k.launches = 0
+    t0 = time.perf_counter()
+    warm_eng = ServeEngine(plan, max_wait=SERVE_MAX_WAIT,
+                           clock=VirtualClock(), sync_results=False)
+    warm_eng.warm()
+    plan.bucketed_callables(DEFAULT_BUCKETS,
+                            kinds=("apply_adjoint", "apply_gram"),
+                            solve_specs=[(method, skw)], warm=True)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    warm_counts = {k.__name__: k.launches for k in counters if k.launches}
+    peak_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
+    held_mib = (torch.cuda.memory_allocated() - base) / 2**20
+    print(f"serving warm-up: {warm_s:.2f} s (host clock) for "
+          f"{len(DEFAULT_BUCKETS)} buckets x 4 entries, launches {warm_counts}"
+          f" (one eager run and one capture each); device memory above the "
+          f"plan: peak {peak_mib:.1f} MiB, held by the graphs after "
+          f"{held_mib:.1f} MiB ({smi})")
+    entry_rows = {}
+    for name, e in entries.items():
+        caps = {str(key[0][0]): n for key, n in e.captures.items()}
+        ms = {str(key[0][0]): round(v, 3) for key, v in e.capture_ms.items()}
+        for key, launched in e.launches.items():
+            check(launched == expect[name],
+                  f"serving entry {name} {key}: captured launches "
+                  f"{launched}, expected {expect[name]}")
+        entry_rows[name] = dict(mode=e.mode, captures=caps, capture_ms=ms,
+                                launches_per_replay=expect[name])
+        print(f"  entry {name}: mode={e.mode}, captures per B {caps}, "
+              f"warm-up + capture ms per B {ms}, launches per replay "
+              f"{expect[name]}")
+    # -- replay vs eager vs device, per kind and bucket --------------------
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    times, traces = [], {}
+    for name, e in entries.items():
+        for B in DEFAULT_BUCKETS:
+            shape = (B, eta, N) if name == "apply_adjoint" else (B, N)
+            x = torch.randn(shape, generator=gen, device=dev)
+            got, again, want = e(x), e(x), eager[name](x)
+            torch.cuda.synchronize()
+            check(bool(torch.equal(got, want)) and bool(torch.equal(again,
+                                                                    want))
+                  and got.data_ptr() != again.data_ptr(),
+                  f"serving {name} B={B}: a replay must equal the eager "
+                  "call bit for bit and return a new tensor")
+            replay_ms = time_ms(lambda: e(x), 20)
+            eager_ms = time_ms(lambda: eager[name](x), 10)
+            dev_ms = all_device_ms(lambda: e(x), 5)
+            times.append(dict(kind=name, B=B, replay_ms=replay_ms,
+                              eager_ms=eager_ms, device_ms=dev_ms))
+            print(f"  {name} B={B}: replay {replay_ms:.4f} ms, eager plan "
+                  f"call {eager_ms:.4f} ms (CUDA events), device "
+                  f"{dev_ms} ms per replay (profiler; copy-in and copy-out "
+                  f"included) ({smi})")
+            if B == DEFAULT_BUCKETS[-1]:
+                # CUPTI delivers a replayed graph's kernel records late and
+                # has dropped a single replay's (an H100 run traced only
+                # its copy-out): trace TRACE_REPLAYS replays in one session
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    for _ in range(TRACE_REPLAYS):
+                        e(x)
+                    torch.cuda.synchronize()
+                names = {}
+                for ev in prof.key_averages():
+                    if ev.device_type == DeviceType.CUDA:
+                        names[ev.key] = names.get(ev.key, 0) + ev.count
+                h2d = [k for k in names if "htod" in k.lower().replace(
+                    " ", "")]
+                check(any(kernel[name] in k for k in names) and not h2d,
+                      f"serving {name}: the trace of {TRACE_REPLAYS} replays "
+                      f"{names} must show {kernel[name]} and no "
+                      "host-to-device copy")
+                traces[name] = names
+                print(f"  {name} B={B}: {TRACE_REPLAYS} replays under "
+                      f"torch.profiler, kernels by count: {names}")
+    # -- a virtual-clock replay: bit for bit, float64 dense, exactly once --
+    events = poisson_arrivals(SERVE_VIRTUAL_RATE, SERVE_VIRTUAL, seed=SEED)
+    eng = ServeEngine(plan, max_wait=SERVE_MAX_WAIT, clock=VirtualClock(),
+                      sync_results=False)
+    dispatched = []
+    route = eng._callable
+
+    def recording(key, group):
+        fn = route(key, group)
+
+        def run(batch):
+            out = fn(batch)
+            dispatched.append((fn, batch, out))
+            return out
+
+        return run
+
+    eng._callable = recording
+    replays = {name: sum(e.replays.values()) for name, e in entries.items()}
+    futs = replay_virtual(eng, events, n=N)
+    torch.cuda.synchronize()
+    served_launches = {}
+    for name, e in entries.items():
+        for k, v in expect[name].items():
+            served_launches[k] = served_launches.get(k, 0) + v * (
+                sum(e.replays.values()) - replays[name])
+    s = eng.metrics.summary()
+    check(s["served_exactly_once"] and s["n_served"] == SERVE_VIRTUAL
+          and all(f.response.ok for f in futs.values()),
+          f"virtual replay: {s}")
+    for fn, batch, out in dispatched:
+        check(bool(torch.equal(fn(batch), out)),
+              "virtual replay: a served batch differs from its bucket's "
+              "direct compiled call")
+    outs = {out.untyped_storage().data_ptr() for _, _, out in dispatched}
+    check(all(f.result().untyped_storage().data_ptr() in outs
+              for f in futs.values()),
+          "virtual replay: a response is not a row of its batch")
+    by_kind = {}
+    for i, ev in enumerate(events):
+        by_kind.setdefault(ev.kind, []).append(i)
+    virtual_err = {}
+    for kind, idx in by_kind.items():
+        X = torch.from_numpy(np.stack([signal_for(events[i], N)
+                                       for i in idx])).to(dev)
+        got = torch.stack([futs[i].result() for i in idx])
+        ref = (dense.apply(X.double()) if kind == "apply"
+               else dense.solve(X.double(), method, **skw).x)
+        virtual_err[kind] = rel_check(got, ref, TOL_PATH,
+                                      f"virtual replay: {len(idx)} served "
+                                      f"{kind} rows vs f64 dense")
+    vsum = s
+    print(f"  virtual replay: {s['n_batches']} batches, mean occupancy "
+          f"{s['mean_batch_occupancy']:.2f}, padding waste "
+          f"{s['padding_waste']:.3f}, p99 {s['latency_ms']['p99']:.3f} ms "
+          f"(virtual clock); launches through the graphs {served_launches}")
+    del dispatched, futs
+    # -- wall-clock replays at the offered rates ----------------------------
+    wall = {}
+    for rate in SERVE_RATES:
+        events = poisson_arrivals(rate, SERVE_WALL, seed=SEED)
+        sigs = torch.from_numpy(np.stack([signal_for(ev, N)
+                                          for ev in events])).to(dev)
+        before = {name: sum(e.replays.values())
+                  for name, e in entries.items()}
+        eng = ServeEngine(plan, max_wait=SERVE_MAX_WAIT, clock=WallClock(),
+                          sync_results=True)
+        start = eng.clock.now()
+        for ev, sig in zip(events, sigs):
+            target = start + ev.t
+            while eng.clock.now() < target:
+                if not eng.poll():
+                    time.sleep(1e-5)
+            eng.submit(sig, kind=ev.kind, method=ev.method, **ev.kwargs())
+        while eng.pending_count:
+            eng.poll()
+            time.sleep(1e-5)
+        torch.cuda.synchronize()
+        s = eng.metrics.summary()
+        for name, e in entries.items():
+            for k, v in expect[name].items():
+                served_launches[k] += v * (sum(e.replays.values())
+                                           - before[name])
+        p99 = s["latency_ms"]["p99"]
+        check(s["served_exactly_once"] and s["n_served"] == SERVE_WALL
+              and p99 is not None and math.isfinite(p99),
+              f"wall-clock replay at {rate:g}/s: {s}")
+        wall[f"{rate:g}"] = s
+        print(f"  wall-clock replay at {rate:g} requests/s ({SERVE_WALL} "
+              f"requests): p50 {s['latency_ms']['p50']:.3f} ms, p99 "
+              f"{p99:.3f} ms, {s['signals_per_sec']:.1f} signals/s, mean "
+              f"occupancy {s['mean_batch_occupancy']:.2f}, padding waste "
+              f"{s['padding_waste']:.3f}, {s['n_batches']} batches ({smi})")
+        del sigs
+    top = wall[f"{SERVE_RATES[-1]:g}"]["mean_batch_occupancy"]
+    check(top >= SERVE_MIN_OCCUPANCY,
+          f"mean occupancy {top:.2f} < {SERVE_MIN_OCCUPANCY} at the top rate")
+    record = dict(name="serving (cuda plan, CUDA graphs)", warm_s=warm_s,
+                  warm_launches=warm_counts, graph_peak_mib=peak_mib,
+                  graph_held_mib=held_mib, entries=entry_rows, times=times,
+                  replay_traces=traces,
+                  virtual=dict(summary=vsum,
+                               max_abs_err={k: v[0] for k, v in
+                                            virtual_err.items()}),
+                  wall=wall, served_launches=served_launches)
+    return record, served_launches
 
 
 def _counted(call, counters, world, batch, per_round):
@@ -2137,6 +2477,13 @@ def main() -> int:
     rel_check(res16.x, ref.x, TOL_BF16, "solve[jacobi] (a) [bf16] vs f64 dense")
     del plan16, plan_n16, out16, res16, ref
 
+    # -- serving: the engine over this plan, one CUDA graph per bucket ------
+    serve_row, served_launches = _serving_phase(plan, dense, smi)
+    path_rows.append(serve_row)
+    for k, v in served_launches.items():
+        path_launches[k] += v
+    torch.cuda.empty_cache()
+
     # -- Algorithm 3: the wavelet lasso ---------------------------------------
     gamma = lasso.ista_step_size(op)
     res, counts = run_path(
@@ -2307,6 +2654,22 @@ def main() -> int:
           f"bound_touched_ms={coupling['bound_touched_ms']:.5f} (y over the "
           f"{coupling['touched_rows']} rows of the slices that hold one) "
           f"[{SHARD_LABEL}]")
+    # (b) of the serving phase: one engine per rank over cuda_halo
+    srv = [r["serving"] for r in ranks]
+    for r in srv:
+        for k, v in r["launches"].items():
+            path_launches[k] += v
+            sharded_launches[k] += v
+    print(f"serving over cuda_halo [{SHARD_LABEL}]: {BATCH} submits per "
+          f"rank made batches {srv[0]['batches']}, {srv[0]['rounds']} "
+          f"counted rounds, {srv[0]['total_bytes']} bytes (halo_bytes_per_"
+          f"apply x {BATCH}), rows equal to the direct call bit for bit, "
+          f"rel err max over ranks {max(r['rel_err'] for r in srv):.3e} "
+          f"(tol {TOL_PATH}); clean and faulted plans side by side gave the "
+          f"batches {srv[0]['fault_labels']}; first call "
+          f"{max(r['first_ms'] for r in srv):.1f} ms max over ranks")
+    path_rows.append(dict(name="serving over cuda_halo", label=SHARD_LABEL,
+                          ranks=srv))
     # the compressed wires, the faults and gossip (phases 2-5)
     exchange_launches, gossip_step = _report_exchange_phases(
         ranks, smi, path_rows, names)
@@ -2402,7 +2765,8 @@ def main() -> int:
                 "library_ms": r.get("library_ms"),
                 "device_ms": r["device_ms"],
                 "sharded_launches": sharded_launches[name],
-                "exchange_launches": exchange_launches[name], **extra}
+                "exchange_launches": exchange_launches[name],
+                "served_launches": served_launches.get(name, 0), **extra}
 
     step_row = dict(max_abs_err=max(err_tk, err_acc), ms=step_ms,
                     plain_ms=step_plain, bound_ms=step_b[0],
@@ -2455,13 +2819,13 @@ def main() -> int:
                  "src/repro/kernels/cheb_sweep.py:121",
                  bf16_rows["cheb_sweep"], scratch_dtype="bf16"),
              name="cheb_sweep_bf16", launches=bf16_launches["cheb_sweep"],
-             sharded_launches=0, exchange_launches=0),
+             sharded_launches=0, exchange_launches=0, served_launches=0),
         dict(row("jacobi_sweep", "jacobi_sweep.cu",
                  "src/repro/kernels/cheb_sweep.py:222",
                  bf16_rows["jacobi_sweep"], scratch_dtype="bf16"),
              name="jacobi_sweep_bf16",
              launches=bf16_launches["jacobi_sweep"], sharded_launches=0,
-             exchange_launches=0),
+             exchange_launches=0, served_launches=0),
     ]
     print(json.dumps({"paths": path_rows}))
     print(smi)

@@ -128,6 +128,11 @@ def approx_error_bound(
 # Operator application — Algorithm 1 / Eq. (17)
 # ---------------------------------------------------------------------------
 def _coeff_tensor(coeffs, like: Tensor) -> Tensor:
+    """`coeffs` in `like`'s dtype on its device: a table already there is
+    returned as it is (no copy), so a plan that keeps its tables on the
+    card makes no host-to-device copy per call."""
+    if isinstance(coeffs, Tensor):
+        return coeffs.to(dtype=like.dtype, device=like.device)
     return torch.as_tensor(np.asarray(coeffs), dtype=like.dtype,
                            device=like.device)
 
@@ -150,8 +155,9 @@ def cheb_apply(
     Returns (..., N) (single) or (..., eta, N) (union).  One matvec per
     Chebyshev order, as in Algorithm 1 lines 6-10.
     """
-    single = np.ndim(coeffs) == 1
-    c = torch.atleast_2d(_coeff_tensor(coeffs, x))
+    c = _coeff_tensor(coeffs, x)
+    single = c.ndim == 1
+    c = torch.atleast_2d(c)
     K = c.shape[1] - 1
     alpha = lmax / 2.0
 

@@ -25,7 +25,8 @@
   Chebyshev-accelerated Jacobi, parallel ARMA) behind `plan.solve`,
   running inside every backend via the `matvec_runner` primitive.
 """
-from . import comm, faults, gossip, partition, quantize, solvers
+from . import (capture, comm, faults, gossip, partition, quantize,
+               solvers)
 from .backends import available_backends, get_backend, register_backend
 from .comm import (CommStats, plan_comm_stats, solve_comm_stats,
                    verify_message_scaling)
@@ -38,7 +39,8 @@ from .solvers import METHODS, SolveResult, solve_plan
 __all__ = [
     "CSRMatrix", "CommStats", "DEGRADATIONS", "ExecutionPlan", "FaultSpec",
     "GeneralPartition", "GraphOperator", "METHODS", "OverfullSlotsError",
-    "SolveResult", "available_backends", "canonical_kwarg", "comm",
+    "SolveResult", "available_backends", "canonical_kwarg", "capture",
+    "comm",
     "community_graph_csr", "faults", "get_backend", "gossip", "partition",
     "partition_general", "plan_comm_stats", "quantize", "register_backend",
     "solve_comm_stats", "solve_plan", "solvers", "verify_message_scaling",

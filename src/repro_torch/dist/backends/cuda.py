@@ -14,8 +14,12 @@ and `apply_gram` send the whole K-order recurrence to the single-launch
 `cheb_sweep` kernel, guarded by the L2 footprint model with a logged
 per-order fallback (``sweep=False`` / ``l2_budget=`` at plan time
 control it); `apply_adjoint` runs one batched sliced-ELL SpMV launch per
-order.  ``sweep_dtype="bf16"`` runs both sweeps in their mixed-precision
-mode (the layout's bf16 values and bf16 iterates, f32 accumulation).  The
+order.  The coefficient tables (the union's and the Gram's) are moved to
+the device when the plan is built, so no call copies anything from the
+host and every plan method can be captured in a CUDA graph
+(`dist.capture`).  ``sweep_dtype="bf16"`` runs both sweeps in their
+mixed-precision mode (the layout's bf16 values and bf16 iterates, f32
+accumulation).  The
 plan's matvec is tagged with its Block-ELL structure
 (``_mv.block_ell``), its L2 budget and its sweep dtype, so that
 `ops.fused_cheb_recurrence` over it engages the sweep and `plan.solve`'s
@@ -60,8 +64,12 @@ def build(op, *, mesh=None, partition=None, device=None,
     n = L.shape[0]
     del L
     total = A.padded_n
-    coeffs = op.coeffs
     lmax = op.lmax
+    # the coefficient tables live on the device from here on: no call
+    # copies them from the host (which a captured CUDA graph could not)
+    coeffs = torch.as_tensor(op.coeffs, dtype=torch.float32, device=dev)
+    gram = torch.as_tensor(cheb.gram_coeffs(op.coeffs)[None],
+                           dtype=torch.float32, device=dev)
 
     def _pad(x) -> Tensor:
         return ops.pad_trailing(
@@ -90,8 +98,7 @@ def build(op, *, mesh=None, partition=None, device=None,
         return out[..., :n]
 
     def apply_gram(f) -> Tensor:
-        d = cheb.gram_coeffs(coeffs)
-        out = ops.fused_cheb_apply(A, _pad(f), d[None], lmax, sweep=sweep,
+        out = ops.fused_cheb_apply(A, _pad(f), gram, lmax, sweep=sweep,
                                    l2_budget=l2_budget,
                                    scratch_dtype=sweep_dtype)
         return out[..., 0, :n]

@@ -54,9 +54,16 @@ def canonical_kwarg(v) -> Any:
     return v
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to PyTorch yet (ROADMAP.md, queue 1: {item})")
+def canonical_solve_items(solve_kwargs: Dict[str, Any]):
+    """Sorted ``(name, canonical_kwarg(value))`` tuple for a kwargs dict.
+
+    This IS the kwargs part of the `compiled_solve` memo key;
+    `repro_torch.serve` builds its request-compatibility keys from the
+    same function, so "same compat key" and "same memoized entry" cannot
+    drift apart.
+    """
+    return tuple((k, canonical_kwarg(v))
+                 for k, v in sorted(solve_kwargs.items()))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,15 +115,134 @@ class ExecutionPlan:
     def message_counts(self, n_edges: int) -> dict:
         return self.op.message_counts(n_edges)
 
-    # later slices of the port -----------------------------------------------
+    # memoized serving entries ---------------------------------------------
+    def _entry_cache(self) -> Dict[Any, Any]:
+        """Per-plan memo of serving entries (frozen-dataclass __dict__
+        idiom, like the operator's coefficient cache)."""
+        return self.__dict__.setdefault("_compiled", {})
+
+    def _graph_pool(self):
+        """The graph memory pool every captured entry of this plan shares
+        (`dist.capture`); None where no entry captures."""
+        if self.device.type != "cuda":
+            return None
+        if "_pool" not in self.__dict__:
+            self.__dict__["_pool"] = torch.cuda.graph_pool_handle()
+        return self.__dict__["_pool"]
+
+    def _memo_tail(self):
+        # The memo is per-plan, but the exchange precision, partition
+        # identity and fault spec still join the key, as in the JAX
+        # package: plans that share a cache (copy/replace) must never
+        # serve each other's entries.
+        return (self.info.get("exchange_dtype", "f32"),
+                self.info.get("partition_fingerprint",
+                              self.info.get("partition", "banded")),
+                self.info.get("fault_key", "none"))
+
     def compiled(self, kind: str = "apply"):
-        _not_ported("ExecutionPlan.compiled", "item 9, serving")
+        """Memoized serving entry for a plan method (`dist.capture`).
+
+        ``plan.compiled("apply")`` returns THE SAME
+        :class:`~repro_torch.dist.capture.PlanEntry` on every call: on a
+        `cuda` plan on the card it captures the method once per (shape,
+        dtype) in a CUDA graph and replays it; elsewhere it calls the
+        method (``entry.mode``).  The counterpart of the JAX package's
+        memoized `jax.jit` wrapper.  kind: ``"apply"`` |
+        ``"apply_adjoint"`` | ``"apply_gram"``.
+        """
+        from .capture import PlanEntry, capture_mode
+
+        fns = {"apply": self.apply, "apply_adjoint": self.apply_adjoint,
+               "apply_gram": self.apply_gram}
+        if kind not in fns:
+            raise KeyError(f"unknown kind {kind!r}; available: "
+                           f"{sorted(fns)}")
+        key = (kind,) + self._memo_tail()
+        cache = self._entry_cache()
+        if key not in cache:
+            cache[key] = PlanEntry(fns[kind], capture_mode(self, kind),
+                                   self.device, pool=self._graph_pool(),
+                                   label=kind)
+        return cache[key]
 
     def compiled_solve(self, method: str = "chebyshev", **solve_kwargs):
-        _not_ported("ExecutionPlan.compiled_solve", "item 9, serving")
+        """Memoized Section-V solver entry: ``y -> x`` (or ``(x,
+        history)`` with ``history=True``).
 
-    def bucketed_callables(self, buckets, **kwargs):
-        _not_ported("ExecutionPlan.bucketed_callables", "item 9, serving")
+        Keyed per (method, solver kwargs), exactly as the JAX package
+        keys its jitted solver; array-valued kwargs key by value (bytes),
+        so every lookup re-hashes them: hold the returned entry in the
+        request loop when passing large arrays.  The entry captures (or
+        calls) ``plan.solve`` per (shape, dtype); the solver's setup
+        (diag(den(P)), rho, the device tables) is paid at its first call.
+        """
+        from .capture import PlanEntry, capture_mode
+
+        key = (("solve", method) + self._memo_tail()
+               + canonical_solve_items(solve_kwargs))
+        cache = self._entry_cache()
+        if key not in cache:
+            history = bool(solve_kwargs.get("history", False))
+
+            def run(y):
+                res = self.solve(y, method, **solve_kwargs)
+                return (res.x, res.history) if history else res.x
+
+            cache[key] = PlanEntry(
+                run, capture_mode(self, "solve", method, solve_kwargs),
+                self.device, pool=self._graph_pool(),
+                label=("solve", method) + canonical_solve_items(
+                    solve_kwargs))
+        return cache[key]
+
+    def bucketed_callables(self, buckets, kinds=("apply",), solve_specs=(),
+                           n: Optional[int] = None, dtype=None,
+                           warm: bool = False):
+        """Enumerate the memoized entries a serving loop dispatches onto.
+
+        Returns an ordered dict ``{(label, B): entry}`` where `label` is a
+        plan kind (``"apply"`` | ``"apply_adjoint"`` | ``"apply_gram"``)
+        or ``("solve", method, *canonical-kwargs)`` for each ``(method,
+        kwargs)`` pair in `solve_specs`; the entry takes one ``(B, N)``
+        stack (``(B, eta, N)`` for the adjoint).  Entries of one label are
+        ONE memoized entry (:meth:`compiled` / :meth:`compiled_solve`)
+        holding one capture per bucket.
+
+        ``warm=True`` runs each entry once on zeros of its bucket shape,
+        so every capture (and every solver setup) is paid before the first
+        request.  `n` defaults to the operator's dense-P dimension (pass
+        it for a closure P); dtype defaults to float32.
+        """
+        import collections
+
+        if n is None:
+            if callable(self.op.P):
+                raise ValueError(
+                    "bucketed_callables needs n= for a closure P")
+            n = int(self.op.P.shape[0])
+        dtype = dtype or torch.float32
+        buckets = tuple(sorted({int(b) for b in buckets}))
+        if not buckets or buckets[0] < 1:
+            raise ValueError(f"buckets must be positive ints, got {buckets}")
+        entries = collections.OrderedDict()
+        for kind in kinds:
+            fn = self.compiled(kind)
+            lead = (self.op.eta,) if kind == "apply_adjoint" else ()
+            for B in buckets:
+                entries[(kind, B)] = (fn, (B,) + lead + (int(n),))
+        for method, kw in solve_specs:
+            kw = dict(kw or {})
+            label = ("solve", method) + canonical_solve_items(kw)
+            fn = self.compiled_solve(method, **kw)
+            for B in buckets:
+                entries[(label, B)] = (fn, (B, int(n)))
+        out = collections.OrderedDict()
+        for (label, B), (fn, shape) in entries.items():
+            if warm:
+                fn(torch.zeros(shape, dtype=dtype, device=self.device))
+            out[(label, B)] = fn
+        return out
 
     # Section V solvers -----------------------------------------------------
     def solve(self, y, method: str = "chebyshev", **kwargs):

@@ -268,6 +268,17 @@ def _op_solver_cache(op) -> Dict[Any, Any]:
     return op.__dict__.setdefault("_solver_cache", {})
 
 
+def _device_table(op, key, make, device, dtype) -> Tensor:
+    """A setup table made by ``make()`` on the host, copied once per
+    operator to `device` and cast to `dtype`: a solve that runs again, or
+    is captured in a CUDA graph, reads it without a copy."""
+    cache = _op_solver_cache(op)
+    full = key + (device, dtype)
+    if full not in cache:
+        cache[full] = torch.as_tensor(make(), device=device).to(dtype)
+    return cache[full]
+
+
 def _resolve_den_diag(op, den, den_diag, device):
     if den_diag is not None:
         return _np(den_diag)
@@ -512,10 +523,11 @@ def _solve_chebyshev(plan, runner, y, num, den, K, history, l2_budget,
 
     def fn(mv, yl, c):
         mv = _with_budget(mv, l2_budget)
+        ct = _device_table(op, ("cheb_coeffs", num, den, K), lambda: c,
+                           yl.device, yl.dtype)
         if history:
-            ct = torch.as_tensor(c, dtype=yl.dtype, device=yl.device)
             return _cheb_partial_sums(mv, yl, ct, alpha)
-        return kops.fused_cheb_recurrence(mv, yl, c, lmax)[..., 0, :]
+        return kops.fused_cheb_recurrence(mv, yl, ct, lmax)[..., 0, :]
 
     info.update(matvecs_per_round=1, exchange_rounds=K, order=K)
     out = runner(fn, (y,), (coeffs,))
@@ -534,7 +546,11 @@ def _solve_jacobi(plan, runner, y, num, den, K, method, rho, den_diag, x0,
     right-hand side."""
     op = plan.op
     dd = _resolve_den_diag(op, den, den_diag, plan.device)
-    inv_d = torch.as_tensor(1.0 / dd, device=plan.device).to(y.dtype)
+    if den_diag is None:
+        inv_d = _device_table(op, ("inv_d", den), lambda: 1.0 / dd,
+                              plan.device, y.dtype)
+    else:
+        inv_d = torch.as_tensor(1.0 / dd, device=plan.device).to(y.dtype)
     deg_den = len(den) - 1
     deg_num = len(num) - 1
     if method == "cheb_jacobi":
@@ -566,6 +582,7 @@ def _solve_jacobi(plan, runner, y, num, den, K, method, rho, den_diag, x0,
 
     def fn(mv, yl, inv_dl, *rest):
         from ..kernels import ops as kops
+        from ..kernels.cheb_sweep import jacobi_table
 
         mv = _with_budget(mv, l2_budget)
         x0l = rest[0] if rest else None
@@ -580,10 +597,14 @@ def _solve_jacobi(plan, runner, y, num, den, K, method, rho, den_diag, x0,
         if A_local is not None and not history:
             ws = (_jacobi.cheb_jacobi_weights(rho, K)
                   if method == "cheb_jacobi" else _jacobi.jacobi_weights(K))
+            table = _device_table(
+                op, ("jacobi_table", den, ws.tobytes()),
+                lambda: jacobi_table(den, ws, "cpu"), b.device,
+                torch.float32)
             return kops.fused_jacobi_sweep(
                 A_local, b, inv_dl, den, ws, x0=x0l,
                 l2_budget=getattr(mv, "l2_budget", None),
-                scratch_dtype=getattr(mv, "sweep_dtype", None))
+                scratch_dtype=getattr(mv, "sweep_dtype", None), table=table)
 
         a_mv = _poly_matvec_protocol(mv, den)
         if method == "jacobi":

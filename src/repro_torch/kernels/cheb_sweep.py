@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -145,7 +146,10 @@ def cheb_sweep(S: SlicedELL, x: Tensor, coeffs, *, alpha: float,
     """Full K-order shifted-Chebyshev recurrence in one kernel launch.
 
     S: P's sliced-ELL layout; x: (..., n) with n the layout's padded
-    size; coeffs: (eta, K+1), K >= 1.  Returns (..., eta, n).  CPU
+    size; coeffs: (eta, K+1), K >= 1, host (copied to the card at each
+    launch) or a float32 tensor on x's device (read in place: a plan
+    keeps its tables there, so a captured launch copies nothing).
+    Returns (..., eta, n).  CPU
     tensors take the plain version; CUDA tensors launch
     ``csrc/cheb_sweep.cu`` (counted in ``cheb_sweep.launches``; the grid
     of the last launch is ``cheb_sweep.last_grid``).  scratch_dtype:
@@ -225,6 +229,16 @@ def jacobi_sweep_plain(S: SlicedELL, b: Tensor, inv_d: Tensor, weights,
     return torch.broadcast_to(x, torch.broadcast_shapes(b.shape, x0.shape))
 
 
+def jacobi_table(den, weights, device) -> Tensor:
+    """The f32 table one `jacobi_sweep` launch reads, on `device`: den's
+    coefficients (low degree first), then the (w_t, s_t) rows of
+    `weights`.  Built on the host and copied once; a caller that keeps it
+    passes it as ``jacobi_sweep(..., table=)``."""
+    ws = np.asarray(weights, dtype=np.float64)
+    return torch.tensor([float(c) for c in den] + ws.reshape(-1).tolist(),
+                        dtype=torch.float32).to(device)
+
+
 def _jacobi_lib() -> ctypes.CDLL:
     lib = _build.library("jacobi_sweep")
     for fn in (lib.jacobi_sweep_f32, lib.jacobi_sweep_bf16):
@@ -238,7 +252,8 @@ def _jacobi_lib() -> ctypes.CDLL:
 
 
 def jacobi_sweep(S: SlicedELL, b: Tensor, inv_d: Tensor, weights,
-                 x0: Tensor, *, den, scratch_dtype: str = "f32") -> Tensor:
+                 x0: Tensor, *, den, scratch_dtype: str = "f32",
+                 table: Optional[Tensor] = None) -> Tensor:
     """Whole (accelerated-)Jacobi solve of den(P) x = b in one launch.
 
     S: P's sliced-ELL layout; b / x0: (..., n) at the layout's padded
@@ -252,6 +267,8 @@ def jacobi_sweep(S: SlicedELL, b: Tensor, inv_d: Tensor, weights,
     ``jacobi_sweep.launches``; the grid of the last launch is
     ``jacobi_sweep.last_grid``).  scratch_dtype: "f32" or "bf16" (f32
     operands in, f32 x out either way; see the module docstring).
+    table: :func:`jacobi_table` of (den, weights) already on b's device,
+    read in place; None builds it (a host-to-device copy per launch).
     """
     sdt = check_scratch_dtype(scratch_dtype)
     den = tuple(float(c) for c in den)
@@ -280,8 +297,13 @@ def jacobi_sweep(S: SlicedELL, b: Tensor, inv_d: Tensor, weights,
     n_iters = ws.shape[0]
     if B == 0 or n_iters == 0:
         return x02.clone().reshape(full)
-    table = torch.tensor(list(den) + ws.reshape(-1).tolist(),
-                         dtype=torch.float32).to(b.device)
+    if table is None:
+        table = jacobi_table(den, ws, b.device)
+    elif (table.device != b.device or table.dtype != torch.float32
+          or table.shape != (len(den) + 2 * n_iters,)):
+        raise ValueError(f"table {tuple(table.shape)} {table.dtype} on "
+                         f"{table.device} is not jacobi_table(den, weights) "
+                         f"on {b.device}")
     tb = _signal_tile(B, scratch_dtype)
     size = -(-B // tb) * n * tb
     U, V = (torch.empty(size, dtype=b.dtype, device=b.device)

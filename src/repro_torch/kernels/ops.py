@@ -36,7 +36,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..core.chebyshev import _stateful_matvec
+from ..core.chebyshev import _coeff_tensor, _stateful_matvec
 from ..core.graph import BlockELL
 from .bcsr_spmv import sliced_ell_spmv
 from .cheb_step import cheb_step
@@ -123,7 +123,8 @@ def fused_cheb_sweep(
     """Phi_tilde x with the single-launch sweep.
 
     x: (..., padded_n) at A's Block-ELL padded size; coeffs: (eta, K+1)
-    (or (K+1,)).  Returns (..., eta, padded_n).  The whole K-order
+    (or (K+1,)), host or a tensor on x's device (used without a copy).
+    Returns (..., eta, padded_n).  The whole K-order
     recurrence is ONE `cheb_sweep` launch on A's sliced-ELL layout,
     guarded by :func:`cheb_sweep_l2_bytes` against `l2_budget` (default
     :data:`DEFAULT_SWEEP_L2_BUDGET`): a working set over the budget takes
@@ -134,7 +135,8 @@ def fused_cheb_sweep(
     """
     sdt = scratch_dtype or "f32"
     check_scratch_dtype(sdt)
-    c = np.atleast_2d(np.asarray(coeffs))
+    c = (torch.atleast_2d(coeffs) if isinstance(coeffs, Tensor)
+         else np.atleast_2d(np.asarray(coeffs)))
     eta, K1 = c.shape
     K = K1 - 1
     if K < 2:
@@ -183,8 +185,7 @@ def _cheb_recurrence_loop(matvec, x: Tensor, coeffs, lmax: float) -> Tensor:
     """The per-order recurrence loop (one matvec + one fused step per
     order), with the stateful-matvec protocol of
     `core.chebyshev._stateful_matvec`."""
-    c = torch.atleast_2d(torch.as_tensor(np.asarray(coeffs), dtype=x.dtype,
-                                         device=x.device))
+    c = torch.atleast_2d(_coeff_tensor(coeffs, x))
     K = c.shape[1] - 1
     alpha = float(lmax) / 2.0
 
@@ -230,7 +231,7 @@ def fused_cheb_apply(
     if sweep is None or sweep:
         return fused_cheb_sweep(A, x, coeffs, lmax, l2_budget=l2_budget,
                                 scratch_dtype=scratch_dtype)
-    return _per_order_cheb(A, x, np.atleast_2d(np.asarray(coeffs)), lmax)
+    return _per_order_cheb(A, x, coeffs, lmax)
 
 
 def jacobi_update(qx: Tensor, x: Tensor, x_prev: Tensor, y: Tensor,
@@ -296,6 +297,7 @@ def fused_jacobi_sweep(
     x0: Optional[Tensor] = None,
     l2_budget: Optional[int] = None,
     scratch_dtype: Optional[str] = None,
+    table: Optional[Tensor] = None,
 ) -> Tensor:
     """Whole (accelerated-)Jacobi solve of den(P) x = b, one launch.
 
@@ -310,7 +312,9 @@ def fused_jacobi_sweep(
     against `l2_budget` (default :data:`DEFAULT_SWEEP_L2_BUDGET`): a
     working set over the budget takes the per-round path (SpMV and
     `jacobi_step` launches, f32), logged at INFO.  scratch_dtype: None /
-    "f32" or "bf16", the sweep's mixed-precision mode.
+    "f32" or "bf16", the sweep's mixed-precision mode.  table: the
+    launch's `cheb_sweep.jacobi_table` of (den, weights), already on b's
+    device (the solvers keep one per operator); None builds it here.
     """
     sdt = scratch_dtype or "f32"
     check_scratch_dtype(sdt)
@@ -334,7 +338,7 @@ def fused_jacobi_sweep(
         out = _per_round_jacobi(A, bp, invdp, den, ws, x0p)
     else:
         out = jacobi_sweep(S, bp, invdp, ws, x0p, den=den,
-                           scratch_dtype=sdt)
+                           scratch_dtype=sdt, table=table)
     return out[..., :n_logical]
 
 

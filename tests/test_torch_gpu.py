@@ -7,7 +7,10 @@ at the plans' boundary; the 1-shard `cuda_halo` plan against the `cuda`
 plan; the SpMV's rectangular, accumulating launch on a general
 partition's couplings, and two calls of a 1-shard general plan bit for
 bit; the wire codec on the card byte for byte the CPU's, and the faulted
-sharded apply (2 gloo ranks on the card) equal to the CPU's.
+sharded apply (2 gloo ranks on the card) equal to the CPU's; the serving
+entries (`plan.compiled`, one CUDA graph per bucket) equal to the eager
+plan calls bit for bit, captured once per bucket, with no host-to-device
+copy after plan build.
 
 They carry the `gpu` marker and skip without a card (decided inside the
 `cuda` fixture, never at import).  The machine with the card has no JAX,
@@ -677,3 +680,83 @@ def test_faulted_apply_on_the_card_equals_cpu(cuda, tmp_path):
             rec = json.load(f)
         for key, rel in rec.items():
             assert rel <= FAULT_TOL, (r, key, rel)
+
+
+# ---------------------------------------------------------------------------
+# Serving: plan entries captured as one CUDA graph per (label, bucket)
+# ---------------------------------------------------------------------------
+SERVE_KINDS = ["apply", "apply_adjoint", "apply_gram", "solve"]
+
+
+@pytest.fixture(scope="module")
+def serve_plan(solver_graph):
+    L, lmax = solver_graph.laplacian(), solver_graph.lambda_max_bound()
+    op = GraphOperator(P=L, multipliers=twav.sgwt_multipliers(lmax, J=6),
+                       lmax=lmax, K=20)
+    return op.plan("cuda")
+
+
+def _serve_entry(plan, kind):
+    if kind == "solve":
+        return (plan.compiled_solve("jacobi", tau=0.5, n_iters=8),
+                lambda y: plan.solve(y, "jacobi", tau=0.5, n_iters=8).x)
+    return plan.compiled(kind), getattr(plan, kind)
+
+
+@pytest.mark.parametrize("kind", SERVE_KINDS)
+def test_captured_entry_equals_eager_call(serve_plan, kind):
+    """A captured entry (graph mode by the static rule) at B = 1, 8, 64
+    equals the eager plan call bit for bit; two replays hand out tensors
+    that do not alias; the capture recorded the kernels' launches."""
+    entry, eager = _serve_entry(serve_plan, kind)
+    assert entry.mode == "graph"
+    n, eta = 1000, serve_plan.eta
+    for B in (1, 8, 64):
+        shape = (B, eta, n) if kind == "apply_adjoint" else (B, n)
+        x = torch.randn(shape, device="cuda")
+        first, second = entry(x), entry(x)
+        want = eager(x)
+        torch.cuda.synchronize()
+        assert torch.equal(first, want) and torch.equal(second, want)
+        assert first.data_ptr() != second.data_ptr()
+        second.add_(1.0)                  # a caller's write stays its own
+        assert torch.equal(entry(x), want)
+        key = (shape, torch.float32)
+        assert entry.captures[key] == 1 and entry.launches[key]
+
+
+def test_interleaved_buckets_capture_once(serve_plan):
+    """Ten interleaved calls at B = 1 and 8 capture once per bucket."""
+    entry = serve_plan.compiled("apply_gram")
+    xs = {B: torch.randn(B, 1000, device="cuda") for B in (1, 8)}
+    for _ in range(10):
+        for B, x in xs.items():
+            entry(x)
+    torch.cuda.synchronize()
+    for B in (1, 8):
+        assert entry.captures[((B, 1000), torch.float32)] == 1
+        assert entry.replays[((B, 1000), torch.float32)] >= 10
+
+
+@pytest.mark.parametrize("kind", SERVE_KINDS)
+def test_no_host_to_device_copy_after_plan_build(serve_plan, kind):
+    """The coefficient and weight tables are on the card from plan build
+    (the solve's after its first call): an eager call copies nothing from
+    the host."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _, eager = _serve_entry(serve_plan, kind)
+    shape = (8, serve_plan.eta, 1000) if kind == "apply_adjoint" \
+        else (8, 1000)
+    x = torch.randn(shape, device="cuda")
+    eager(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eager(x)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA]
+    assert names, "the profiler saw no device work"
+    assert not [k for k in names if "htod" in k.lower().replace(" ", "")]

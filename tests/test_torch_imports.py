@@ -43,7 +43,12 @@ def test_port_files_found():
     # the compressed exchange, the link faults and gossip
     for module in ("dist/quantize.py", "dist/faults.py", "dist/gossip.py"):
         assert f"src/repro_torch/{module}" in names, module
-    assert len(names) >= 42
+    # serving: the engine and the captured plan entries
+    for module in ("serve/__init__.py", "serve/engine.py", "serve/request.py",
+                   "serve/batching.py", "serve/clock.py", "serve/metrics.py",
+                   "serve/loadgen.py", "dist/capture.py"):
+        assert f"src/repro_torch/{module}" in names, module
+    assert len(names) >= 50
 
 
 @pytest.mark.parametrize("path", FILES,

@@ -137,12 +137,13 @@ def test_options_not_ported_raise(ops120):
                     sweep_dtype="bf16").info["sweep_dtype"] == "bf16"
     plan = top.plan("cuda", device="cpu")
     # solve and solve_lasso are ported (tests/test_torch_solvers.py,
-    # tests/test_torch_lasso_ssl.py); the serving surface is not
-    for call in (lambda: plan.compiled("apply"),
-                 lambda: plan.compiled_solve("jacobi"),
-                 lambda: plan.bucketed_callables((1, 2))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    # tests/test_torch_lasso_ssl.py), and so is the serving surface
+    # (tests/test_torch_plan_cache.py, tests/test_torch_serving.py): on the
+    # CPU its entries call the plan (eager)
+    assert plan.compiled("apply").mode == "eager"
+    assert plan.compiled_solve("jacobi").mode == "eager"
+    assert set(plan.bucketed_callables((1, 2))) == {("apply", 1),
+                                                   ("apply", 2)}
     with pytest.raises(TypeError):
         top.plan("cuda", device="cpu", use_pallas=True)
 
