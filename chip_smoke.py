@@ -42,7 +42,11 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    FFMA flash kernel and is held against the materialised attention.
    The tensor-core kernel is held against its plain version at the layer
    shape and a ragged S = 1000, the FFMA kernel at a small and a ragged
-   f32 shape; `scaled_dot_product_attention` is timed beside each as the
+   f32 shape and at head dims 80 and 256 (B 1, 8 / 2 heads, S = 1000, f32),
+   and the FFMA kernel's ragged shape is read for what holds it (registers,
+   shared memory and blocks per SM, its grid against the SMs, its time at
+   S = 4096, the SM clock while it runs);
+   `scaled_dot_product_attention` is timed beside each as the
    library yardstick (the port never calls it);
 8. drives the sharded apply (``plan("cuda_halo")`` and friends) at the
    same n, K and batch: a 1-shard ``cuda_halo`` plan without a process
@@ -127,7 +131,9 @@ device time of all its kernels).  It prints one JSON line
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
 Any failed check raises and exits non-zero without the last line.  It needs no network,
 imports nothing of JAX, and has no CPU fallback: without a card (or
-outside a checkout) it exits with code 2.
+outside a checkout) it exits with code 2.  Every process it starts is
+waited for (the spawn's resource tracker too), and it checks that none
+is left before it prints its results.
 """
 from __future__ import annotations
 
@@ -135,6 +141,7 @@ import json
 import math
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 from unittest import mock
@@ -189,6 +196,10 @@ TOL_FLASH = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # statistic sees that at FLASH_FAULT_MARGIN times the limit.
 TOL_FLASH_ROW = 2e-2
 FLASH_FAULT_MARGIN = 10
+# Device ms of the FFMA flash kernel at the ragged f32 shape before its
+# redesign, printed beside this run's time (not measured here: PERF.md's
+# kernel table, NVIDIA H100 80GB HBM3, 700 W).
+FLASH_EARLIER_DEVICE_MS = {"ragged_f32": 0.2942}
 # LM logits / loss against the same bf16 forward through the plain f32
 # attention: the two attentions round their outputs to bf16 after summing
 # in other orders, so single elements differ by a bf16 ulp, and 30
@@ -441,6 +452,29 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def _stop_resource_tracker() -> None:
+    """Stop and reap the resource tracker that a spawn starts: the
+    multiprocessing module keeps one per parent, running until the parent
+    exits, so without this it would outlive the script by a moment."""
+    from multiprocessing import resource_tracker
+    resource_tracker._resource_tracker._stop()
+
+
+def _children() -> list:
+    """The command lines of this process's children that are not reaped
+    yet, running or not."""
+    pids = [pid for f in Path("/proc/self/task").glob("*/children")
+            for pid in f.read_text().split()]
+    out = []
+    for pid in pids:
+        try:
+            cmd = Path(f"/proc/{pid}/cmdline").read_bytes()
+        except OSError:
+            cmd = b""
+        out.append(pid + ": " + cmd.replace(b"\0", b" ").decode().strip())
+    return out
 
 
 def rel_check(got, ref, tol: float, what: str):
@@ -1651,6 +1685,82 @@ def _print_sharded_path(row: dict, agg: dict, batch: int) -> None:
           f"{agg['rel_err_max']:.3e} (tol {TOL_PATH})")
 
 
+def _ffma_bounds(shape, long_s: int = 4096) -> dict:
+    """What holds the FFMA flash kernel at the causal f32 `shape` (B, Hq,
+    Hkv, S, D): the instance's registers, shared memory and resident blocks
+    per SM (the CUDA runtime's); its grid against the SMs (the K tiles of
+    the heaviest block, after the kernel's split of long q tiles, against
+    the mean per block slot); the same kernel at B = 2 and S = `long_s`,
+    where no short tail of unequal causal blocks is left; and the SM clock
+    and power while `shape` runs back to back."""
+    from repro_torch.kernels.flash_attention import (ffma_kernel_info,
+                                                     ffma_split,
+                                                     flash_attention_ffma)
+    b, hq, hkv, S, d = shape
+    info = ffma_kernel_info(torch.float32, d)
+    split = ffma_split(torch.float32, d, b, hq, S, S)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    bq, bk = info["q_rows"], info["k_rows"]
+    tiles = [min(-(-S // bk), (min(qt * bq + bq, S) - 1) // bk + 1)
+             for qt in range(-(-S // bq))]
+    slots = sms * info["blocks_per_sm"]
+    grid = dict(sms=sms, slots=slots, q_tiles=b * hq * len(tiles),
+                blocks=split["blocks"], chunk=split["chunk"],
+                heaviest_q_tile_tiles=max(tiles),
+                heaviest_block_tiles=min(max(tiles), split["chunk"]),
+                mean_tiles_per_slot=b * hq * sum(tiles) / slots)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def qkv(batch, length):
+        return (torch.randn(batch, hq, length, d, generator=gen,
+                            device="cuda"),
+                torch.randn(batch, hkv, length, d, generator=gen,
+                            device="cuda"),
+                torch.randn(batch, hkv, length, d, generator=gen,
+                            device="cuda"))
+
+    q, k, v = qkv(2, long_s)
+    dev = device_ms(lambda: flash_attention_ffma(q, k, v, causal=True), 3,
+                    "flash_attention_ffma_kernel")
+    b_ms, _ = bound(0, 4 * 2 * hq * d * long_s * (long_s + 1) // 2)
+    long = dict(shape=[2, hq, hkv, long_s, d], device_ms=dev, bound_ms=b_ms,
+                bound_share=b_ms / dev if dev else None)
+    del q, k, v
+    q, k, v = qkv(b, S)
+    # one-shot queries from a thread while this thread keeps the card busy:
+    # each query is waited for, so no process outlives the phase
+    samples, stop = [], threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            out = subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                 "--format=csv,noheader,nounits"],
+                capture_output=True, text=True, timeout=30, check=True)
+            samples.append(tuple(float(x) for x in
+                                 out.stdout.splitlines()[0].split(",")))
+            time.sleep(0.1)
+
+    sampler = threading.Thread(target=sample)
+    for _ in range(50):
+        flash_attention_ffma(q, k, v, causal=True)
+    sampler.start()
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < 1.5:
+            for _ in range(50):
+                flash_attention_ffma(q, k, v, causal=True)
+            torch.cuda.synchronize()
+    finally:
+        stop.set()
+        sampler.join()
+    clocks = dict(samples=len(samples),
+                  sm_mhz_min=min((c for c, _ in samples), default=None),
+                  sm_mhz_max=max((c for c, _ in samples), default=None),
+                  power_w_max=max((w for _, w in samples), default=None))
+    return dict(instance=info, grid=grid, long=long, while_running=clocks)
+
+
 def _profile_call(fn, arg, groups=None):
     """One call of fn(arg) under torch.profiler: the device time of its
     kernels and copies by group (the first of `groups`, name ->
@@ -2150,8 +2260,9 @@ def main() -> int:
     del bj, x0j, sweep_cases, got, want, x
 
     # flash attention: the tensor-core kernel at the LM layer shape and a
-    # ragged S (bf16), the FFMA kernel at a small and a ragged f32 shape,
-    # each against its plain version; each kernel timed at one of them
+    # ragged S (bf16), the FFMA kernel at a small and a ragged f32 shape and
+    # at head dims 80 and 256 (padded to its widths 128 and 256), each
+    # against its plain version; each kernel timed at one of them
     cfg = get_config(LM_ARCH)
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     flash_cases = {
@@ -2162,9 +2273,12 @@ def main() -> int:
         "small_f32": (2, 4, 2, 256, 64, torch.float32, flash_attention_ffma),
         "ragged_f32": (1, hq, hkv, 1000, hd, torch.float32,
                        flash_attention_ffma),
+        "d80_f32": (1, 8, 2, 1000, 80, torch.float32, flash_attention_ffma),
+        "d256_f32": (1, 8, 2, 1000, 256, torch.float32,
+                     flash_attention_ffma),
     }
     timed = {"layer": ("flash_attention_wgmma_kernel", PEAK_BF16_FLOPS),
-             "ragged_f32": ("flash_attention_kernel", PEAK_F32_FLOPS)}
+             "ragged_f32": ("flash_attention_ffma_kernel", PEAK_F32_FLOPS)}
     flash_rows = {}
     for case, (b, h1, h2, S, d, dt, kern) in flash_cases.items():
         q = randn(b, h1, S, d).to(dt)
@@ -2244,9 +2358,23 @@ def main() -> int:
                     f" library_ms(scaled_dot_product_attention)={lib_ms:.4f}"
                     f" library_device_ms={lib_dev} bound_ms={b_ms:.5f} "
                     f"({b_by}, {row['dtype']} peak)")
+            if dev_ms:
+                row["bound_share"] = b_ms / dev_ms
+                msg += f" bound/device={b_ms / dev_ms:.1%}"
+            if case in FLASH_EARLIER_DEVICE_MS:
+                msg += (f" earlier device_ms="
+                        f"{FLASH_EARLIER_DEVICE_MS[case]} (before the FFMA "
+                        f"kernel's redesign; not measured here)")
         flash_rows[case] = row
         print(msg)
     del q, k, v, got, want
+    fb = flash_rows["ragged_f32"]["bounds"] = _ffma_bounds(
+        flash_cases["ragged_f32"][:5])
+    print(f"kernel flash_attention_ffma ragged_f32 bounds: instance "
+          f"{fb['instance']}; grid {fb['grid']}; at B=2, S=4096 device_ms="
+          f"{fb['long']['device_ms']} bound_ms={fb['long']['bound_ms']:.4f}"
+          f" bound/device={fb['long']['bound_share']}; while running "
+          f"{fb['while_running']}")
 
     # -- counted paths ----------------------------------------------------------
     counters = (sliced_ell_spmv, sliced_ell_spmv_accumulate, cheb_step,
@@ -2567,7 +2695,11 @@ def main() -> int:
               f"{tuple(parts_c.blocks.shape)}")
         del csr_c, parts_c
         t0 = time.perf_counter()
-        mp.spawn(_sharded_rank, args=(SHARDS, tmp), nprocs=SHARDS, join=True)
+        try:
+            mp.spawn(_sharded_rank, args=(SHARDS, tmp), nprocs=SHARDS,
+                     join=True)
+        finally:
+            _stop_resource_tracker()
         ranks = []
         for r in range(SHARDS):
             with open(Path(tmp) / f"rank{r}.json") as f:
@@ -2827,6 +2959,9 @@ def main() -> int:
              launches=bf16_launches["jacobi_sweep"], sharded_launches=0,
              exchange_launches=0, served_launches=0),
     ]
+    left = _children()
+    check(not left, f"processes this script started are still running: "
+          f"{left}")
     print(json.dumps({"paths": path_rows}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -18,7 +18,8 @@ Both take any Sq and Sk (the TPU kernel asked for multiples of its
 128-row blocks) and read q, k and v through their strides (last axis
 contiguous), so the head-split views of the fused QKV projection reach
 them without a copy.  The FFMA kernel computes in f32 from bf16 or f32
-inputs (no TF32), D in {16, 32, 64, 128}.  The tensor-core kernel keeps
+inputs (no TF32) at any head dim the JAX kernel takes up to 256
+(:func:`ffma_width`).  The tensor-core kernel keeps
 m, l and O in f32 but rounds the probabilities P to bf16 before P V (the
 JAX kernel keeps P in f32; ROADMAP section 3 records the difference).
 
@@ -30,6 +31,7 @@ raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -39,12 +41,23 @@ from . import _build
 
 Tensor = torch.Tensor
 
-#: Head dimensions the f32 FFMA kernel is instantiated for.
-HEAD_DIMS = (16, 32, 64, 128)
+#: Widths the f32 FFMA kernel is instantiated for (:func:`ffma_width`).
+FFMA_WIDTHS = (16, 32, 64, 128, 256)
 #: Head dimensions of the bf16 tensor-core kernel.
 WGMMA_HEAD_DIMS = (64, 128)
 #: The score of a masked (row, column) pair, as in the TPU kernel.
 NEG_INF = -1e30
+
+
+def ffma_width(d: int) -> int:
+    """The instantiated width the FFMA kernel runs head dim `d` on: the
+    smallest of :data:`FFMA_WIDTHS` that holds it (its columns past `d`
+    are zeros in shared memory and are not written out).  Raises
+    ValueError outside 1 <= d <= 256."""
+    if not 1 <= d <= FFMA_WIDTHS[-1]:
+        raise ValueError(f"the FFMA flash kernel takes head dims 1 to "
+                         f"{FFMA_WIDTHS[-1]}, got {d}")
+    return next(w for w in FFMA_WIDTHS if w >= d)
 
 
 def _check_shapes(q: Tensor, k: Tensor, v: Tensor) -> None:
@@ -91,12 +104,21 @@ def _lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
                        + [ctypes.c_int] * 5
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int]
+                       + [ctypes.c_void_p] * 3)
+        fn = lib.flash_attention_fwd_split
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_int] * 7
+                       + [ctypes.POINTER(ctypes.c_longlong)])
         fn = lib.flash_attention_wgmma_fwd
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
                        + [ctypes.c_int] * 5
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn = lib.flash_attention_ffma_info
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int, ctypes.c_int,
+                       ctypes.POINTER(ctypes.c_int)]
     return lib
 
 
@@ -107,6 +129,10 @@ def _check_cuda(q: Tensor, k: Tensor, v: Tensor) -> None:
     _check_shapes(q, k, v)
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must share one device")
+
+
+def _ptr(t: Optional[Tensor]) -> Optional[int]:
+    return t.data_ptr() if t is not None else None
 
 
 def _strides(*ts: Tensor):
@@ -175,9 +201,14 @@ def flash_attention_ffma(q: Tensor, k: Tensor, v: Tensor, *,
                          causal: bool = True,
                          scale: Optional[float] = None) -> Tensor:
     """The f32 FFMA kernel (``flash_attention_fwd``): f32 or bf16 q, k, v,
-    D in :data:`HEAD_DIMS`, f32 arithmetic on the CUDA cores (no TF32).
-    Returns q's shape and dtype.  CPU tensors take the plain version;
-    counted in ``flash_attention_ffma.launches``."""
+    any head dim D from 1 to 256 (:func:`ffma_width`), f32 arithmetic on
+    the CUDA cores (no TF32).  Returns q's shape and dtype.  Views whose
+    rows do not start on 16 bytes are read element by element; a last axis
+    that is not contiguous is copied first.  When the grid would load the
+    card's SMs unevenly, the kernel splits the K range of the longest q
+    tiles over several blocks and merges them in the same launch (scratch
+    sized by ``flash_attention_fwd_split``).  CPU tensors take the plain
+    version; counted in ``flash_attention_ffma.launches``."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
     _check_cuda(q, k, v)
@@ -187,26 +218,74 @@ def flash_attention_ffma(q: Tensor, k: Tensor, v: Tensor, *,
                         f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    ffma_width(d)   # raises past 256
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     if b == 0 or hq == 0 or sq == 0:
         return out
-    if b * hq * math.ceil(sq / 64) >= 2**31:
-        raise ValueError("too many (batch, head, q tile) blocks for one "
-                         "launch")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    bf16, causal = int(q.dtype == torch.bfloat16), int(bool(causal))
     lib = _lib()
     with torch.cuda.device(q.device):
+        chunk, blocks, n_counters, n_partials = _split(
+            q.device.index, bf16, d, b, hq, sq, sk, causal)
+        if blocks >= 2**31:
+            raise ValueError("too many blocks for one launch")
+        counters = partials = None
+        if n_counters:
+            counters = torch.zeros(n_counters, dtype=torch.int32,
+                                   device=q.device)
+            partials = torch.empty(n_partials, dtype=torch.float32,
+                                   device=q.device)
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.flash_attention_fwd(
-            int(q.dtype == torch.bfloat16), d, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), out.data_ptr(), _strides(q, k, v, out), b, hq,
-            hkv, sq, sk, float(scale), int(bool(causal)), stream)
+            bf16, d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), _strides(q, k, v, out), b, hq, hkv, sq, sk,
+            float(scale), causal, chunk, _ptr(counters), _ptr(partials),
+            stream)
     _build.check(lib, err, "flash_attention_ffma")
     flash_attention_ffma.launches += 1
     return out
+
+
+@functools.lru_cache(maxsize=256)
+def _split(device: int, bf16: int, d: int, b: int, hq: int, sq: int,
+           sk: int, causal: int) -> tuple:
+    lib = _lib()
+    out = (ctypes.c_longlong * 4)()
+    with torch.cuda.device(device):
+        err = lib.flash_attention_fwd_split(bf16, d, b, hq, sq, sk, causal,
+                                            out)
+    _build.check(lib, err, "flash_attention_ffma (split)")
+    return tuple(out)
+
+
+def ffma_split(dtype: torch.dtype, d: int, b: int, hq: int, sq: int,
+               sk: int, causal: bool = True) -> dict:
+    """How the FFMA kernel splits a call's work on the current card
+    (``flash_attention_fwd_split``, memoised per shape): ``chunk`` K tiles
+    a block, the ``blocks`` it launches, and the ``counters`` (int32,
+    zeroed) and ``partials`` (f32) of scratch through which split q tiles
+    merge (0 when none is split).  A grid too small or too uneven for the
+    card's SMs splits the K range of its longest q tiles."""
+    out = _split(torch.cuda.current_device(), int(dtype == torch.bfloat16),
+                 d, b, hq, sq, sk, int(bool(causal)))
+    return dict(zip(("chunk", "blocks", "counters", "partials"), out))
+
+
+def ffma_kernel_info(dtype: torch.dtype, d: int) -> dict:
+    """The FFMA kernel instance that serves head dim `d` for f32 or bf16
+    inputs, as the CUDA runtime reports it (cudaFuncGetAttributes and the
+    occupancy calculator, on the current card): registers per thread,
+    shared memory bytes, resident blocks per SM, q rows per block and keys
+    per K / V tile."""
+    width = ffma_width(d)
+    lib = _lib()
+    out = (ctypes.c_int * 5)()
+    err = lib.flash_attention_ffma_info(int(dtype == torch.bfloat16), d, out)
+    _build.check(lib, err, "flash_attention_ffma_info")
+    return dict(width=width, registers=out[0], smem_bytes=out[1],
+                blocks_per_sm=out[2], q_rows=out[3], k_rows=out[4])
 
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,

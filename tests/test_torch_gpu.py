@@ -1,7 +1,8 @@
 """Card-only tests: each Hopper kernel against its plain PyTorch version on
 a CUDA device, and the main path, the Section-V solvers, the lasso and SSL
 against float64 dense; both flash-attention kernels (tensor cores for
-bf16 at D = 64 and 128, FFMA otherwise) and the reduced dense LM forward
+bf16 at D = 64 and 128, FFMA otherwise, at every head dim to 256, on
+strided and unaligned views) and the reduced dense LM forward
 through them; the bf16 instances of the two sweeps; float64 signals cast
 at the plans' boundary; the 1-shard `cuda_halo` plan against the `cuda`
 plan; the SpMV's rectangular, accumulating launch on a general
@@ -372,7 +373,19 @@ def _flash_kernel(dtype, d):
     (1, 2, 2, 128, 128, 64), (2, 4, 2, 256, 256, 64), (1, 8, 1, 256, 256, 128),
     (2, 4, 2, 100, 100, 16), (1, 6, 3, 1000, 1000, 32), (1, 4, 1, 64, 300, 128),
     (2, 24, 2, 512, 512, 128), (1, 2, 1, 300, 200, 64),
-    (1, 3, 1, 1000, 1000, 128), (2, 12, 1, 129, 383, 128)])
+    (1, 3, 1, 1000, 1000, 128), (2, 12, 1, 129, 383, 128),
+    # every FFMA width and head dims padded to one, S on both sides of the
+    # 64-key and 128-row tile edges (64 rows and 32 keys at width 256),
+    # Sq != Sk both ways, GQA groups 1, 2 and 12
+    (1, 2, 2, 63, 63, 16), (2, 4, 2, 64, 65, 20), (1, 24, 2, 65, 64, 32),
+    (1, 12, 1, 127, 129, 64), (1, 4, 2, 129, 127, 80),
+    (2, 2, 1, 127, 65, 96), (1, 24, 2, 129, 300, 128),
+    (1, 4, 4, 65, 63, 256), (1, 12, 1, 200, 129, 256),
+    (1, 2, 1, 33, 31, 256), (1, 2, 2, 300, 64, 20),
+    # grids too small for the card: the K range of a q tile split over
+    # blocks and merged in the launch
+    (1, 1, 1, 2000, 2000, 128), (1, 2, 1, 1500, 700, 256),
+    (2, 1, 1, 700, 1500, 80)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(cuda, b, hq, hkv, sq, sk, d,
@@ -395,7 +408,7 @@ def test_flash_attention_kernel_matches_plain(cuda, b, hq, hkv, sq, sk, d,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 80, 128])
 def test_flash_attention_kernel_reads_strided_heads(cuda, dtype, d):
     """The (B, S, H, hd) views of a fused projection, and head slices of a
     larger (B, H, S, hd) tensor, give the contiguous result."""
@@ -423,6 +436,50 @@ def test_flash_attention_kernel_reads_strided_heads(cuda, dtype, d):
         if dtype == torch.bfloat16:
             assert _row_scaled_err(got, q, k, v, causal=True,
                                    scale=0.1) <= 2e-2
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_ffma_kernel_takes_bf16_at_tensor_core_dims(cuda, d, causal):
+    """The FFMA kernel's own bf16 instances at the tensor-core kernel's
+    head dims (`flash_attention` sends a non-positive scale there)."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q = torch.randn(1, 8, 200, d, generator=gen, device=cuda).bfloat16()
+    k = torch.randn(1, 2, 200, d, generator=gen, device=cuda).bfloat16()
+    v = torch.randn(1, 2, 200, d, generator=gen, device=cuda).bfloat16()
+    for kw in ({}, {"scale": -0.05}):
+        before = flash_attention_ffma.launches
+        got = (flash_attention if kw else flash_attention_ffma)(
+            q, k, v, causal=causal, **kw)
+        want = flash_attention_plain(q, k, v, causal=causal, **kw)
+        torch.cuda.synchronize()
+        assert flash_attention_ffma.launches == before + 1
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=2e-2)
+        assert _row_scaled_err(got, q, k, v, causal=causal, **kw) <= 2e-2
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_ffma_kernel_reads_unaligned_rows(cuda, causal):
+    """f32 views at D = 20 whose rows start 4 bytes past 16 (a slice of a
+    (.., 21) tensor): the kernel copies them element by element."""
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    base = torch.randn(2, 8, 150, 21, generator=gen, device=cuda)
+    q, k, v = base[:, :4, :, 1:], base[:, 4:6, :, 1:], base[:, 6:, :, 1:]
+    assert q.data_ptr() % 16 and q.stride(2) % 4
+    before = flash_attention_ffma.launches
+    got = flash_attention(q, k, v, causal=causal)
+    want = flash_attention_plain(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_ffma.launches == before + 1
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+def test_flash_ffma_kernel_rejects_head_dims_past_256(cuda):
+    q = torch.zeros(1, 2, 8, 257, device=cuda)
+    with pytest.raises(ValueError, match="head dims 1 to 256"):
+        flash_attention(q, q, q)
 
 
 @pytest.mark.parametrize("arch", ["starcoder2-3b", "deepseek-7b"])

@@ -35,7 +35,9 @@ from repro.models.steps import build_loss_fn as jbuild_loss_fn
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.convert import lm_params_from_numpy
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import (flash_attention,
+from repro_torch.kernels.flash_attention import (FFMA_WIDTHS,
+                                                 ffma_width,
+                                                 flash_attention,
                                                  flash_attention_plain)
 from repro_torch.models import layers, steps
 from repro_torch.models.model import RunConfig, forward, lm_loss
@@ -64,11 +66,15 @@ def _both(a, dtype):
     (1, 2, 2, 128, 64),
     (2, 4, 2, 256, 64),    # GQA
     (1, 8, 1, 256, 128),   # MQA
+    (1, 4, 2, 128, 80),    # head dims the FFMA kernel pads to 128 / 256
+    (1, 4, 2, 128, 96),
+    (1, 4, 2, 128, 256),
 ])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_flash_plain_matches_jax_kernel(b, hq, hkv, s, d, causal, dtype):
-    """The shapes of tests/test_kernels.py:55-59."""
+    """The shapes of tests/test_kernels.py:55-59, and head dims that are
+    not a power of two or reach 256, which the JAX kernel takes too."""
     tol = DTYPES[dtype][3]
     qj, qt = _both(_randn(0, (b, hq, s, d)), dtype)
     kj, kt = _both(_randn(1, (b, hkv, s, d)), dtype)
@@ -95,6 +101,29 @@ def test_flash_plain_ragged_matches_attention_ref(sq, sk, causal):
                               torch.from_numpy(v), causal=causal, scale=0.3)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
                                rtol=2e-5)
+
+
+@pytest.mark.parametrize("d,width", [
+    (1, 16), (3, 16), (16, 16), (17, 32), (20, 32), (32, 32), (33, 64),
+    (64, 64), (80, 128), (96, 128), (128, 128), (129, 256), (200, 256),
+    (256, 256)])
+def test_ffma_width_rule(d, width):
+    """The FFMA kernel runs head dim d on the smallest instantiated width
+    that holds it."""
+    assert ffma_width(d) == width
+
+
+def test_ffma_width_covers_every_head_dim_to_256():
+    for d in range(1, 257):
+        w = ffma_width(d)
+        assert w in FFMA_WIDTHS and w >= d
+        assert all(x < d for x in FFMA_WIDTHS if x < w)
+
+
+@pytest.mark.parametrize("d", [0, -1, 257, 512])
+def test_ffma_width_rejects_head_dims_outside_1_to_256(d):
+    with pytest.raises(ValueError, match="head dims 1 to 256"):
+        ffma_width(d)
 
 
 def test_flash_rejects_what_it_does_not_take():
