@@ -117,7 +117,21 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    ``halo_bytes_per_apply`` bytes, bit for bit the direct call, float64
    dense within 1e-4, a faulted plan beside the clean one never sharing
    a batch, and a wall-clock engine over the group refused;
-12. shows through the kernels' launch counters that every path ran through
+12. checks the invariants (`repro_torch.analysis`): `check_plan` over
+   the cuda and dense plans above (apply, adjoint, Gram, the Chebyshev,
+   Jacobi and Chebyshev-Jacobi solves, at B = 1 and 64: exchange
+   bijection and schedule, sweep launches under the L2 model, no float64
+   or width mix on a steady call, no TF32), the same over the sharded
+   plans on the 4 ranks (banded and BFS general, the Jacobi solve) with
+   the fault schedule of cuda_halo int8 under the active spec, and the
+   AST lint over the tree; one `invariants` line, every finding
+   allowlisted;
+13. runs the paper's own workload, SENSOR500 (n = 500), through the
+   port's three examples' `main` on the card — the Section IV-D Tikhonov
+   denoising, the Section VI wavelet lasso (lasso_K, lasso_iters, both
+   mu) and the Section III-D classifier on a two-cluster graph — each
+   held against float64 dense on the card;
+14. shows through the kernels' launch counters that every path ran through
    its kernels: each path is driven once with the counts set to 0 just
    before it and read just after (a replayed graph launches without its
    wrappers: the served launches are each capture's launches times its
@@ -144,6 +158,7 @@ import sys
 import threading
 import time
 from pathlib import Path
+from typing import Optional
 from unittest import mock
 
 import numpy as np
@@ -251,9 +266,11 @@ ORACLE_SIGNALS = 4
 # bf16's error, the reference's gate on its BENCH_comm.json setup, but
 # on the sensor graph's BFS general partition within 12x: the first run
 # on an H100 read 10.58x there and the gate was loosened after that
-# failure.  The reference's own ratio at this n is unmeasured; cut to
-# n = 2048 the port's ratio is the reference's within 1%
-# (tests/test_torch_quantize.py).  The codec on the
+# failure.  On this script's own signals (saved with
+# ``--save-wire-signal``) the reference reads 10.58x too
+# (tests/test_torch_wire_ratio.py, slow): the ratio is the graph's and
+# the draw's.  Cut to n = 2048 the port's ratio is the reference's within
+# 1% (tests/test_torch_quantize.py).  The codec on the
 # card against the port on the CPU, byte for byte, at the banded h and the
 # community graph's widest offset; its round trip within half an int8
 # level of the row's max-abs, and 2e-2 for bf16 (:39-62).
@@ -298,6 +315,16 @@ SERVE_VIRTUAL, SERVE_VIRTUAL_RATE = 512, 20000.0
 SERVE_RATES, SERVE_WALL = (1000.0, 10000.0, 50000.0), 2000
 SERVE_MIN_OCCUPANCY = 2.0
 TRACE_REPLAYS = 3
+# The invariants phase (`repro_torch.analysis`): the run-time checks of
+# `check_plan` over the graph smoke shape's cuda and dense plans at B = 1
+# and 64 with three solves, on the 4 ranks over cuda_halo, halo and
+# allgather (banded) and cuda_halo and halo (BFS general) with the Jacobi
+# solve, and `check_fault_schedule` on cuda_halo int8 under FAULT_ARGS;
+# then the AST layer over the tree.  Every finding must be allowlisted
+# (src/repro_torch/analysis/lint_allowlist.txt).
+INV_BATCHES = (1, BATCH)
+INV_SOLVES = ("chebyshev", "jacobi", "cheb_jacobi")
+INV_SHARDED_SOLVES = ("jacobi",)
 
 ROOT = Path(__file__).resolve().parent
 
@@ -487,13 +514,15 @@ def rel_check(got, ref, tol: float, what: str):
     return err, rel
 
 
-def _sharded_rank(rank: int, world: int, tmp: str) -> None:
+def _sharded_rank(rank: int, world: int, tmp: str,
+                  save_wire_signal: Optional[str] = None) -> None:
     """One rank of the sharded phase, spawned by :func:`main`.  It builds
     the smoke graph from the seed, keeps its own shard, runs every sharded
     path with the others, then the community graph's general plan from
     the partition the parent left in `tmp`; it checks what it saw and
     writes it to ``<tmp>/rank<rank>.json``.  A failed check raises, which
-    fails the spawn and the script."""
+    fails the spawn and the script.  With `save_wire_signal`, rank 0 also
+    saves the signals of the compressed-exchange phase there (.npy)."""
     import os
     from datetime import timedelta
 
@@ -504,7 +533,7 @@ def _sharded_rank(rank: int, world: int, tmp: str) -> None:
                             rank=rank, world_size=world,
                             timeout=timedelta(seconds=600))
     try:
-        out = _sharded_checks(rank, world)
+        out = _sharded_checks(rank, world, save_wire_signal)
         torch.cuda.empty_cache()
         out["community"] = _community_checks(rank, world, tmp)
         torch.cuda.empty_cache()
@@ -516,7 +545,8 @@ def _sharded_rank(rank: int, world: int, tmp: str) -> None:
         json.dump(out, f)
 
 
-def _sharded_checks(rank: int, world: int) -> dict:
+def _sharded_checks(rank: int, world: int,
+                    save_wire_signal: Optional[str] = None) -> dict:
     import torch.distributed as dist
 
     from repro_torch.core import filters, graph, wavelets
@@ -577,6 +607,8 @@ def _sharded_checks(rank: int, world: int) -> dict:
           "halo and cuda_halo must take the same general partition")
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     F = torch.randn(BATCH, N, generator=gen, device=dev)
+    if save_wire_signal and rank == 0:
+        np.save(save_wire_signal, F.cpu().numpy())
     a = torch.randn(BATCH, J + 1, N, generator=gen, device=dev)
     Y = torch.randn(BATCH, N, generator=gen, device=dev)
     dense = GraphOperator(P=L.double(), multipliers=op.multipliers,
@@ -678,13 +710,58 @@ def _sharded_checks(rank: int, world: int) -> dict:
                          plan_n, kw_a)
     faulted = _fault_checks(rank, world, op, wparts, F)
     serving = _serving_rank(rank, world, op, wparts["banded"], dense)
+    invariants = _invariant_checks(op, plans, gen_plans, wparts)
     return dict(rank=rank, halo_width=h, n_edges=n_edges, paths=rows,
                 wires=wires, faults=faulted, serving=serving,
+                invariants=invariants,
                 exchange_only_ms_per_round=exchange_ms, profile=profile,
                 general=dict(offsets=list(offsets),
                              tile_widths=list(ginfo["partition_tile_widths"]),
                              edge_cut=ginfo["edge_cut"],
                              method=ginfo["partition_method"]))
+
+
+def _finding_rows(findings) -> list:
+    return [dict(rule=f.rule, path=f.path, line=f.line, symbol=f.symbol,
+                 message=f.message) for f in findings]
+
+
+def _invariant_checks(op, plans, gen_plans, wparts) -> dict:
+    """The invariants phase on one rank (every rank calls it together):
+    `check_plan` over the sharded plans, `check_fault_schedule` on
+    cuda_halo int8 with and without FAULT_ARGS; their findings, the calls
+    run and the kernel launches they made."""
+    from repro_torch.analysis import check_fault_schedule, check_plan
+    from repro_torch.dist import FaultSpec
+
+    t0 = time.perf_counter()
+    counters = _graph_counters()
+    torch.cuda.synchronize()
+    for k in counters:
+        k.launches = 0
+    report, findings, checked = {}, [], []
+    targets = [(f"{b}[banded]", p) for b, p in plans.items()] + [
+        (f"{b}[general]", p) for b, p in gen_plans.items()]
+    for label, p in targets:
+        findings += check_plan(p, n=N, batches=INV_BATCHES,
+                               solve_methods=INV_SHARDED_SOLVES,
+                               report=report)
+        checked.append(label)
+    clean = op.plan("cuda_halo", partition=wparts["banded"],
+                    exchange_dtype="int8")
+    faulted = op.plan("cuda_halo", partition=wparts["banded"],
+                      exchange_dtype="int8",
+                      fault_spec=FaultSpec(**FAULT_ARGS))
+    findings += check_fault_schedule(clean, faulted, n=N,
+                                     solve_methods=INV_SHARDED_SOLVES)
+    checked.append(f"fault schedule cuda_halo[banded, int8] "
+                   f"{faulted.info['fault_key']}")
+    torch.cuda.synchronize()
+    return dict(findings=_finding_rows(findings), checked=checked,
+                calls=report.get("calls", 0),
+                launches={k.__name__: k.launches for k in counters
+                          if k.launches},
+                seconds=time.perf_counter() - t0)
 
 
 def _serving_rank(rank: int, world: int, op, parts, dense) -> dict:
@@ -1085,7 +1162,9 @@ def _wire_checks(rank, world, op, op_n, wparts, nparts, dense, F, Y, plan_n,
                      bytes_per_round=st.bytes_per_round,
                      max_abs_err=err, rel_err=rel,
                      vs="the f32 solve", first_ms=first, steady_ms=ms))
-    return dict(paths=rows)
+    ratios = {part: errs[(part, "int8")] / errs[(part, "bf16")]
+              for part in wparts}
+    return dict(paths=rows, ratios=ratios)
 
 
 def _fault_checks(rank, world, op, wparts, F) -> dict:
@@ -1800,6 +1879,127 @@ def _profile_call(fn, arg, groups=None):
                 top_host_ms=[[k, c, round(ms, 3)] for ms, k, c in host[:8]])
 
 
+def _sensor500_phase(dev, counters, path_launches) -> dict:
+    """SENSOR500 (n = 500) through the three examples' `main` on the
+    card, each held against the same example's float64 dense run on the
+    card; the counts are read right after each f32 run, before its
+    reference (the float64 references run through the f64 kernels)."""
+    from repro_torch.examples import (distributed_lasso, quickstart,
+                                      semi_supervised)
+
+    row = dict(name="sensor500 examples")
+    launches = {}
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        for k in counters:
+            k.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {k.__name__: k.launches for k in counters if k.launches}
+        for k, v in counts.items():
+            path_launches[k] += v
+            launches[k] = launches.get(k, 0) + v
+        return out, counts, seconds
+
+    f64 = dict(backend="dense", dtype=torch.float64, device=dev)
+    q, qc, qs = counted(lambda: quickstart.main([]))
+    check(qc == {"cheb_sweep": 1}, f"quickstart launches {qc}")
+    x = quickstart.inputs()
+    q64 = quickstart.run(x["W"], x["coords"], x["f0"], x["y"], **f64)
+    _, rel = rel_check(q["denoised"], q64["denoised"], TOL_PATH,
+                       "sensor500 Tikhonov denoised vs f64 dense")
+    row["tikhonov"] = dict(mse_noisy=q["mse_noisy"],
+                           mse_denoised=q["mse_denoised"],
+                           mse_denoised_f64=q64["mse_denoised"], rel_err=rel,
+                           launches=qc, seconds=qs)
+    print(f"sensor500 Tikhonov (Section IV-D): n={q['n']}, |E|="
+          f"{q['n_edges']}, K={q['K']}: MSE noisy {q['mse_noisy']:.4f}, "
+          f"denoised {q['mse_denoised']:.4f} (float64 dense "
+          f"{q64['mse_denoised']:.4f}); {qs:.2f} s, launches {qc}")
+
+    las, lc, ls = counted(lambda: distributed_lasso.main([]))
+    iters = las["n_iters"]
+    check(lc.get("ista_shrink") == iters and lc.get("cheb_sweep") == iters + 2,
+          f"lasso launches {lc}")
+    x = distributed_lasso.inputs()
+    l64 = distributed_lasso.run(x["W"], x["coords"], x["f0"], x["y"],
+                                n_iters=iters, **f64)
+    _, rel_s = rel_check(las["signal"], l64["signal"], TOL_PATH,
+                         "sensor500 lasso signal vs f64 dense")
+    _, rel_c = rel_check(las["coeffs"], l64["coeffs"], TOL_PATH,
+                         "sensor500 lasso coefficients vs f64 dense")
+    row["lasso"] = dict(mse_noisy=las["mse_noisy"],
+                        mse_tikhonov=las["mse_tikhonov"],
+                        mse_lasso=las["mse_lasso"],
+                        mse_lasso_f64=l64["mse_lasso"], iters=iters,
+                        rel_err_signal=rel_s, rel_err_coeffs=rel_c,
+                        launches=lc, seconds=ls)
+    print(f"sensor500 lasso (Section VI): {iters} ISTA iterations at "
+          f"K={distributed_lasso.SENSOR500.lasso_K}, mu "
+          f"{distributed_lasso.mu_weights()}: MSE noisy "
+          f"{las['mse_noisy']:.4f}, tikhonov {las['mse_tikhonov']:.4f}, "
+          f"lasso {las['mse_lasso']:.4f} (float64 dense "
+          f"{l64['mse_lasso']:.4f}); {ls:.2f} s, launches {lc}")
+
+    ssl_res, sc, ss = counted(lambda: semi_supervised.main([]))
+    check(sc == {"cheb_sweep": len(ssl_res)}, f"SSL launches {sc}")
+    x = semi_supervised.inputs()
+    s64 = semi_supervised.run(x["W"], x["labels"], x["mask"], **f64)
+    accs = {}
+    for name, r in ssl_res.items():
+        ref = s64[name]["scores"]
+        rel_check(r["scores"], ref, TOL_PATH,
+                  f"sensor500 SSL scores [{name.strip()}] vs f64 dense")
+        clear = (ref[:, 0] - ref[:, 1]).abs() > PRED_MARGIN
+        check(bool((r["scores"].argmax(1) == ref.argmax(1))[clear].all()),
+              f"SSL predictions [{name}] differ from float64 dense")
+        accs[name.strip()] = r["accuracy"]
+    row["ssl"] = dict(accuracy=accs, launches=sc, seconds=ss)
+    print(f"sensor500 SSL (Section III-D, two clusters of 25): accuracy on "
+          f"unlabeled {accs}; {ss:.2f} s, launches {sc}")
+    row["launches"] = launches
+    return row
+
+
+def _report_invariants(ranks, findings, report, seconds) -> dict:
+    """The invariants line: the findings per rule of the one-card checks,
+    the 4 ranks' checks and the AST layer, every one allowlisted, and the
+    checks run."""
+    import os
+
+    from repro_torch.analysis import Allowlist, Finding, cli
+
+    os.chdir(ROOT)
+    t0 = time.perf_counter()
+    allowlist = Allowlist.load(str(cli.ALLOWLIST))
+    ast = cli.ast_findings(allowlist)
+    ast_s = time.perf_counter() - t0
+    ranked = [Finding(**f) for r in ranks
+              for f in r["invariants"]["findings"]]
+    every = list(findings) + ranked + ast
+    kept, allowed = allowlist.split(every)
+    for f in kept:
+        print(f"invariants: not allowlisted: {f}")
+    per_rule = {}
+    for f in allowed:
+        per_rule[f.rule] = per_rule.get(f.rule, 0) + 1
+    row = dict(name="invariants", one_card_calls=report["calls"],
+               one_card_seconds=seconds,
+               rank_calls=[r["invariants"]["calls"] for r in ranks],
+               rank_seconds=[r["invariants"]["seconds"] for r in ranks],
+               rank_checked=ranks[0]["invariants"]["checked"],
+               rank_launches=ranks[0]["invariants"]["launches"],
+               ast_seconds=ast_s, not_allowlisted=len(kept),
+               allowlisted_per_rule=per_rule,
+               runtime_findings=len(findings) + len(ranked))
+    print("invariants: " + json.dumps(row))
+    check(not kept, f"{len(kept)} invariant finding(s) are not allowlisted")
+    return row
+
+
 def _report_exchange_phases(ranks, smi: str, path_rows: list, names):
     """Print and record what the ranks saw in phases 2-5 (the compressed
     wires and the faults on the sensor graph, the community graph's
@@ -1909,7 +2109,19 @@ def _report_exchange_phases(ranks, smi: str, path_rows: list, names):
     return exchange_launches, gossip_step
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(
+        description="drive the port on the card and check every kernel")
+    parser.add_argument(
+        "--save-wire-signal", metavar="PATH", default=None,
+        help="also save the (64, 16384) f32 signals of the compressed-"
+             "exchange phase, drawn on the card, to PATH (.npy), for "
+             "tests/test_torch_wire_ratio.py")
+    args = parser.parse_args(argv)
+    save_wire_signal = (str(Path(args.save_wire_signal).resolve())
+                        if args.save_wire_signal else None)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)
@@ -2655,6 +2867,36 @@ def main() -> int:
     check(bool(agree.all()), "SSL predictions differ from float64 dense")
     del res, ref
 
+    # -- invariants: the run-time checks over this shape's plans ------------
+    from repro_torch.analysis import check_plan
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    for k in counters:
+        k.launches = 0
+    inv_report, inv_findings = {}, []
+    for p in (plan, op.plan("dense")):
+        inv_findings += check_plan(p, n=N, batches=INV_BATCHES,
+                                   solve_methods=INV_SOLVES,
+                                   report=inv_report)
+    torch.cuda.synchronize()
+    inv_launches = {k.__name__: k.launches for k in counters}
+    for k, v in inv_launches.items():
+        path_launches[k] += v
+    inv_seconds = time.perf_counter() - t0
+    check(all(inv_launches[k] > 0 for k in ("cheb_sweep", "sliced_ell_spmv",
+                                            "jacobi_sweep")),
+          f"the invariant checks must launch the kernels: {inv_launches}")
+    print(f"invariant checks on one card: cuda and dense plans at n={N}, "
+          f"B={INV_BATCHES}, solves {INV_SOLVES}: {inv_report['calls']} "
+          f"calls in {inv_seconds:.1f} s, launches "
+          f"{ {k: v for k, v in inv_launches.items() if v} }, "
+          f"{len(inv_findings)} finding(s)")
+
+    # -- SENSOR500: the paper's own workload through the three examples ------
+    sensor_row = _sensor500_phase(dev, counters, path_launches)
+    path_rows.append(sensor_row)
+
     # -- the wire codec on the card (phase 1 of the compressed exchange) ----
     codec = _codec_checks(dev)
     for c in codec:
@@ -2696,8 +2938,8 @@ def main() -> int:
         del csr_c, parts_c
         t0 = time.perf_counter()
         try:
-            mp.spawn(_sharded_rank, args=(SHARDS, tmp), nprocs=SHARDS,
-                     join=True)
+            mp.spawn(_sharded_rank, args=(SHARDS, tmp, save_wire_signal),
+                     nprocs=SHARDS, join=True)
         finally:
             _stop_resource_tracker()
         ranks = []
@@ -2808,6 +3050,20 @@ def main() -> int:
     for k, v in exchange_launches.items():
         path_launches[k] += v
         sharded_launches[k] += v
+    for part, ratio in ranks[0]["wires"]["ratios"].items():
+        print(f"int8 / bf16 wire error on the sensor graph ({part}, "
+              f"cuda_halo, rank 0): {ratio!r} [{SHARD_LABEL}] ({smi})")
+    path_rows.append(dict(name="int8 / bf16 wire error ratio",
+                          label=SHARD_LABEL,
+                          ratios=ranks[0]["wires"]["ratios"]))
+    # the invariants on the ranks, then the AST layer: one line
+    inv_row = _report_invariants(ranks, inv_findings, inv_report,
+                                 inv_seconds)
+    path_rows.append(inv_row)
+    for r in ranks:
+        for k, v in r["invariants"]["launches"].items():
+            path_launches[k] += v
+            sharded_launches[k] += v
     del ranks, com
 
     # -- the dense LM forward: starcoder2-3b, full width and depth -----------

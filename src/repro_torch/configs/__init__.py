@@ -1,12 +1,14 @@
 """Architecture registry of the port — `get_config(arch_id)` for the dense
 presets of the JAX package's `configs/` (their files copied as they
-stand).  The MoE, MLA, RWKV, hybrid, encoder-decoder and VLM presets come
+stand) — and `SENSOR500`, the paper's own graph workload (Section IV-D /
+VI).  The MoE, MLA, RWKV, hybrid, encoder-decoder and VLM presets come
 with their mixers (ROADMAP.md, queue 1 item 11)."""
 from __future__ import annotations
 
 from typing import Dict, List
 
-from . import deepseek_7b, qwen1_5_32b, qwen1_5_4b, starcoder2_3b
+from . import (deepseek_7b, qwen1_5_32b, qwen1_5_4b, sensor500,
+               starcoder2_3b)
 from .base import ModelConfig
 
 _REGISTRY: Dict[str, ModelConfig] = {
@@ -15,6 +17,7 @@ _REGISTRY: Dict[str, ModelConfig] = {
 }
 
 ARCH_IDS: List[str] = list(_REGISTRY)
+SENSOR500 = sensor500.CONFIG
 
 
 def get_config(name: str) -> ModelConfig:
@@ -23,4 +26,4 @@ def get_config(name: str) -> ModelConfig:
     return _REGISTRY[name]
 
 
-__all__ = ["ARCH_IDS", "ModelConfig", "get_config"]
+__all__ = ["ARCH_IDS", "SENSOR500", "ModelConfig", "get_config"]

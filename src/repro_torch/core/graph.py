@@ -115,6 +115,21 @@ def lambda_max_bound(W: Union[Tensor, np.ndarray],
     return float(bound)
 
 
+def k_scaling_matrix(W: Union[Tensor, np.ndarray], gamma: float) -> Tensor:
+    """Ando & Zhang's K-scaling kernel matrix (Section III-D):
+
+       S = (gamma I + D)^{-1/2} (gamma I + L) (gamma I + D)^{-1/2}
+
+    Has the sparsity pattern of L; reduces to L_norm at gamma = 0.
+    """
+    W = _as_tensor(W)
+    d = W.sum(dim=1)
+    S = -W
+    S.diagonal().add_(d + gamma)
+    scale = 1.0 / torch.sqrt(gamma + d)
+    return scale[:, None] * S * scale[None, :]
+
+
 def is_connected(W: np.ndarray) -> bool:
     """BFS connectivity check (the paper discards disconnected random graph
     realizations — footnote 5)."""
@@ -201,6 +216,25 @@ def path_graph(n: int, weight: float = 1.0) -> Graph:
     W[i, i + 1] = weight
     W[i + 1, i] = weight
     return Graph(W=torch.from_numpy(W))
+
+
+def two_cluster_graph(n_per: int = 20, p_in: float = 0.9,
+                      p_out: float = 0.05, *,
+                      generator: np.random.Generator
+                      ) -> Tuple[Graph, Tensor]:
+    """Stochastic two-block graph and its ground-truth labels, for SSL.
+
+    Vertices 0..n_per-1 carry label 0, the next n_per label 1; each pair
+    is joined (weight 1) with probability `p_in` inside a block and
+    `p_out` between the blocks, drawn from `generator` (the JAX package
+    draws from a jax PRNG key, which no other generator reproduces).
+    """
+    n = 2 * n_per
+    labels = np.repeat(np.arange(2, dtype=np.int64), n_per)
+    p = np.where(labels[:, None] == labels[None, :], p_in, p_out)
+    upper = np.triu(generator.uniform(size=(n, n)) < p, k=1)
+    W = (upper | upper.T).astype(np.float32)
+    return Graph(W=torch.from_numpy(W)), torch.from_numpy(labels)
 
 
 # ---------------------------------------------------------------------------

@@ -31,7 +31,8 @@ from .backends import available_backends, get_backend, register_backend
 from .comm import (CommStats, plan_comm_stats, solve_comm_stats,
                    verify_message_scaling)
 from .faults import DEGRADATIONS, FaultSpec
-from .operator import ExecutionPlan, GraphOperator, canonical_kwarg
+from .operator import (ExecutionPlan, GraphOperator, as_graph_operator,
+                       canonical_kwarg)
 from .partition import (CSRMatrix, GeneralPartition, OverfullSlotsError,
                         community_graph_csr, partition_general)
 from .solvers import METHODS, SolveResult, solve_plan
@@ -39,7 +40,8 @@ from .solvers import METHODS, SolveResult, solve_plan
 __all__ = [
     "CSRMatrix", "CommStats", "DEGRADATIONS", "ExecutionPlan", "FaultSpec",
     "GeneralPartition", "GraphOperator", "METHODS", "OverfullSlotsError",
-    "SolveResult", "available_backends", "canonical_kwarg", "capture",
+    "SolveResult", "as_graph_operator", "available_backends",
+    "canonical_kwarg", "capture",
     "comm",
     "community_graph_csr", "faults", "get_backend", "gossip", "partition",
     "partition_general", "plan_comm_stats", "quantize", "register_backend",

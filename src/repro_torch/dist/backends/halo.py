@@ -45,7 +45,7 @@ from .. import comm
 from ..partition import GeneralPartition, resolve_partition_arg
 from ..quantize import tile_wire_bytes
 from ..sharded import (check_leak, check_partition_name, coupling_layout,
-                       general_info, general_sends, offset_matvec,
+                       general_info, general_sends, ista_loop, offset_matvec,
                        ring_matvec, sharded_plan, wire_info, wire_options)
 from . import register_backend, resolve_device
 
@@ -175,6 +175,106 @@ def halo_bytes_per_apply(parts, K: int, eta: int = 1,
 
 
 # ---------------------------------------------------------------------------
+# Functional forms: one sharded application over a BandedPartition
+# ---------------------------------------------------------------------------
+def _banded_matvec(parts: BandedPartition, rank: int, group,
+                   dev: torch.device, wire: dict):
+    """(matvec, diagonal block) of shard `rank` of a banded partition on
+    `dev`: the ring matvec of the `halo` plan and its functional forms."""
+    left_h, right_h = parts.boundary_couplings()
+    diag = parts.diag[rank].to(dev)
+    mv = ring_matvec(lambda x: torch.matmul(x, diag.mT),
+                     left_h[rank].to(dev), right_h[rank].to(dev),
+                     parts.n_local, parts.halo, group, **wire)
+    return mv, diag
+
+
+def _rank_matvec(mesh, parts: BandedPartition, x, wire: dict):
+    """(matvec, group, rank) of this rank of `mesh` over `parts`, on the
+    device of the signal x."""
+    group, n_shards, rank = comm.resolve_group(mesh)
+    if parts.n_shards != n_shards:
+        raise ValueError(f"partition has {parts.n_shards} shards but the "
+                         f"group has {n_shards}")
+    mv, _ = _banded_matvec(parts, rank, group, torch.as_tensor(x).device,
+                           wire)
+    return mv, group, rank
+
+
+def _rows(x, parts: BandedPartition, rank: int) -> Tensor:
+    x = torch.as_tensor(x, dtype=parts.diag.dtype)
+    nl = parts.n_local
+    return x[..., rank * nl:(rank + 1) * nl].contiguous()
+
+
+def dist_cheb_apply(mesh, parts: BandedPartition, x, coeffs, lmax: float,
+                    exchange_dtype: str = "f32", error_feedback: bool = True,
+                    fault_spec=None,
+                    degradation: str = "zero_fill") -> Tensor:
+    """Sharded Phi_tilde x (Algorithm 1) on every rank of the process
+    group `mesh`: x (..., n_padded) the global signal, leading batch dims
+    riding the same K rounds.  Returns (..., eta, n_padded) ((...,
+    n_padded) for 1-D coeffs) on every rank: what the `halo` plan
+    computes, on a partition the caller holds."""
+    wire = wire_options(exchange_dtype, error_feedback, fault_spec,
+                        degradation)
+    mv, group, rank = _rank_matvec(mesh, parts, x, wire)
+    out = cheb.cheb_apply(mv, _rows(x, parts, rank), coeffs, lmax)
+    return comm.assemble(out.contiguous(), group)
+
+
+def dist_cheb_apply_adjoint(mesh, parts: BandedPartition, a, coeffs,
+                            lmax: float, exchange_dtype: str = "f32",
+                            error_feedback: bool = True, fault_spec=None,
+                            degradation: str = "zero_fill") -> Tensor:
+    """Sharded Phi_tilde^* a (Algorithm 2): a (..., eta, n_padded) ->
+    (..., n_padded) on every rank; one exchange moves all eta streams
+    (and every batch signal) per order."""
+    wire = wire_options(exchange_dtype, error_feedback, fault_spec,
+                        degradation)
+    mv, group, rank = _rank_matvec(mesh, parts, a, wire)
+    out = cheb.cheb_apply_adjoint(mv, _rows(a, parts, rank), coeffs, lmax)
+    return comm.assemble(out.contiguous(), group)
+
+
+def dist_cheb_apply_gram(mesh, parts: BandedPartition, x, coeffs,
+                         lmax: float, exchange_dtype: str = "f32",
+                         error_feedback: bool = True, fault_spec=None,
+                         degradation: str = "zero_fill") -> Tensor:
+    """Sharded Phi~* Phi~ x via the product coefficients (Section IV-C):
+    (..., n_padded) -> (..., n_padded)."""
+    return dist_cheb_apply(mesh, parts, x, cheb.gram_coeffs(coeffs), lmax,
+                           exchange_dtype, error_feedback, fault_spec,
+                           degradation)
+
+
+def dist_lasso(mesh, parts: BandedPartition, y, coeffs, lmax: float, mu,
+               gamma: float = 0.2, n_iters: int = 300,
+               exchange_dtype: str = "f32", error_feedback: bool = True,
+               fault_spec=None, degradation: str = "zero_fill"
+               ) -> Tuple[Tensor, Tensor]:
+    """Fully sharded Algorithm 3 (distributed lasso).
+
+    y: (..., n_padded), batched signals sharing every round; mu: scalar,
+    (eta,) per-scale or (..., eta) per-signal weights.  Returns (a_*, y_*)
+    on every rank: (..., eta, n_padded) wavelet coefficients and the
+    (..., n_padded) denoised signals.  Per iteration the only
+    communication is the exchange rounds of Phi~ Phi~*."""
+    from ...core.lasso import _mu_threshold
+
+    wire = wire_options(exchange_dtype, error_feedback, fault_spec,
+                        degradation)
+    mv, group, rank = _rank_matvec(mesh, parts, y, wire)
+    yl = _rows(y, parts, rank)
+    eta = np.atleast_2d(np.asarray(coeffs)).shape[0]
+    thresh = _mu_threshold(mu, eta, yl.dtype, gamma, device=yl.device)
+    a, y_star = ista_loop(mv, cheb.cheb_apply, yl, coeffs, lmax, thresh,
+                          gamma, n_iters)
+    return (comm.assemble(a.contiguous(), group),
+            comm.assemble(y_star.contiguous(), group))
+
+
+# ---------------------------------------------------------------------------
 # Building the plan
 # ---------------------------------------------------------------------------
 @register_backend("halo")
@@ -231,12 +331,8 @@ def build(op, *, mesh=None, partition=None, device=None,
         raise ValueError(f"partition has {parts.n_shards} shards but the "
                          f"group has {n_shards}")
     nl, h = parts.n_local, parts.halo
-    left_h, right_h = parts.boundary_couplings()
-    diag = parts.diag[rank].to(dev)
+    mv, diag = _banded_matvec(parts, rank, group, dev, wire)
     wire_dt = None if exchange_dtype == "f32" else exchange_dtype
-    mv = ring_matvec(lambda x: torch.matmul(x, diag.mT),
-                     left_h[rank].to(dev), right_h[rank].to(dev), nl, h, group,
-                     **wire)
     info = {
         "n_shards": n_shards,
         "rank": rank,

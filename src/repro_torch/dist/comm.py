@@ -154,22 +154,43 @@ class CommStats:
         }
 
 
+@dataclasses.dataclass(frozen=True)
+class Event:
+    """One communication call as it ran on this rank, in call order.
+
+    perm: for ``ppermute``, the (src, dst) pairs of the whole group, as
+    every rank posts them; sends: the pairs this rank itself sent, in
+    group ranks (what `repro_torch.analysis.checks` gathers over the
+    ranks to hold each exchange to a complete bijection); group: the
+    process group it ran in.
+    """
+
+    primitive: str
+    perm: Optional[Tuple]
+    sends: Tuple[Tuple[int, int], ...]
+    group: Any = dataclasses.field(default=None, compare=False, repr=False)
+
+
 class Recorder:
     """What ran on this rank while a :func:`counting` context was open:
-    the tally of calls, and the host seconds spent posting the exchange
-    (`post_s`: staging the tiles and posting the sends and receives),
-    waiting for it (`wait_s`: receives and gathers, and copying back) and
-    assembling the outputs (`assembly_s`)."""
+    the tally of calls, the calls in order (`events`), and the host
+    seconds spent posting the exchange (`post_s`: staging the tiles and
+    posting the sends and receives), waiting for it (`wait_s`: receives
+    and gathers, and copying back) and assembling the outputs
+    (`assembly_s`)."""
 
     def __init__(self):
         self.tally: Dict[Tuple, int] = {}
+        self.events: List[Event] = []
         self.post_s = 0.0
         self.wait_s = 0.0
         self.assembly_s = 0.0
 
-    def add(self, primitive: str, t: Tensor, perm=None) -> None:
+    def add(self, primitive: str, t: Tensor, perm=None, sends=(),
+            group=None) -> None:
         key = (primitive, t.numel(), t.numel() * t.element_size(), perm)
         self.tally[key] = self.tally.get(key, 0) + 1
+        self.events.append(Event(primitive, perm, tuple(sends), group))
 
     def stats(self, n_shards: int, batch: int = 1,
               ppermutes_per_round: int = DIRECTIONS_PER_ROUND) -> CommStats:
@@ -199,9 +220,10 @@ def counting() -> Iterator[Recorder]:
         _recorders.remove(rec)
 
 
-def _record(primitive: str, t: Tensor, perm=None) -> None:
+def _record(primitive: str, t: Tensor, perm=None, sends=(),
+            group=None) -> None:
     for rec in _recorders:
-        rec.add(primitive, t, perm)
+        rec.add(primitive, t, perm, sends, group)
 
 
 def _timed(field: str, t0: float) -> None:
@@ -316,7 +338,8 @@ def offset_exchange(tiles: Sequence[Tensor], offsets: Sequence[int],
            for k, (t, d) in enumerate(zip(received, offsets))])
     for t, d in zip(tiles, offsets):
         _record("ppermute", t, tuple((i, (i + d) % size)
-                                     for i in range(size)))
+                                     for i in range(size)),
+                sends=((rank, (rank + d) % size),), group=group)
     _timed("post_s", t0)
     return PendingExchange(works, sent, received, tiles[0].device)
 
@@ -340,7 +363,7 @@ def all_gather(x: Tensor, group: dist.ProcessGroup) -> Tensor:
     """One ``allgather`` round: (..., nl) on every rank -> (..., S * nl)."""
     t0 = time.perf_counter()
     out = _gather_last(x, group)
-    _record("all_gather", x)
+    _record("all_gather", x, group=group)
     _timed("wait_s", t0)
     return out
 
@@ -352,7 +375,7 @@ def assemble(y: Tensor, group: Optional[dist.ProcessGroup]) -> Tensor:
         return y
     t0 = time.perf_counter()
     out = _gather_last(y, group)
-    _record("assembly", y)
+    _record("assembly", y, group=group)
     _timed("assembly_s", t0)
     return out
 

@@ -328,3 +328,11 @@ class GraphOperator(UnionMultiplier):
         plan.apply_adjoint(a)  a: (..., eta, N) ->  (..., N)
         plan.apply_gram(f)     f: (..., N)      ->  (..., N)
     """
+
+
+def as_graph_operator(op: UnionMultiplier) -> GraphOperator:
+    """Re-wrap any UnionMultiplier as a GraphOperator (shares P, no copy)."""
+    if isinstance(op, GraphOperator):
+        return op
+    return GraphOperator(P=op.P, multipliers=op.multipliers, lmax=op.lmax,
+                         K=op.K, coeff_points=op.coeff_points)

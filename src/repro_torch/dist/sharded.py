@@ -240,6 +240,26 @@ def general_info(op, parts: GeneralPartition, rank: int,
     }
 
 
+def ista_loop(mv, recurrence, yl: Tensor, coeffs, lmax: float,
+              thresh: Tensor, gamma: float, n_iters: int
+              ) -> Tuple[Tensor, Tensor]:
+    """Algorithm 3 on this rank's rows yl (..., m) against the sharded
+    matvec `mv`: (a_*, y_*) on the rank's rows.  Per iteration the only
+    communication is the exchange rounds of Phi~ Phi~* (Section VI).
+    `recurrence` runs the forward recurrence (`cheb.cheb_apply` or
+    `ops.fused_cheb_recurrence`); thresh is mu * gamma (`_mu_threshold`).
+    """
+    from ..core.lasso import soft_threshold
+
+    phi_y = recurrence(mv, yl, coeffs, lmax)
+    a = torch.zeros_like(phi_y)
+    for _ in range(n_iters):
+        synth = cheb.cheb_apply_adjoint(mv, a, coeffs, lmax)
+        gram_a = recurrence(mv, synth, coeffs, lmax)
+        a = soft_threshold(a + gamma * (phi_y - gram_a), thresh)
+    return a, cheb.cheb_apply_adjoint(mv, a, coeffs, lmax)
+
+
 def sharded_plan(op, backend: str, mv, *, group, rank: int, nl: int,
                  pnl: int, device: torch.device, dtype: torch.dtype,
                  recurrence, info: dict,
@@ -259,7 +279,7 @@ def sharded_plan(op, backend: str, mv, *, group, rank: int, nl: int,
     (the Hopper kernels).  Solver and lasso outputs are assembled before
     anything takes a norm over them.
     """
-    from ..core.lasso import LassoResult, _mu_threshold, soft_threshold
+    from ..core.lasso import LassoResult, _mu_threshold
     from .operator import ExecutionPlan
 
     lo = rank * nl
@@ -292,17 +312,9 @@ def sharded_plan(op, backend: str, mv, *, group, rank: int, nl: int,
         return _global(recurrence(mv, _local(f), d, lmax)[..., 0, :])
 
     def solve_lasso(y, mu, gamma, n_iters):
-        # the whole ISTA loop on this rank's rows: per iteration the only
-        # communication is the exchange rounds of Phi~ Phi~* (Section VI)
-        yl = _local(y)
         thresh = _mu_threshold(mu, op.eta, dtype, gamma, device=device)
-        phi_y = recurrence(mv, yl, coeffs, lmax)
-        a = torch.zeros_like(phi_y)
-        for _ in range(n_iters):
-            synth = cheb.cheb_apply_adjoint(mv, a, coeffs, lmax)
-            gram_a = recurrence(mv, synth, coeffs, lmax)
-            a = soft_threshold(a + gamma * (phi_y - gram_a), thresh)
-        y_star = cheb.cheb_apply_adjoint(mv, a, coeffs, lmax)
+        a, y_star = ista_loop(mv, recurrence, _local(y), coeffs, lmax,
+                              thresh, gamma, n_iters)
         return LassoResult(coeffs=_global(a), signal=_global(y_star),
                            objective=torch.full((n_iters,), float("nan"),
                                                 dtype=dtype, device=device),

@@ -363,3 +363,13 @@ def pad_trailing(x: Tensor, total: int) -> Tensor:
     if pad == 0:
         return x
     return torch.nn.functional.pad(x, (0, pad))
+
+
+def pad_for_kernels(x: Tensor, multiple: int = 1024) -> Tensor:
+    """Zero-pad the last axis up to a multiple of `multiple`.
+
+    Callers that hold the logical size strip the padding from outputs;
+    the execution backends pad to their own layouts internally.
+    """
+    n = x.shape[-1]
+    return pad_trailing(x, n + (-n) % multiple)

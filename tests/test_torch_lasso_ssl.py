@@ -3,9 +3,12 @@ kernel's plain version, and the Section III-D classifier (`core.ssl`)
 held against the JAX package on the same inputs.
 
 Inputs come from numpy or the reference's generators (`sensor120` of
-tests/conftest.py, `two_cluster_graph`, `graph_signal_batch`) and reach
-both packages as numpy arrays; the port runs with device="cpu", i.e.
-through the kernels' plain PyTorch versions.
+tests/conftest.py, `two_cluster_graph` where a case holds the accuracy
+the reference's own test reads on that draw, `graph_signal_batch`) or,
+where a case needs only some two-cluster graph, the port's numpy-drawn
+`two_cluster_graph`, and reach both packages as numpy arrays; the port
+runs with device="cpu", i.e. through the kernels' plain PyTorch
+versions.
 
 Tolerances: atol 1e-6 for the ISTA shrink against the interpret-mode
 kernel (one elementwise pass in f32); atol 1e-4 for whole lasso and SSL
@@ -34,6 +37,7 @@ from repro.dist import GraphOperator as JOp
 from repro.kernels import ref as jref
 from repro.kernels.soft_threshold import ista_shrink as jista_shrink
 from repro_torch.core import filters as tfilters
+from repro_torch.core import graph as tgraph
 from repro_torch.core import lasso as tlasso
 from repro_torch.core import ssl as tssl
 from repro_torch.core import wavelets as twav
@@ -371,8 +375,8 @@ def test_label_matrix_matches_reference():
 def test_ssl_float64_dense_plan_keeps_float64():
     """A float64 P on the dense plan gives float64 scores (the reference
     `chip_smoke.py` holds the card's scores against)."""
-    Ln = jgraph.two_cluster_graph(jax.random.PRNGKey(3), n_per=10)[0]
-    Ln = torch.from_numpy(np.array(Ln.laplacian("normalized"))).double()
+    g = tgraph.two_cluster_graph(10, generator=np.random.default_rng(3))[0]
+    Ln = g.laplacian("normalized").double()
     res = tssl.semi_supervised_classify(Ln, np.arange(20) % 2,
                                         np.arange(20) < 4, 2, lmax=2.0,
                                         device="cpu")
