@@ -131,7 +131,21 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    denoising, the Section VI wavelet lasso (lasso_K, lasso_iters, both
    mu) and the Section III-D classifier on a two-cluster graph — each
    held against float64 dense on the card;
-14. shows through the kernels' launch counters that every path ran through
+14. serves the LM through the KV cache (`models.decode`, `models.steps.
+   build_serve_step`, `launch.serve`) with starcoder2-3b's parameters of
+   phase 7: B = 8 prompts of 512 tokens prefilled token by token, then 63
+   serve steps, every step under ``set_sync_debug_mode("error")`` (no
+   host read), timed (CUDA events) and traced (kernels per step, busy
+   share), and its logits held at all 64 decoded positions against the
+   flash forward over the prompt and the generated ids (one tensor-core
+   launch per layer); an f8 (e4m3) cache against the bf16 cache; the
+   launcher's `main` at full width; and the qwen2-vl-2b backbone (28
+   layers, M-RoPE, 64 vision embeddings in a 128-token prompt), timed in
+   bf16 and held in f32 against the f32 flash forward (the FFMA kernel),
+   where bf16 alone sits at this model's noise floor.  Decode attends
+   through the plain `attention_ref`, as the JAX package does outside
+   its Pallas kernel;
+15. shows through the kernels' launch counters that every path ran through
    its kernels: each path is driven once with the counts set to 0 just
    before it and read just after (a replayed graph launches without its
    wrappers: the served launches are each capture's launches times its
@@ -151,6 +165,7 @@ is left before it prints its results.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -227,6 +242,24 @@ TOL_LM_LOSS = 1e-2       # |d loss| (the loss is ~ln 49152 = 10.8)
 TOL_LM_F32 = 1e-4
 # H100 SXM bf16 tensor-core peak (dense): the bound of bf16 work.
 PEAK_BF16_FLOPS = 989e12
+# The LM decode phase: starcoder2-3b at full width and depth, a prefill of
+# DEC_PROMPT tokens then DEC_GEN - 1 serve steps on DEC_B sequences (the
+# cache holds DEC_PROMPT + DEC_GEN slots: one more step is profiled);
+# decode's logits are held at every decoded position against the flash
+# forward over the prompt and the generated tokens, at TOL_LM_LOGITS (a
+# bf16 model either way, in other summation orders).  The f8 cache: the
+# last prefill logits against the bf16 cache's, at the JAX package's f8
+# criterion (tests/test_models_smoke.py:105-122).  The VLM backbone at
+# full width: VLM_VISION N(0, 1) vision embeddings replace the first
+# prompt embeddings.  In bf16 its flash forward and its plain-attention
+# forward already differ by 3.9e-2 to 5.0e-2 of the max (and each from
+# the f32 forward by as much), so bf16 decode cannot be held to it at
+# TOL_LM_LOGITS; the same weights in f32 are held at TOL_LM_F32.
+DEC_B, DEC_PROMPT, DEC_GEN = 8, 512, 64
+F8_B, F8_PROMPT = 8, 128
+MIN_F8_CORR = 0.98
+VLM_ARCH = "qwen2-vl-2b"
+VLM_B, VLM_VISION, VLM_PROMPT, VLM_GEN = 2, 64, 128, 16
 # Per-round final iterate vs the sweep's (the same f32 arithmetic, P h
 # products in another grouping); the guarded solve vs the unguarded one
 # (the same kernel launches in chunks); SSL predictions are compared where
@@ -1843,9 +1876,9 @@ def _ffma_bounds(shape, long_s: int = 4096) -> dict:
 def _profile_call(fn, arg, groups=None):
     """One call of fn(arg) under torch.profiler: the device time of its
     kernels and copies by group (the first of `groups`, name ->
-    substrings, that matches), its share of the wall time, and the host
-    operations with the most self time; None when the trace holds no
-    device time."""
+    substrings, that matches), its share of the wall time, the number of
+    kernels (copies and memsets apart), and the host operations with the
+    most self time; None when the trace holds no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1862,9 +1895,12 @@ def _profile_call(fn, arg, groups=None):
         wall_ms = (time.perf_counter() - t0) * 1e3
     device = dict.fromkeys(list(groups) + ["other"], 0.0)
     host = []
+    kernels = 0
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
             key = e.key.lower()
+            if not key.startswith(("memcpy", "memset")):
+                kernels += e.count
             device[next((g for g, subs in groups.items()
                          if any(x in key for x in subs)), "other")] += (
                 e.self_device_time_total / 1e3)
@@ -1875,7 +1911,7 @@ def _profile_call(fn, arg, groups=None):
         return None
     host.sort(reverse=True)
     return dict(device_ms=device, busy_ms=busy, wall_ms=wall_ms,
-                busy_share=busy / wall_ms,
+                busy_share=busy / wall_ms, kernels=kernels,
                 top_host_ms=[[k, c, round(ms, 3)] for ms, k, c in host[:8]])
 
 
@@ -2107,6 +2143,272 @@ def _report_exchange_phases(ranks, smi: str, path_rows: list, names):
         "sliced_ell_spmv", "sliced_ell_spmv_accumulate", "cheb_step",
         "jacobi_step")), "the exchange phases must launch their kernels")
     return exchange_launches, gossip_step
+
+
+def _held_decode(dec, steps, cfg, params, prompt, n_gen, vision=None):
+    """Prefill `prompt` (B, P) into a fresh cache of P + n_gen slots, then
+    n_gen - 1 serve steps, all under ``set_sync_debug_mode("error")`` (a
+    host read in a step raises); the decode logits at the n_gen decoded
+    positions are kept (the serve step's `decode_step`, recorded).
+    Returns the generated ids (B, n_gen), the logits (B, n_gen, V), the
+    cache, the serve step, the prefill's ms and each step's ms (CUDA
+    events) and the peak MiB."""
+    B = prompt.shape[0]
+    cache = dec.start_cache(cfg, params, B, prompt.shape[1] + n_gen)
+    serve_step = steps.build_serve_step(cfg)
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(n_gen + 1)]
+    real = dec.decode_step
+    seen = []
+
+    def recording(*args, **kwargs):
+        logits, c = real(*args, **kwargs)
+        seen.append(logits)
+        return logits, c
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        marks[0].record()
+        logits, cache = dec.prefill(cfg, params, prompt, cache,
+                                    vision_embeds=vision)
+        marks[1].record()
+        seen.append(logits)
+        out = [logits.argmax(-1).to(prompt.dtype)]
+        with mock.patch.object(dec, "decode_step", recording):
+            for mark in marks[2:]:
+                tok, cache = serve_step(params, cache, out[-1][:, None])
+                mark.record()
+                out.append(tok)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    return dict(generated=torch.stack(out, dim=1),
+                logits=torch.stack(seen, dim=1), cache=cache,
+                serve_step=serve_step, prefill_ms=ms[0], step_ms=ms[1:],
+                peak_mib=torch.cuda.max_memory_allocated() / 2**20)
+
+
+def _hold_against_forward(name, forward, run, cfg, params, prompt, got,
+                          run_path, vision=None, tol=TOL_LM_LOGITS,
+                          kernel="flash_attention_wgmma") -> dict:
+    """The flash forward over the prompt and the generated ids but the
+    last (one launch of `kernel` per layer, counted) against the decode
+    logits at each decoded position: max |d| over that position's max
+    |logits|, within `tol` unless it is None (then printed only); the
+    share of greedy ids equal to the forward's argmax (printed, not a
+    gate: bf16 ties can flip)."""
+    gen, dl = got["generated"], got["logits"]
+    seq = torch.cat([prompt, gen[:, :-1]], dim=1)
+    n = gen.shape[1]
+    full, counts = run_path(
+        name, lambda: forward(cfg, params, seq, run, vision_embeds=vision),
+        steady_iters=0)
+    check({k: v for k, v in counts.items() if v} == {kernel: cfg.n_layers},
+          f"{name} must be {cfg.n_layers} launches of {kernel}, got "
+          f"{counts}")
+    check(bool(torch.isfinite(dl).all()), f"{name}: non-finite logits")
+    d, rel = _position_errors(dl, full[:, -n:])
+    worst = float(rel.max())
+    agree = float((full[:, -n:].argmax(-1) == gen).float().mean())
+    print(f"  decode vs the flash forward at {n} positions: max abs "
+          f"{float(d.max()):.4e}, worst position {int(rel.argmax())} at "
+          f"{worst:.4e} of its max (tol {tol}); greedy ids equal to the "
+          f"forward's argmax: {agree:.4f}")
+    if tol is not None:
+        check(worst <= tol,
+              f"{name}: decode logits {worst} of the max from the forward's")
+    return dict(logits_max_abs_err=float(d.max()), logits_rel_err=worst,
+                greedy_agreement=agree, forward=full)
+
+
+def _position_errors(got, ref):
+    """max |got - ref| over (B, V) at each position of (B, n, V), and that
+    over the position's max |ref|."""
+    d = (got.float() - ref.float()).abs().amax(dim=(0, 2))
+    return d, d / ref.float().abs().amax(dim=(0, 2)).clamp_min(1e-30)
+
+
+def _lm_decode_phase(cfg, params, run_path, smi: str) -> list:
+    """KV-cache decode and serve at full width: starcoder2-3b (the bf16
+    cache held against the flash forward, its step timed and traced; the
+    f8 cache; the launcher's `main`), then the VLM backbone."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import (RunConfig, count_params, decode as dec,
+                                    forward, init_params, steps)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    rows = []
+
+    # -- starcoder2-3b, bf16 cache -----------------------------------------
+    name = (f"lm_decode[{cfg.name}, B={DEC_B}, prompt={DEC_PROMPT}, "
+            f"gen={DEC_GEN}]")
+    prompt = torch.randint(0, cfg.vocab_size, (DEC_B, DEC_PROMPT),
+                           device=dev, generator=gen)
+    got = _held_decode(dec, steps, cfg, params, prompt, DEC_GEN)
+    cache = got["cache"]
+    cache_bytes = cache["k"].nbytes + cache["v"].nbytes
+    steady = sum(got["step_ms"][1:]) / (DEC_GEN - 2)
+    # the bound of one step: every weight but the embedding (a gather of
+    # B rows) read once, and the cache; 2 operations per weight and token,
+    # and the attention's 4 per cached element and query head
+    weights = [t for k, t in params.items() if k not in ("embed", "layers")]
+    weights += list(params["layers"].values())
+    weight_bytes = sum(t.nbytes for t in weights)
+    flops = (2.0 * DEC_B * sum(t.numel() for t in weights)
+             + 4.0 * DEC_B * cfg.n_heads * cache["k"].shape[3] * cfg.hd
+             * cfg.n_layers)
+    bound_ms, bound_by = bound(weight_bytes + cache_bytes, flops,
+                               PEAK_BF16_FLOPS)
+    tok = got["generated"][:, -1:]
+    trace = _profile_call(lambda t: got["serve_step"](params, cache, t), tok,
+                          {"matmul": ("gemm", "gemv", "cutlass", "xmma",
+                                      "nvjet")})
+    row = dict(name=name, prefill_s=got["prefill_ms"] / 1e3,
+               prefill_ms_per_token=got["prefill_ms"] / DEC_PROMPT,
+               first_ms=got["step_ms"][0], steady_ms=steady,
+               tokens_per_s=DEC_B / (steady / 1e3),
+               peak_mib=got["peak_mib"], cache_mib=cache_bytes / 2**20,
+               bound_ms=bound_ms, bound_by=bound_by,
+               weight_bytes=weight_bytes, trace=trace,
+               kernels_per_step=trace["kernels"] if trace else None,
+               busy_share=(trace["busy_ms"] / steady if trace else None))
+    print(f"path {name}: prefill {row['prefill_s']:.3f} s "
+          f"({row['prefill_ms_per_token']:.3f} ms per token), first step "
+          f"{row['first_ms']:.3f} ms, steady {steady:.3f} ms per step (CUDA "
+          f"events, mean of {DEC_GEN - 2}), {row['tokens_per_s']:.1f} "
+          f"tokens/s, peak {got['peak_mib']:.1f} MiB, cache "
+          f"{row['cache_mib']:.1f} MiB; bound {bound_ms:.4f} ms "
+          f"({bound_by}: {weight_bytes} weight bytes but the embedding, "
+          f"and the cache); one step under torch.profiler: {trace}; busy "
+          f"share (its device ms over the steady ms) {row['busy_share']} "
+          f"({smi})")
+    held = _hold_against_forward(
+        f"lm_forward[{cfg.name}, B={DEC_B}, S={DEC_PROMPT + DEC_GEN - 1}] "
+        f"(decode's reference)", forward, RunConfig("flash"), cfg, params,
+        prompt, got, run_path)
+    del held["forward"]
+    row.update(held)
+    rows.append(row)
+    del got, cache, held
+
+    # -- the f8 cache against the bf16 cache --------------------------------
+    prompt = prompt[:F8_B, :F8_PROMPT]
+    last = {}
+    for label, dt in (("bf16", None), ("f8", torch.float8_e4m3fn)):
+        c = dec.init_cache(cfg, F8_B, F8_PROMPT, dtype=dt, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            last[label], c = dec.prefill(cfg, params, prompt, c)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        last[label + "_s"] = time.perf_counter() - t0
+        last[label + "_bytes"] = c["k"].nbytes + c["v"].nbytes
+        check(c["k"].dtype == (dt or cfg.torch_dtype), "cache dtype")
+    a, b = last["f8"].float().flatten(), last["bf16"].float().flatten()
+    corr = float(torch.corrcoef(torch.stack([a, b]))[0, 1])
+    top1 = float((last["f8"].argmax(-1) == last["bf16"].argmax(-1))
+                 .float().mean())
+    print(f"path lm_decode[{cfg.name}, f8 cache, B={F8_B}, prompt="
+          f"{F8_PROMPT}]: last logits vs the bf16 cache's: correlation "
+          f"{corr:.6f} (min {MIN_F8_CORR}), top-1 agreement {top1:.4f}; "
+          f"cache {last['f8_bytes'] / 2**20:.1f} MiB vs "
+          f"{last['bf16_bytes'] / 2**20:.1f}; prefill {last['f8_s']:.3f} s "
+          f"vs {last['bf16_s']:.3f} s (host clock)")
+    check(corr >= MIN_F8_CORR, f"f8 cache correlation {corr}")
+    check(last["f8_bytes"] * 2 == last["bf16_bytes"],
+          "the f8 cache must be half the bf16 cache")
+    rows.append(dict(name=f"lm_decode[{cfg.name}, f8 cache]",
+                     correlation=corr, top1_agreement=top1,
+                     cache_mib=last["f8_bytes"] / 2**20,
+                     bf16_cache_mib=last["bf16_bytes"] / 2**20,
+                     prefill_s=last["f8_s"], bf16_prefill_s=last["bf16_s"]))
+    del last, a, b
+
+    # -- the entry point, at full width on the default device ---------------
+    argv = ["--arch", cfg.name, "--batch", "4", "--prompt-len", "16",
+            "--gen", "32"]
+    t0 = time.perf_counter()
+    rc = serve.main(argv)
+    torch.cuda.synchronize()
+    print(f"path launch.serve.main({' '.join(argv)}): exit {rc} in "
+          f"{time.perf_counter() - t0:.1f} s (its parameters drawn on the "
+          f"card)")
+    check(rc == 0, f"launch.serve.main returned {rc}")
+    rows.append(dict(name="launch.serve.main", argv=argv, rc=rc))
+    torch.cuda.empty_cache()
+
+    # -- the VLM backbone: bf16, the served precision (timed; its distance
+    #    from the flash forward printed beside the forward's own from the
+    #    plain-attention forward), then f32 (held to the f32 flash forward,
+    #    the FFMA kernel, at TOL_LM_F32)
+    vcfg = get_config(VLM_ARCH)
+    check(vcfg.n_layers == 28 and vcfg.d_model == 1536
+          and vcfg.mrope_sections == (16, 24, 24), f"{VLM_ARCH} at full width")
+    t0 = time.perf_counter()
+    vparams = init_params(vcfg, gen, device=dev)
+    vision = torch.randn(VLM_B, VLM_VISION, vcfg.d_model, device=dev,
+                         generator=gen)
+    prompt = torch.randint(0, vcfg.vocab_size, (VLM_B, VLM_PROMPT),
+                           device=dev, generator=gen)
+    torch.cuda.synchronize()
+    print(f"{VLM_ARCH}: {vcfg.n_layers} layers, d_model {vcfg.d_model}, "
+          f"{vcfg.n_heads}/{vcfg.n_kv_heads} heads of {vcfg.hd}, M-RoPE "
+          f"{vcfg.mrope_sections}, {count_params(vcfg)} parameters "
+          f"({time.perf_counter() - t0:.1f} s to draw)")
+    rows.append(_vlm_decode("bf16", vcfg, vparams, vision, prompt,
+                            run_path))
+    vparams = {k: ({n: t.float() for n, t in v.items()}
+                   if isinstance(v, dict) else v.float())
+               for k, v in vparams.items()}      # the same weights in f32
+    rows.append(_vlm_decode("f32", dataclasses.replace(vcfg, dtype="float32"),
+                            vparams, vision, prompt, run_path))
+    return rows
+
+
+def _vlm_decode(label, cfg, params, vision, prompt, run_path) -> dict:
+    """The VLM's decode at `cfg`'s dtype: timed, and held against the
+    flash forward (f32: at TOL_LM_F32; bf16: printed beside the bf16
+    noise floor, the flash forward against the plain-attention one)."""
+    from repro_torch.models import RunConfig, decode as dec, forward, steps
+
+    f32 = label == "f32"
+    name = (f"lm_decode[{VLM_ARCH}, {label}, B={VLM_B}, vision="
+            f"{VLM_VISION}, prompt={VLM_PROMPT}, gen={VLM_GEN}]")
+    v = vision.to(cfg.torch_dtype)
+    got = _held_decode(dec, steps, cfg, params, prompt, VLM_GEN, vision=v)
+    steady = sum(got["step_ms"][1:]) / (VLM_GEN - 2)
+    row = dict(name=name, prefill_s=got["prefill_ms"] / 1e3,
+               first_ms=got["step_ms"][0], steady_ms=steady,
+               tokens_per_s=VLM_B / (steady / 1e3), peak_mib=got["peak_mib"])
+    print(f"path {name}: prefill {row['prefill_s']:.3f} s, first step "
+          f"{row['first_ms']:.3f} ms, steady {steady:.3f} ms per step, "
+          f"{row['tokens_per_s']:.1f} tokens/s, peak {got['peak_mib']:.1f} "
+          f"MiB")
+    held = _hold_against_forward(
+        f"lm_forward[{VLM_ARCH}, {label}, B={VLM_B}, S="
+        f"{VLM_PROMPT + VLM_GEN - 1}] (decode's reference)", forward,
+        RunConfig("flash"), cfg, params, prompt, got, run_path, vision=v,
+        tol=TOL_LM_F32 if f32 else None,
+        kernel="flash_attention_ffma" if f32 else "flash_attention_wgmma")
+    full = held.pop("forward")
+    if not f32:
+        seq = torch.cat([prompt, got["generated"][:, :-1]], dim=1)
+        plain = forward(cfg, params, seq, RunConfig("ref"), vision_embeds=v)
+        floor = float(_position_errors(full[:, -VLM_GEN:],
+                                       plain[:, -VLM_GEN:])[1].max())
+        print(f"  bf16 noise floor: the flash forward vs the plain-attention "
+              f"forward, worst position {floor:.4e} of its max (not a gate; "
+              f"the f32 run is)")
+        row["forward_vs_plain_rel_err"] = floor
+    row.update(held)
+    return row
 
 
 def main(argv=None) -> int:
@@ -3112,7 +3414,13 @@ def main(argv=None) -> int:
          "matmul": ("gemm", "cutlass", "xmma", "nvjet")})
     print(f"  device time by kernel group, one forward under torch.profiler "
           f"(ms): {lm_row['profile']}")
-    del params, logits, logits_ref
+    del logits, logits_ref
+
+    # -- LM decode and serve: the same parameters, then the VLM backbone ----
+    t0 = time.perf_counter()
+    path_rows.extend(_lm_decode_phase(cfg, params, run_path, smi))
+    print(f"lm decode phase: {time.perf_counter() - t0:.1f} s")
+    del params
 
     # the f32 forward takes the FFMA kernel: starcoder2-3b reduced to two
     # layers of four heads of 16 (f32), B = 2, a ragged S = 1000, held

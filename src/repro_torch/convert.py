@@ -2,10 +2,10 @@
 
 The JAX package's operators hand out their state as arrays (P, the
 (eta, K+1) coefficient table, the Block-ELL structure), and its LM its
-parameter tree.  These functions build the port's objects from exactly
-that state, so that both packages can be fed identical inputs: the
-coefficients are taken as given, never recomputed, and the weights are
-carried key by key.
+parameter tree and KV cache.  These functions build the port's objects
+from exactly that state, so that both packages can be fed identical
+inputs: the coefficients are taken as given, never recomputed, and the
+weights and caches are carried key by key.
 """
 from __future__ import annotations
 
@@ -63,10 +63,19 @@ def block_ell_from_numpy(blocks, indices, mask, n: int) -> BlockELL:
     return BlockELL(blocks=blocks, indices=indices, mask=mask, n=int(n))
 
 
+#: ml_dtypes' narrow floats (the JAX package's arrays after np.asarray)
+#: by name: the torch dtype of the same bits and the unsigned integer of
+#: the same width that carries them.
+_NARROW = {"bfloat16": (torch.bfloat16, np.uint16),
+           "float8_e4m3fn": (torch.float8_e4m3fn, np.uint8),
+           "float8_e5m2": (torch.float8_e5m2, np.uint8)}
+
+
 def _tensor_from_numpy(a) -> torch.Tensor:
     a = np.asarray(a)
-    if a.dtype.name == "bfloat16":   # ml_dtypes' bfloat16: same bits
-        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    if a.dtype.name in _NARROW:      # same bits, through an integer view
+        tdt, carrier = _NARROW[a.dtype.name]
+        return torch.from_numpy(a.view(carrier).copy()).view(tdt)
     return torch.from_numpy(a.copy())
 
 
@@ -79,3 +88,11 @@ def lm_params_from_numpy(tree: Mapping) -> Dict:
     return {key: (lm_params_from_numpy(val) if isinstance(val, Mapping)
                   else _tensor_from_numpy(val))
             for key, val in tree.items()}
+
+
+def lm_cache_from_numpy(tree: Mapping) -> Dict:
+    """The port's KV cache (`models.decode.init_cache`'s dict) from the JAX
+    package's cache after ``np.asarray``, key by key, as host tensors: K /
+    V keep their bf16 or f8 bits, ``idx`` becomes a 0-d integer tensor.
+    Decode state then crosses over as the weights do."""
+    return {key: _tensor_from_numpy(val) for key, val in tree.items()}

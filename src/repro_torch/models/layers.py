@@ -1,5 +1,6 @@
-"""Neural primitives of the dense LM forward: norms, rotary embeddings,
-FFNs and attention (the JAX package's `models/layers.py`).
+"""Neural primitives of the dense LM and the VLM backbone: norms, rotary
+embeddings (RoPE and M-RoPE), FFNs and attention (the JAX package's
+`models/layers.py`).
 
 Attention has the JAX package's three implementations: 'ref'
 (materialised logits), 'chunked' (a loop over query chunks) and 'flash'
@@ -10,7 +11,7 @@ its layouts: activations (B, S, D), heads (B, H, S, hd).
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -42,7 +43,7 @@ def layer_norm(x: Tensor, scale: Tensor, bias: Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Rotary position embeddings
+# Rotary position embeddings (+ M-RoPE)
 # ---------------------------------------------------------------------------
 def rope_freqs(head_dim: int, theta: float = 10_000.0,
                device=None) -> Tensor:
@@ -56,7 +57,31 @@ def apply_rope(x: Tensor, positions: Tensor,
     """x: (B, H, S, hd); positions: (B, S) absolute token positions."""
     d = x.shape[-1]
     freqs = rope_freqs(d, theta, device=x.device)              # (d/2,)
-    ang = positions[:, None, :, None].float() * freqs           # (B,1,S,d/2)
+    return _rotate(x, positions[:, None, :, None].float() * freqs)
+
+
+def apply_mrope(x: Tensor, positions: Tensor, sections: Tuple[int, ...],
+                theta: float = 10_000.0) -> Tensor:
+    """M-RoPE (Qwen2-VL): positions (B, 3, S) = (temporal, h, w) id
+    streams; `sections` splits the half-dim rotary frequency bands among
+    the streams, in order.  In the text-only backbone the three streams
+    coincide.  Each band is a slice of its stream, so no index tensor
+    crosses from the host."""
+    b, _, s = positions.shape
+    d = x.shape[-1]
+    if sum(sections) != d // 2:
+        raise ValueError(f"sections {tuple(sections)} must cover half the "
+                         f"head dim {d}")
+    freqs = rope_freqs(d, theta, device=x.device)              # (d/2,)
+    pos = torch.cat([positions[:, i:i + 1].float().expand(b, sec, s)
+                     for i, sec in enumerate(sections)], dim=1)  # (B,d/2,S)
+    ang = (pos * freqs[:, None]).transpose(1, 2)[:, None]      # (B,1,S,d/2)
+    return _rotate(x, ang)
+
+
+def _rotate(x: Tensor, ang: Tensor) -> Tensor:
+    """Rotate the two halves of x's last axis by `ang` (broadcast to
+    (B, 1, S, d/2)) in f32, then cast back to x's dtype."""
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
@@ -77,19 +102,30 @@ def _window_mask(rows: Tensor, cols: Tensor, causal: bool,
     return ok
 
 
+_F8 = (torch.float8_e4m3fn, torch.float8_e5m2)
+
+
+def _compute_dtype(x: Tensor) -> Tensor:
+    """An f8 cache computes in bf16 (the JAX package's rule); every other
+    dtype as it is stored."""
+    return x.to(torch.bfloat16) if x.dtype in _F8 else x
+
+
 def attention_ref(q, k, v, *, causal=True, window=0, scale=None,
                   kv_valid: Optional[Tensor] = None) -> Tensor:
     """Materialised-logits attention; q (B, Hq, Sq, hd), k / v
     (B, Hkv, Sk, hd).  The causal mask is bottom-right aligned (row i of
-    the queries is position Sk - Sq + i).  Products take the operands in
-    their storage dtype with f32 accumulation (here: operands widened to
-    f32, which is exact, then an f32 product), the probabilities are cast
-    to v's dtype before P V, and the output to q's dtype.
+    the queries is position Sk - Sq + i).  An f8 k / v is first widened to
+    bf16.  Products then take the operands in their storage dtype with
+    f32 accumulation (here: operands widened to f32, which is exact, then
+    an f32 product), the probabilities are cast to v's dtype before P V,
+    and the output to q's dtype.
     kv_valid: optional (B, Sk) bool mask of valid key slots."""
     b, hq, sq, d = q.shape
     _, hkv, sk, _ = k.shape
     group = hq // hkv
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    k, v = _compute_dtype(k), _compute_dtype(v)
     qg = q.reshape(b, hkv, group, sq, d).to(k.dtype).float()
     s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * scale
     dev = q.device

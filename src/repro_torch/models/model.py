@@ -1,5 +1,5 @@
-"""The dense decoder-only LM: full-sequence forward and loss (the JAX
-package's `models/model.py`, dense family).
+"""The dense decoder-only LM and the VLM backbone: full-sequence forward
+and loss (the JAX package's `models/model.py`, dense and VLM families).
 
 Layers run as a Python loop over the stacked ``(L, ...)`` parameters (the
 JAX package scans them).  The forward is the prefill step of the JAX
@@ -11,13 +11,14 @@ every layer's attention is one launch of the flash kernel.
 levers — remat, the sharding scheme, qkv sharding constraints, the MoE
 capacity and dispatch, unrolling the layer scan — steer XLA on a TPU mesh
 or the MoE path, neither of which the port has, and are left out.  MLA,
-MoE, RWKV, hymba, encoder-decoder and VLM configurations raise
-NotImplementedError naming their ROADMAP item.
+MoE, RWKV, hymba and encoder-decoder configurations raise
+NotImplementedError naming their ROADMAP item.  The KV-cache decode path
+is `models.decode`.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -64,12 +65,21 @@ def _qkv(cfg: ModelConfig, x: Tensor, p: Dict):
     return _split_heads(q, nq), _split_heads(k, nkv), _split_heads(v, nkv)
 
 
+def _rope(cfg: ModelConfig, x: Tensor, positions: Tensor) -> Tensor:
+    """RoPE at positions (B, S); M-RoPE for the VLM, whose three position
+    streams coincide in the text-only backbone (JAX `model.py:97-101`)."""
+    if cfg.mrope_sections:
+        b, s = positions.shape
+        return nn.apply_mrope(x, positions[:, None, :].expand(b, 3, s),
+                              cfg.mrope_sections, cfg.rope_theta)
+    return nn.apply_rope(x, positions, cfg.rope_theta)
+
+
 def attn_branch(cfg: ModelConfig, x: Tensor, p: Dict, run: RunConfig,
                 positions: Tensor, *, causal: bool = True,
                 window: int = 0) -> Tensor:
     q, k, v = _qkv(cfg, x, p)
-    q = nn.apply_rope(q, positions, cfg.rope_theta)
-    k = nn.apply_rope(k, positions, cfg.rope_theta)
+    q, k = _rope(cfg, q, positions), _rope(cfg, k, positions)
     out = nn.attention(q, k, v, impl=run.attn_impl, causal=causal,
                        window=window, chunk=run.attn_chunk)
     return _merge_heads(out) @ p["wo"]
@@ -93,11 +103,19 @@ def block(cfg: ModelConfig, x: Tensor, lp: Dict, run: RunConfig,
 
 
 def forward(cfg: ModelConfig, params: Dict, tokens: Tensor,
-            run: RunConfig = RunConfig()) -> Tensor:
-    """tokens (B, S) -> logits (B, S, V), on the device of the params."""
+            run: RunConfig = RunConfig(), *,
+            vision_embeds: Optional[Tensor] = None) -> Tensor:
+    """tokens (B, S) -> logits (B, S, V), on the device of the params.
+
+    vision_embeds: optional (B, nv, D) for the VLM; they replace the
+    first nv token embeddings (the vision frontend is a stub, as in the
+    JAX package)."""
     check_supported(cfg)
     B, S = tokens.shape
     x = params["embed"][tokens].to(cfg.torch_dtype)
+    if cfg.family == "vlm" and vision_embeds is not None:
+        nv = vision_embeds.shape[1]
+        x = torch.cat([vision_embeds.to(x.dtype), x[:, nv:]], dim=1)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     layer_params = params["layers"]
     for i in range(cfg.n_layers):

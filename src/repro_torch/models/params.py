@@ -39,8 +39,9 @@ class ParamMeta:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for a configuration the port's dense
-    forward does not run, naming its ROADMAP item."""
+    """Raise NotImplementedError for a configuration the port's forward
+    and decode do not run (they run the dense family and the VLM
+    backbone), naming its ROADMAP item."""
     what = None
     if cfg.mixer != "attention":
         what = f"the {cfg.mixer} mixer"
@@ -48,12 +49,10 @@ def check_supported(cfg: ModelConfig) -> None:
         what = "the MoE FFN"
     elif cfg.is_encoder_decoder:
         what = "the encoder-decoder (whisper) stack"
-    elif cfg.family == "vlm" or cfg.mrope_sections:
-        what = "the VLM backbone (M-RoPE, vision tokens)"
     if what is not None:
         raise NotImplementedError(
             f"{cfg.name}: {what} is not ported to PyTorch yet "
-            f"({NOT_PORTED_ITEM}: MoE, MLA, RWKV, hymba, whisper and VLM)")
+            f"({NOT_PORTED_ITEM}: MoE, MLA, RWKV, hymba and whisper)")
 
 
 def _attn_metas(cfg: ModelConfig, L: int) -> Dict[str, ParamMeta]:

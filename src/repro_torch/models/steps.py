@@ -1,16 +1,17 @@
 """Step builders of the LM (the JAX package's `models/steps.py`).
 
 `build_loss_fn` — forward and next-token loss, the eval loss of the JAX
-package's launcher — is ported.  The train step waits for a backward of
-the flash kernel (the JAX kernel has none either) and the optimizer; the
-serve step waits for the KV-cache decode path.  Both raise naming their
-ROADMAP item.
+package's launcher — and `build_serve_step` — one greedy decode step over
+the KV cache — are ported.  The train step waits for the optimizer and
+autograd through the reference attention (the JAX trainer runs
+``attn_impl="ref"``), and raises naming its ROADMAP item.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 from ..configs.base import ModelConfig
+from . import decode as dec
 from .model import RunConfig, forward, lm_loss
 from .params import NOT_PORTED_ITEM
 
@@ -19,7 +20,8 @@ def build_loss_fn(cfg: ModelConfig, run: RunConfig = RunConfig()):
     """loss_fn(params, batch) with batch {"tokens", "labels"} (B, S)."""
 
     def loss_fn(params: Dict, batch: Dict):
-        logits = forward(cfg, params, batch["tokens"], run)
+        logits = forward(cfg, params, batch["tokens"], run,
+                         vision_embeds=batch.get("vision_embeds"))
         return lm_loss(logits, batch["labels"])
 
     return loss_fn
@@ -28,10 +30,16 @@ def build_loss_fn(cfg: ModelConfig, run: RunConfig = RunConfig()):
 def build_train_step(cfg: ModelConfig, run: RunConfig = RunConfig()):
     raise NotImplementedError(
         f"the LM train step is not ported to PyTorch yet ({NOT_PORTED_ITEM}:"
-        f" train, with a backward of the flash kernel)")
+        f" training)")
 
 
 def build_serve_step(cfg: ModelConfig, run: RunConfig = RunConfig()):
-    raise NotImplementedError(
-        f"the LM serve step is not ported to PyTorch yet ({NOT_PORTED_ITEM}:"
-        f" decode and serve)")
+    """serve_step(params, cache, tokens (B, 1)) -> (next (B,), cache): one
+    batched decode step and its greedy token, in ``tokens.dtype``; the
+    cache is updated in place (`decode.decode_step`)."""
+
+    def serve_step(params: Dict, cache: Dict, tokens):
+        logits, cache = dec.decode_step(cfg, params, cache, tokens, run)
+        return logits.argmax(-1).to(tokens.dtype), cache
+
+    return serve_step

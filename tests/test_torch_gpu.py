@@ -3,7 +3,8 @@ a CUDA device, and the main path, the Section-V solvers, the lasso and SSL
 against float64 dense; both flash-attention kernels (tensor cores for
 bf16 at D = 64 and 128, FFMA otherwise, at every head dim to 256, on
 strided and unaligned views) and the reduced dense LM forward
-through them; the bf16 instances of the two sweeps; float64 signals cast
+through them; one KV-cache decode step with no host read (f32 and f8
+caches, the VLM's M-RoPE); the bf16 instances of the two sweeps; float64 signals cast
 at the plans' boundary; the 1-shard `cuda_halo` plan against the `cuda`
 plan; the SpMV's rectangular, accumulating launch on a general
 partition's couplings, and two calls of a 1-shard general plan bit for
@@ -497,6 +498,43 @@ def test_reduced_lm_forward_through_flash_kernel(cuda, arch):
     want = forward(cfg, params, toks, RunConfig("ref"))
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
     assert abs(float(lm_loss(got, toks)) - float(lm_loss(want, toks))) < 1e-4
+
+
+@pytest.mark.parametrize("arch,cache_dtype", [
+    ("starcoder2-3b", None), ("qwen2-vl-2b", None),
+    ("starcoder2-3b", torch.float8_e4m3fn)])
+def test_decode_step_reads_nothing_on_the_host(cuda, arch, cache_dtype):
+    """Two reduced layers in f32: a prefill of 8 tokens, then one serve
+    step under ``set_sync_debug_mode("error")`` (a host read in the step
+    raises); the cache stays on the card and its logits match the
+    forward's last prefilled position within 1e-4 (f8: correlation
+    > 0.98, the JAX package's f8 criterion)."""
+    from repro_torch.models import decode, steps
+
+    cfg = get_config(arch).reduced()
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = init_params(cfg, gen)
+    toks = torch.randint(0, cfg.vocab_size, (2, 9), device=cuda,
+                         generator=gen)
+    cache = decode.init_cache(cfg, 2, 9, dtype=cache_dtype)
+    assert cache["idx"].device.type == "cuda"
+    logits, cache = decode.prefill(cfg, params, toks[:, :8], cache)
+    serve_step = steps.build_serve_step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        nxt, cache = serve_step(params, cache, toks[:, 8:])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert nxt.shape == (2,) and int(cache["idx"]) == 9
+    assert cache["idx"].device.type == "cuda"
+    want = forward(cfg, params, toks, RunConfig("ref"))
+    if cache_dtype is None:
+        torch.testing.assert_close(logits, want[:, 7], atol=1e-4, rtol=0)
+    else:
+        corr = torch.corrcoef(torch.stack([logits.flatten(),
+                                           want[:, 7].flatten()]))[0, 1]
+        assert float(corr) > 0.98
 
 
 @pytest.mark.parametrize("K,eta", [(1, 1), (2, 7), (20, 7), (9, 3)])

@@ -35,6 +35,10 @@ def test_port_files_found():
                    "models/params.py", "models/layers.py", "models/model.py",
                    "models/steps.py"):
         assert f"src/repro_torch/{module}" in names, module
+    # KV-cache decode, the serve launcher and the VLM backbone's preset
+    for module in ("models/decode.py", "launch/__init__.py",
+                   "launch/serve.py", "configs/qwen2_vl_2b.py"):
+        assert f"src/repro_torch/{module}" in names, module
     # the sharded apply and the general partitions
     for module in ("dist/comm.py", "dist/sharded.py", "dist/partition.py",
                    "dist/backends/halo.py", "dist/backends/cuda_halo.py",

@@ -1,5 +1,6 @@
-"""The port's dense LM forward and its flash-attention plain version, held
-against the JAX package on the same numpy inputs and weights.
+"""The port's LM forward (dense presets and the VLM backbone) and its
+flash-attention plain version, held against the JAX package on the same
+numpy inputs and weights.
 
 Tolerances, each the JAX package's own for the same function:
 - flash attention: f32 2e-5, bf16 2e-2 (tests/test_kernels.py:69), the
@@ -306,8 +307,7 @@ def test_convert_carries_bf16_bits():
 
 @pytest.mark.parametrize("change", [{"mixer": "mla"}, {"mixer": "rwkv6"},
                                     {"mixer": "hymba"}, {"n_experts": 4},
-                                    {"n_encoder_layers": 2},
-                                    {"family": "vlm"}])
+                                    {"n_encoder_layers": 2}])
 def test_unported_families_name_their_roadmap_item(change):
     cfg = dataclasses.replace(get_config("qwen1.5-4b").reduced(), **change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -317,10 +317,20 @@ def test_unported_families_name_their_roadmap_item(change):
 
 
 def test_train_and_serve_steps_name_their_roadmap_item():
+    """The train step still names its ROADMAP item; the serve step is
+    ported and runs (tests/test_torch_decode.py holds it against JAX)."""
+    from repro_torch.models import decode
+
     cfg = get_config("starcoder2-3b").reduced()
-    for build in (steps.build_train_step, steps.build_serve_step):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build(cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        steps.build_train_step(cfg)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    cache = decode.init_cache(cfg, 2, 4, device="cpu")
+    tok = torch.zeros(2, 1, dtype=torch.int32)
+    nxt, out = steps.build_serve_step(cfg)(params, cache, tok)
+    assert out is cache and int(cache["idx"]) == 1
+    assert nxt.shape == (2,) and nxt.dtype == torch.int32
+    assert bool(((nxt >= 0) & (nxt < cfg.vocab_size)).all())
 
 
 # ---------------------------------------------------------------------------

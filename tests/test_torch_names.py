@@ -52,14 +52,11 @@ MODULE_GAPS = {
     "repro.ckpt.checkpoint": ITEM_11 + " (training)",
     "repro.optim": ITEM_11 + " (training)",
     "repro.optim.adamw": ITEM_11 + " (training)",
-    "repro.launch": ITEM_11,
-    "repro.launch.serve": ITEM_11 + " (decode and serve)",
     "repro.launch.train": ITEM_11 + " (training)",
     "repro.launch.dryrun": ITEM_11 + " (the dry-run)",
     "repro.launch.roofline": ITEM_11 + " (the dry-run)",
     "repro.launch.mesh": ITEM_11 + " (the dry-run)",
     "repro.launch.inputs": ITEM_11 + " (the dry-run)",
-    "repro.models.decode": ITEM_11 + " (decode and serve)",
     "repro.models.moe": ITEM_11 + " (other model families)",
     "repro.models.mamba": ITEM_11 + " (other model families)",
     "repro.models.rwkv6": ITEM_11 + " (other model families)",
@@ -68,7 +65,6 @@ MODULE_GAPS = {
     "repro.configs.rwkv6_1_6b": ITEM_11 + " (other model families)",
     "repro.configs.hymba_1_5b": ITEM_11 + " (other model families)",
     "repro.configs.whisper_large_v3": ITEM_11 + " (other model families)",
-    "repro.configs.qwen2_vl_2b": ITEM_11 + " (other model families)",
 }
 
 _JAXPR = BY_DESIGN + ": jaxpr machinery (analysis/jaxpr_walk.py)"
@@ -138,12 +134,13 @@ NAME_GAPS = {
         "jacobi_sweep_vmem_bytes": BY_DESIGN + ": a TPU name "
                                    "(jacobi_sweep_l2_bytes)"},
     "repro.models": {n: ITEM_11 for n in
-                     ("decode", "mamba", "moe", "rwkv6", "param_pspecs",
+                     ("mamba", "moe", "rwkv6", "param_pspecs",
                       "param_shapes")},
+    "repro.models.decode": {"cache_pspecs": ITEM_11 + " (sharding)"},
     "repro.models.layers": {n: ITEM_11 + " (other model families)" for n in
-                            ("apply_mrope", "group_norm_heads",
-                             "rwkv_channel_mix", "sinusoidal_at",
-                             "sinusoidal_positions", "token_shift")},
+                            ("group_norm_heads", "rwkv_channel_mix",
+                             "sinusoidal_at", "sinusoidal_positions",
+                             "token_shift")},
     "repro.models.model": {"encode": ITEM_11, "mla_branch": ITEM_11},
     "repro.models.params": {n: ITEM_11 + " (sharding)" for n in
                             ("param_pspecs", "param_shapes",
