@@ -145,7 +145,25 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    where bf16 alone sits at this model's noise floor.  Decode attends
    through the plain `attention_ref`, as the JAX package does outside
    its Pallas kernel;
-15. shows through the kernels' launch counters that every path ran through
+15. trains (`models.steps.build_train_step`, `launch.train`): (a) the
+   starcoder2-3b parameters of phase 7 at full width and depth, on
+   `SyntheticLMData` batches of 8 x 256 tokens, 6 steps at lr 1e-3
+   (autograd through the plain attention, the global-norm clip, AdamW
+   with float32 moments): step 0's loss equal to `build_loss_fn`'s, step
+   0's loss and gradients twice from the same state bit for bit, every
+   loss and grad norm finite, and step 0's batch at a lower loss after
+   the step (the JAX smoke test's learnable signal; over fresh batches
+   the loss does not fall in 6 steps at this lr); ms per step, the
+   optimizer's share, tokens/s, peak MiB and one step under the profiler;
+   (b) the launcher's fail-and-resume protocol (qwen1.5-4b reduced, a
+   crash at step 12, `--resume`) in three processes on the card, the
+   resumed losses at steps 12, 15 and 17 the uninterrupted run's; (c)
+   ``--dp-mode gossip --mesh 4x1`` on 4 gloo ranks on the card
+   (starcoder2-3b reduced, B 8, S 32, 4 steps): rank 0's losses within
+   1e-5 of the plain trainer's, the consensus's `cheb_step` launches
+   counted (K - 1 per leaf and per loss, each step), ms per step and the
+   gossip's share;
+16. shows through the kernels' launch counters that every path ran through
    its kernels: each path is driven once with the counts set to 0 just
    before it and read just after (a replayed graph launches without its
    wrappers: the served launches are each capture's launches times its
@@ -260,6 +278,36 @@ F8_B, F8_PROMPT = 8, 128
 MIN_F8_CORR = 0.98
 VLM_ARCH = "qwen2-vl-2b"
 VLM_B, VLM_VISION, VLM_PROMPT, VLM_GEN = 2, 64, 128, 16
+# The LM train phase: (a) starcoder2-3b at full width and depth, the
+# train step (autograd through the plain attention, the clip, AdamW) on
+# SyntheticLMData batches of TRAIN_B x TRAIN_S (seed 0) for TRAIN_STEPS
+# steps at TRAIN_LR; (b) the launcher's fail-and-resume protocol
+# (tests/test_checkpoint.py:66-102) in three processes on the card; (c)
+# the launcher's gossip data parallelism on GOSSIP_TRAIN_RANKS gloo ranks
+# on the card, rank 0's losses against the plain trainer's on the same
+# global batches within TOL_GOSSIP_TRAIN (exact consensus at K = 2).
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 8, 256, 6, 1e-3
+# Step 0's sliced in-place AdamW on TRAIN_REF_LEAF (30 slices of 37.7e6
+# elements at full width) against the JAX package's update of the whole
+# leaf in float32 from copies of its gradient and parameters, at the same
+# clip scale (the step's norm, itself held to the plain whole-leaf norm
+# within TOL_TRAIN_NORM: another summation order).  Both do the same
+# float32 operations in the same order, so m and v must be equal
+# (ULPS_TRAIN_M, ULPS_TRAIN_V units in the last place) and the bf16
+# parameters within ULPS_TRAIN_P.  Units are taken at the result's own
+# magnitude: a weight that its update nearly cancels (|p| ~ lr) turns
+# one float32 ulp of the update into many of the result.
+TRAIN_REF_LEAF = ("layers", "w_in")
+TOL_TRAIN_NORM = 1e-5
+ULPS_TRAIN_M, ULPS_TRAIN_V, ULPS_TRAIN_P = 0, 0, 1
+RESUME_ARGV = ["--arch", "qwen1.5-4b", "--smoke", "--steps", "18",
+               "--batch", "2", "--seq", "16", "--ckpt-every", "6",
+               "--log-every", "1"]
+RESUME_FAIL_AT, RESUME_HELD = 12, ("12", "15", "17")
+GOSSIP_TRAIN_RANKS = 4
+GOSSIP_TRAIN_ARGV = ["--arch", "starcoder2-3b", "--smoke", "--steps", "4",
+                     "--batch", "8", "--seq", "32", "--log-every", "1"]
+TOL_GOSSIP_TRAIN = 1e-5
 # Per-round final iterate vs the sweep's (the same f32 arithmetic, P h
 # products in another grouping); the guarded solve vs the unguarded one
 # (the same kernel launches in chunks); SSL predictions are compared where
@@ -348,6 +396,11 @@ SERVE_VIRTUAL, SERVE_VIRTUAL_RATE = 512, 20000.0
 SERVE_RATES, SERVE_WALL = (1000.0, 10000.0, 50000.0), 2000
 SERVE_MIN_OCCUPANCY = 2.0
 TRACE_REPLAYS = 3
+# A trace session whose records lack the replayed kernel (CUPTI lost them:
+# an H100 run's session of 3 replays held one device-to-device copy and
+# nothing else) is traced again, up to TRACE_SESSIONS in all; every
+# session is printed, and any host-to-device copy in any session fails.
+TRACE_SESSIONS = 3
 # The invariants phase (`repro_torch.analysis`): the run-time checks of
 # `check_plan` over the graph smoke shape's cuda and dense plans at B = 1
 # and 64 with three solves, on the 4 ranks over cuda_halo, halo and
@@ -975,22 +1028,30 @@ def _serving_phase(plan, dense, smi: str):
                 # CUPTI delivers a replayed graph's kernel records late and
                 # has dropped a single replay's (an H100 run traced only
                 # its copy-out): trace TRACE_REPLAYS replays in one session
-                torch.cuda.synchronize()
-                with profile(activities=[ProfilerActivity.CPU,
-                                         ProfilerActivity.CUDA]) as prof:
-                    for _ in range(TRACE_REPLAYS):
-                        e(x)
+                for session in range(1, TRACE_SESSIONS + 1):
                     torch.cuda.synchronize()
-                names = {}
-                for ev in prof.key_averages():
-                    if ev.device_type == DeviceType.CUDA:
-                        names[ev.key] = names.get(ev.key, 0) + ev.count
-                h2d = [k for k in names if "htod" in k.lower().replace(
-                    " ", "")]
-                check(any(kernel[name] in k for k in names) and not h2d,
-                      f"serving {name}: the trace of {TRACE_REPLAYS} replays "
-                      f"{names} must show {kernel[name]} and no "
-                      "host-to-device copy")
+                    with profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+                        for _ in range(TRACE_REPLAYS):
+                            e(x)
+                        torch.cuda.synchronize()
+                    names = {}
+                    for ev in prof.key_averages():
+                        if ev.device_type == DeviceType.CUDA:
+                            names[ev.key] = names.get(ev.key, 0) + ev.count
+                    h2d = [k for k in names if "htod" in k.lower().replace(
+                        " ", "")]
+                    check(not h2d, f"serving {name}: the trace of "
+                          f"{TRACE_REPLAYS} replays {names} must show no "
+                          "host-to-device copy")
+                    if any(kernel[name] in k for k in names):
+                        break
+                    print(f"  {name} B={B}: trace session {session} of "
+                          f"{TRACE_SESSIONS} holds no {kernel[name]} "
+                          f"record: {names}")
+                check(any(kernel[name] in k for k in names),
+                      f"serving {name}: none of {TRACE_SESSIONS} traces of "
+                      f"{TRACE_REPLAYS} replays shows {kernel[name]}")
                 traces[name] = names
                 print(f"  {name} B={B}: {TRACE_REPLAYS} replays under "
                       f"torch.profiler, kernels by count: {names}")
@@ -2411,6 +2472,386 @@ def _vlm_decode(label, cfg, params, vision, prompt, run_path) -> dict:
     return row
 
 
+def _step_bound(cfg, n_params: int, batch: int, seq: int):
+    """(bound_ms, terms): the train step's least time on the card: the
+    weights' products (6 operations per parameter and token, bf16), the
+    plain attention's (f32: Q K^T and P V, forward and twice backward,
+    over the causal half) and the optimizer's bytes (bf16 parameters and
+    gradients read, float32 m and v read and written, parameters written)
+    in turn."""
+    products = 6.0 * n_params * batch * seq / PEAK_BF16_FLOPS * 1e3
+    attention = (12.0 * batch * cfg.n_heads * seq * seq * cfg.hd / 2
+                 * cfg.n_layers / PEAK_F32_FLOPS * 1e3)
+    optimizer = 22.0 * n_params / PEAK_BYTES * 1e3
+    return products + attention + optimizer, dict(
+        products_ms=products, attention_ms=attention, optimizer_ms=optimizer)
+
+
+def _max_ulps(a, b) -> float:
+    """The largest |a - b| in units in the last place of their dtype at
+    max(|a|, |b|), in float64 on `b`'s device, one slice of the leading
+    axis at a time."""
+    fin = torch.finfo(a.dtype)
+    worst = 0.0
+    for x, y in zip(a, b):
+        x, y = x.to(y.device).double(), y.double()
+        mag = torch.maximum(x.abs(), y.abs()).clamp_min(fin.tiny)
+        ulp = torch.exp2(torch.floor(torch.log2(mag))) * fin.eps
+        worst = max(worst, float(((x - y).abs() / ulp).max()))
+    return worst
+
+
+def _plain_adamw_step0(g, p, gnorm, lr: float, b1=0.9, b2=0.95, eps=1e-8,
+                       wd=0.01):
+    """The JAX package's AdamW on one whole leaf at its first step (m = v
+    = 0), in float32: the clip at 1.0 by `gnorm`, then (p, m, v) after the
+    step.  Temporaries are freed as it goes (a float32 copy of a
+    full-width stacked leaf is 4.5 GB)."""
+    scale = torch.clamp(torch.ones_like(gnorm) / (gnorm + 1e-9), max=1.0)
+    g = g.float() * scale
+    m = (1 - b1) * g
+    v = (1 - b2) * torch.square(g)
+    del g
+    step = torch.ones((), dtype=torch.float32, device=m.device)
+    mhat = m / (1 - b1 ** step)
+    vhat = v / (1 - b2 ** step)
+    den = torch.sqrt(vhat) + eps
+    del vhat
+    upd = mhat / den
+    del mhat, den
+    p32 = p.float()
+    return (p32 - lr * (upd + wd * p32)).to(p.dtype), m, v
+
+
+def _check_step0_update(g, p0, gnorm_plain, gnorm, p1, m1, v1):
+    """Step 0's update of TRAIN_REF_LEAF (`p1`, `m1`, `v1`: its
+    parameters, m and v after the step, host copies) against
+    `_plain_adamw_step0` on the card from its gradient `g` and parameters
+    `p0` before the step (host copies), at the step's global norm
+    `gnorm`; that norm against the plain whole-leaf one, `gnorm_plain`."""
+    dev = gnorm.device
+    norm_rel = float(torch.abs(gnorm - gnorm_plain) / gnorm_plain)
+    p_want, m_want, v_want = _plain_adamw_step0(g.to(dev), p0.to(dev), gnorm,
+                                                TRAIN_LR)
+    got = dict(m=_max_ulps(m1, m_want), v=_max_ulps(v1, v_want),
+               p=_max_ulps(p1, p_want))
+    del p_want, m_want, v_want
+    print(f"  step 0's sliced in-place AdamW on {'/'.join(TRAIN_REF_LEAF)} "
+          f"{tuple(g.shape)} vs the plain whole-leaf float32 update: m "
+          f"{got['m']!r}, v {got['v']!r} float32 ulps, the {p0.dtype} "
+          f"parameters {got['p']!r} ulps (limits {ULPS_TRAIN_M}, "
+          f"{ULPS_TRAIN_V}, {ULPS_TRAIN_P}); the step's global norm "
+          f"{float(gnorm)!r} vs the plain one {float(gnorm_plain)!r} "
+          f"(rel {norm_rel:.3e}, tol {TOL_TRAIN_NORM})")
+    check(norm_rel <= TOL_TRAIN_NORM, f"the step's global norm vs the "
+          f"plain one: rel {norm_rel}")
+    check(got["m"] <= ULPS_TRAIN_M and got["v"] <= ULPS_TRAIN_V
+          and got["p"] <= ULPS_TRAIN_P,
+          f"step 0's update of {'/'.join(TRAIN_REF_LEAF)} vs the plain "
+          f"whole-leaf update (ulps): {got}")
+    return dict(got, norm_rel=norm_rel)
+
+
+def _lm_train_full(cfg, params, smi: str) -> dict:
+    """Phase (a): the train step at full width and depth.  Step 0's loss
+    against `build_loss_fn`'s; the loss and every gradient of step 0 twice
+    from the same state, bit for bit; TRAIN_STEPS steps timed (CUDA
+    events, the optimizer's share by events around `adamw_update`), every
+    loss and grad norm finite, step 0's update of TRAIN_REF_LEAF against
+    the plain whole-leaf update, and step 0's batch at a lower loss after
+    step 0; one more step under torch.profiler (busy share)."""
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import RunConfig, count_params, steps
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import leaves, leaves_with_paths
+
+    dev = torch.device("cuda")
+    run = RunConfig(attn_impl="ref")
+    data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=TRAIN_S,
+                           global_batch=TRAIN_B, seed=SEED)
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in data.batch_at(i).items()}
+               for i in range(TRAIN_STEPS + 1)]
+    name = (f"lm_train[{cfg.name}, B={TRAIN_B}, S={TRAIN_S}, "
+            f"{TRAIN_STEPS} steps, lr {TRAIN_LR}]")
+    loss_fn = steps.build_loss_fn(cfg, run)
+    with torch.no_grad():
+        eval_loss = loss_fn(params, batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss_a, grads_a = steps.loss_and_grads(loss_fn, params, batches[0])
+    torch.cuda.synchronize()
+    grads_s = time.perf_counter() - t0
+    grads_peak = torch.cuda.max_memory_allocated() / 2**20
+    loss_b, grads_b = steps.loss_and_grads(loss_fn, params, batches[0])
+    differ = ["/".join(k) for (k, a), (_, b) in zip(
+        leaves_with_paths(grads_a), leaves_with_paths(grads_b))
+        if not torch.equal(a, b)]
+    same_loss = bool(torch.equal(loss_a, loss_b))
+    print(f"path {name}: step 0's loss and gradients twice from the same "
+          f"state: loss {'equal' if same_loss else 'DIFFERENT'} bit for "
+          f"bit, gradients of {len(differ)} of "
+          f"{len(leaves(grads_a))} leaves differ {differ}; the "
+          f"first forward and backward {grads_s:.3f} s (host clock), peak "
+          f"{grads_peak:.1f} MiB")
+    check(same_loss and not differ,
+          f"step 0 twice from the same state: loss equal {same_loss}, "
+          f"gradients differ in {differ}")
+    del grads_b, loss_b
+    # step 0's gradient and parameters of TRAIN_REF_LEAF, and the plain
+    # whole-leaf global norm, for the plain update after step 0
+    gnorm_plain = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                                 for g in leaves(grads_a)))
+    # (host copies: device memory that the timed steps did not have
+    # before would change their allocations, and so their times)
+    outer, inner = TRAIN_REF_LEAF
+    g_ref = grads_a[outer][inner].cpu()
+    p_ref = params[outer][inner].cpu()
+    del grads_a
+    torch.cuda.empty_cache()
+
+    opt_state = adamw_init(params)
+    train_step = steps.build_train_step(cfg, run, lr=TRAIN_LR)
+    real_update = steps.adamw_update
+    opt_marks = []
+
+    def timed_update(*args, **kwargs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = real_update(*args, **kwargs)
+        b.record()
+        opt_marks.append((a, b))
+        return out
+
+    marks = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+             for _ in range(TRAIN_STEPS)]
+    metrics = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(steps, "adamw_update", timed_update):
+        for i, (a, b) in enumerate(marks):
+            a.record()
+            params, opt_state, m = train_step(params, opt_state, batches[i])
+            b.record()
+            metrics.append(m)
+            if i == 0:      # the JAX smoke test's learnable signal
+                with torch.no_grad():
+                    again = loss_fn(params, batches[0])
+                after0 = [t[outer][inner].cpu()
+                          for t in (params, opt_state.m, opt_state.v)]
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    step_ms = [a.elapsed_time(b) for a, b in marks]
+    opt_ms = [a.elapsed_time(b) for a, b in opt_marks]
+    losses = [float(m["loss"]) for m in metrics]
+    gnorms = [float(m["grad_norm"]) for m in metrics]
+    check(int(opt_state.step) == TRAIN_STEPS, "the optimizer's step count")
+    steady = sum(step_ms[1:]) / (TRAIN_STEPS - 1)
+    opt_steady = sum(opt_ms[1:]) / (TRAIN_STEPS - 1)
+    n_params = count_params(cfg)
+    bound_ms, terms = _step_bound(cfg, n_params, TRAIN_B, TRAIN_S)
+    trace = _profile_call(
+        lambda b: train_step(params, opt_state, b), batches[TRAIN_STEPS],
+        {"matmul": ("gemm", "gemv", "cutlass", "xmma", "nvjet")})
+    again = float(again)
+    ref_ulps = _check_step0_update(g_ref, p_ref, gnorm_plain,
+                                   metrics[0]["grad_norm"], *after0)
+    del g_ref, p_ref, after0
+    busy = trace["busy_ms"] / steady if trace else None
+    row = dict(name=name, losses=losses, grad_norms=gnorms,
+               eval_loss=float(eval_loss), batch0_after_step0=again,
+               step_ms=step_ms,
+               steady_ms=steady, first_ms=step_ms[0],
+               optimizer_ms=opt_ms, optimizer_share=opt_steady / steady,
+               tokens_per_s=TRAIN_B * TRAIN_S / (steady / 1e3),
+               step0_update_vs_plain=ref_ulps,
+               peak_mib=peak, grads_peak_mib=grads_peak, bound_ms=bound_ms,
+               bound_terms=terms, trace=trace, busy_share=busy,
+               deterministic=True)
+    print(f"path {name}: losses {[round(x, 6) for x in losses]}, grad "
+          f"norms {[round(x, 4) for x in gnorms]}; step 0's loss "
+          f"{losses[0]!r} vs build_loss_fn's {float(eval_loss)!r}, and on "
+          f"the same batch after step 0 {again!r}; steady "
+          f"{steady:.3f} ms per step (CUDA events, mean of steps 1-"
+          f"{TRAIN_STEPS - 1}; first {step_ms[0]:.3f}), the optimizer "
+          f"{opt_steady:.3f} ms ({100 * opt_steady / steady:.1f}%), "
+          f"{row['tokens_per_s']:.1f} tokens/s, peak {peak:.1f} MiB; bound "
+          f"{bound_ms:.3f} ms ({terms}); one more step under torch.profiler:"
+          f" {trace}; busy share (its device ms over the steady ms) {busy} "
+          f"({smi})")
+    check(losses[0] == float(eval_loss),
+          f"step 0's loss {losses[0]} vs build_loss_fn's {float(eval_loss)}")
+    check(all(math.isfinite(x) for x in losses + gnorms),
+          "every loss and grad norm must be finite")
+    check(again < losses[0], f"one step must lower its batch's loss: "
+          f"{losses[0]} -> {again}")
+    return row
+
+
+def _launcher_runs(argvs) -> list:
+    """`python -m repro_torch.launch.train` in one process per argv, all
+    at once, on the card; each waited for (killed past 600 s)."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train"] + argv, cwd=ROOT,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for argv in argvs]
+    out = []
+    for proc in procs:
+        try:
+            stdout, stderr = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, stderr = proc.communicate()
+        out.append(dict(rc=proc.returncode, stdout=stdout,
+                        stderr=stderr[-2000:],
+                        seconds=time.perf_counter() - t0))
+    return out
+
+
+def _printed_losses(stdout: str) -> dict:
+    return {line.split()[2]: line.split()[4] for line in stdout.splitlines()
+            if line.startswith("[train] step")}
+
+
+def _lm_train_resume(tmp: str) -> dict:
+    """Phase (b): the launcher crashes at RESUME_FAIL_AT and resumes; the
+    resumed run prints the uninterrupted run's losses at RESUME_HELD."""
+    ref, crash = _launcher_runs([
+        RESUME_ARGV + ["--ckpt-dir", f"{tmp}/ref"],
+        RESUME_ARGV + ["--ckpt-dir", f"{tmp}/ft", "--fail-at-step",
+                       str(RESUME_FAIL_AT)]])
+    resume, = _launcher_runs([RESUME_ARGV + ["--ckpt-dir", f"{tmp}/ft",
+                                             "--resume"]])
+    for what, r, rc in (("uninterrupted", ref, 0), ("crash", crash, 42),
+                        ("resume", resume, 0)):
+        check(r["rc"] == rc, f"launch.train {what}: exit {r['rc']}, not "
+              f"{rc}: {r['stderr']}")
+    want, got = _printed_losses(ref["stdout"]), _printed_losses(
+        resume["stdout"])
+    held = {s: (want.get(s), got.get(s)) for s in RESUME_HELD}
+    resumed = [line for line in resume["stdout"].splitlines()
+               if "resumed from" in line]
+    print(f"path launch.train fail-and-resume ({' '.join(RESUME_ARGV)}): "
+          f"exits {ref['rc']} / {crash['rc']} / {resume['rc']} in "
+          f"{ref['seconds']:.1f} / {crash['seconds']:.1f} (side by side) / "
+          f"{resume['seconds']:.1f} s; {resumed}; losses at steps "
+          f"{RESUME_HELD} (uninterrupted, resumed): {held}")
+    check(len(resumed) == 1, "the resumed run must resume")
+    check(all(a is not None and a == b for a, b in held.values()),
+          f"resumed losses {held}")
+    return dict(name="launch.train fail-and-resume", argv=RESUME_ARGV,
+                rcs=[ref["rc"], crash["rc"], resume["rc"]],
+                seconds=[ref["seconds"], crash["seconds"],
+                         resume["seconds"]], resumed=resumed[0], held=held)
+
+
+def _gossip_train_rank(argv) -> dict:
+    """One gossip rank of the launcher (`launch.train.run` over the default
+    group): rank 0's record, the `cheb_step` launches each rank counted
+    in its own run (gathered, by rank), and the seconds of each of rank
+    0's `gossip_mean_tree` calls (the card synchronized around it)."""
+    import torch.distributed as dist
+    from repro_torch.dist import gossip
+    from repro_torch.kernels.cheb_step import cheb_step
+    from repro_torch.launch import train
+
+    real = gossip.gossip_mean_tree
+    spent = []
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    cheb_step.launches = 0
+    with mock.patch.object(gossip, "gossip_mean_tree", timed):
+        rec = train.run(train.parse_args(argv), dist.group.WORLD)
+    launched = cheb_step.launches
+    per_rank = [None] * dist.get_world_size()
+    dist.all_gather_object(per_rank, launched)
+    rec.update(cheb_step_launches=per_rank, gossip_s=spent)
+    return rec
+
+
+def _lm_train_gossip(smi: str) -> dict:
+    """Phase (c): `--dp-mode gossip --mesh 4x1` on GOSSIP_TRAIN_RANKS gloo
+    ranks on the card against the plain trainer in this process; the
+    consensus runs `cheb_step` (K - 1 launches per recurrence: one per
+    gradient leaf and one for the loss, each step), counted on each rank."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.gossip import consensus_coeffs
+    from repro_torch.examples import spawn
+    from repro_torch.launch import train
+    from repro_torch.models import params as mparams
+    from repro_torch.tree import leaves
+
+    world = GOSSIP_TRAIN_RANKS
+    argv = GOSSIP_TRAIN_ARGV + ["--dp-mode", "gossip", "--mesh",
+                                f"{world}x1"]
+    t0 = time.perf_counter()
+    rec = spawn(_gossip_train_rank, world, argv)
+    _stop_resource_tracker()
+    spawn_s = time.perf_counter() - t0
+    plain = train.run(train.parse_args(GOSSIP_TRAIN_ARGV))
+    args = train.parse_args(argv)
+    cfg = get_config(args.arch).reduced()
+    n_leaves = len(leaves(mparams.abstract_params(cfg)))
+    K = len(consensus_coeffs(world)) - 1
+    want_launches = (K - 1) * (n_leaves + 1) * args.steps
+    diffs = {s: abs(rec["losses"][s] - plain["losses"][s])
+             for s in plain["losses"]}
+    steady = rec["step_s"][1:]
+    step_ms = 1e3 * sum(steady) / len(steady)
+    gossip_ms = 1e3 * sum(rec["gossip_s"][1:]) / len(steady)
+    name = (f"lm_train[{cfg.name}, gossip, {world} ranks, B={args.batch}, "
+            f"S={args.seq}, {args.steps} steps]")
+    print(f"path {name}: rank 0's losses {rec['losses']} vs the plain "
+          f"trainer's {plain['losses']} (max |d| {max(diffs.values()):.3e}, "
+          f"tol {TOL_GOSSIP_TRAIN}); cheb_step launches by rank "
+          f"{rec['cheb_step_launches']} (each: K = {K}: {K - 1} per "
+          f"recurrence x ({n_leaves} leaves + the loss) x {args.steps} "
+          f"steps = {want_launches}); steady {step_ms:.3f} ms per step (host clock, "
+          f"steps 1-{args.steps - 1}), gossip_mean_tree {gossip_ms:.3f} ms "
+          f"({100 * gossip_ms / step_ms:.1f}%); plain {1e3 * sum(plain['step_s'][1:]) / len(steady):.3f} ms "
+          f"per step; the spawn {spawn_s:.1f} s ({smi})")
+    check(rec["cheb_step_launches"] == [want_launches] * world,
+          f"gossip cheb_step launches by rank {rec['cheb_step_launches']}, "
+          f"not {want_launches} each")
+    check(max(diffs.values()) <= TOL_GOSSIP_TRAIN,
+          f"gossip losses vs plain: {diffs}")
+    return dict(name=name, losses=rec["losses"], plain_losses=plain["losses"],
+                max_abs_loss_diff=max(diffs.values()),
+                cheb_step_launches=rec["cheb_step_launches"],
+                cheb_step_launches_sum=sum(rec["cheb_step_launches"]),
+                steady_ms=step_ms, gossip_ms=gossip_ms,
+                gossip_share=gossip_ms / step_ms,
+                plain_steady_ms=1e3 * sum(plain["step_s"][1:]) / len(steady),
+                spawn_s=spawn_s, K=K, leaves=n_leaves)
+
+
+def _lm_train_phase(cfg, params, smi: str) -> list:
+    """Training: (a) full width and depth in this process, (b) the
+    launcher's fail-and-resume protocol, (c) gossip on 4 ranks."""
+    import tempfile
+
+    rows = [_lm_train_full(cfg, params, smi)]
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        rows.append(_lm_train_resume(tmp))
+    rows.append(_lm_train_gossip(smi))
+    return rows
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3420,7 +3861,17 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     path_rows.extend(_lm_decode_phase(cfg, params, run_path, smi))
     print(f"lm decode phase: {time.perf_counter() - t0:.1f} s")
-    del params
+
+    # -- LM training: the same parameters, then the launcher ---------------
+    t0 = time.perf_counter()
+    train_rows = _lm_train_phase(cfg, params, smi)
+    path_rows.extend(train_rows)
+    gossip_train = train_rows[-1]["cheb_step_launches_sum"]
+    path_launches["cheb_step"] += gossip_train
+    sharded_launches["cheb_step"] += gossip_train
+    print(f"lm train phase: {time.perf_counter() - t0:.1f} s")
+    del params, train_rows
+    torch.cuda.empty_cache()
 
     # the f32 forward takes the FFMA kernel: starcoder2-3b reduced to two
     # layers of four heads of 16 (f32), B = 2, a ragged S = 1000, held
@@ -3488,7 +3939,8 @@ def main(argv=None) -> int:
             bound_touched_ms=coupling["bound_touched_ms"],
             label=SHARD_LABEL),
         row("cheb_step", "cheb_step.cu", "src/repro/kernels/cheb_step.py:66",
-            step_row, gossip_leaf=gossip_step),
+            step_row, gossip_leaf=gossip_step,
+            gossip_train_launches=gossip_train),
         row("cheb_sweep", "cheb_sweep.cu",
             "src/repro/kernels/cheb_sweep.py:121", sweep_row,
             stored_per_nnz=SL.stored_per_nnz),

@@ -2,10 +2,10 @@
 
 The JAX package's operators hand out their state as arrays (P, the
 (eta, K+1) coefficient table, the Block-ELL structure), and its LM its
-parameter tree and KV cache.  These functions build the port's objects
-from exactly that state, so that both packages can be fed identical
-inputs: the coefficients are taken as given, never recomputed, and the
-weights and caches are carried key by key.
+parameter tree, KV cache and optimizer state.  These functions build the
+port's objects from exactly that state, so that both packages can be fed
+identical inputs: the coefficients are taken as given, never recomputed,
+and the weights, caches and moments are carried key by key.
 """
 from __future__ import annotations
 
@@ -14,8 +14,10 @@ from typing import Callable, Dict, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from .ckpt.checkpoint import tensor_from_numpy
 from .core.graph import BlockELL
 from .dist.operator import GraphOperator
+from .optim.adamw import AdamWState
 
 
 def _no_multiplier(lam):
@@ -63,22 +65,6 @@ def block_ell_from_numpy(blocks, indices, mask, n: int) -> BlockELL:
     return BlockELL(blocks=blocks, indices=indices, mask=mask, n=int(n))
 
 
-#: ml_dtypes' narrow floats (the JAX package's arrays after np.asarray)
-#: by name: the torch dtype of the same bits and the unsigned integer of
-#: the same width that carries them.
-_NARROW = {"bfloat16": (torch.bfloat16, np.uint16),
-           "float8_e4m3fn": (torch.float8_e4m3fn, np.uint8),
-           "float8_e5m2": (torch.float8_e5m2, np.uint8)}
-
-
-def _tensor_from_numpy(a) -> torch.Tensor:
-    a = np.asarray(a)
-    if a.dtype.name in _NARROW:      # same bits, through an integer view
-        tdt, carrier = _NARROW[a.dtype.name]
-        return torch.from_numpy(a.view(carrier).copy()).view(tdt)
-    return torch.from_numpy(a.copy())
-
-
 def lm_params_from_numpy(tree: Mapping) -> Dict:
     """The port's LM parameter dict from a nested mapping of numpy arrays
     (the JAX package's `init_params` tree after ``np.asarray``), key by
@@ -86,7 +72,7 @@ def lm_params_from_numpy(tree: Mapping) -> Dict:
     ``(L, ...)`` layout and key names are the port's own
     (`models.params.abstract_params`)."""
     return {key: (lm_params_from_numpy(val) if isinstance(val, Mapping)
-                  else _tensor_from_numpy(val))
+                  else tensor_from_numpy(val))
             for key, val in tree.items()}
 
 
@@ -95,4 +81,14 @@ def lm_cache_from_numpy(tree: Mapping) -> Dict:
     package's cache after ``np.asarray``, key by key, as host tensors: K /
     V keep their bf16 or f8 bits, ``idx`` becomes a 0-d integer tensor.
     Decode state then crosses over as the weights do."""
-    return {key: _tensor_from_numpy(val) for key, val in tree.items()}
+    return {key: tensor_from_numpy(val) for key, val in tree.items()}
+
+
+def adamw_state_from_numpy(state) -> AdamWState:
+    """The port's `optim.adamw.AdamWState` from the JAX package's
+    ``AdamWState(step, m, v)`` after ``np.asarray`` (anything with those
+    three attributes): step a 0-d int32 host tensor, m and v host trees
+    of the same keys and dtypes (float32)."""
+    return AdamWState(
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32),
+        m=lm_params_from_numpy(state.m), v=lm_params_from_numpy(state.v))

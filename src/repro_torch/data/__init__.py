@@ -1,6 +1,5 @@
-"""Data of the port: the paper's graph signals (`graph_signal_batch`).
-The JAX package's `SyntheticLMData` comes with the LM training slice
-(ROADMAP.md, queue 1 item 11)."""
-from .pipeline import graph_signal_batch
+"""Data of the port: the paper's graph signals (`graph_signal_batch`) and
+the LM's synthetic token stream (`SyntheticLMData`)."""
+from .pipeline import SyntheticLMData, graph_signal_batch
 
-__all__ = ["graph_signal_batch"]
+__all__ = ["SyntheticLMData", "graph_signal_batch"]

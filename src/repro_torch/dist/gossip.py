@@ -46,6 +46,7 @@ import torch.distributed as dist
 
 from ..core import chebyshev as cheb
 from ..kernels import ops
+from ..tree import tree_map
 from . import faults, sharded
 from . import quantize as q
 
@@ -209,17 +210,7 @@ def gossip_mean_tree(tree, group, coeffs, *, quantize: bool = False,
                      fault_spec=None, degradation: str = "zero_fill"):
     """:func:`gossip_mean` mapped over a tree of tensors (nested dicts,
     lists and tuples): every leaf is averaged over the ring on its own,
-    one recurrence of K rounds per leaf."""
-    if isinstance(tree, dict):
-        return {k: gossip_mean_tree(v, group, coeffs, quantize=quantize,
-                                    fault_spec=fault_spec,
-                                    degradation=degradation)
-                for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(gossip_mean_tree(v, group, coeffs,
-                                           quantize=quantize,
-                                           fault_spec=fault_spec,
-                                           degradation=degradation)
-                          for v in tree)
-    return gossip_mean(tree, group, coeffs, quantize=quantize,
-                       fault_spec=fault_spec, degradation=degradation)
+    one recurrence of K rounds per leaf, in `repro_torch.tree` order."""
+    return tree_map(lambda x: gossip_mean(x, group, coeffs, quantize=quantize,
+                                          fault_spec=fault_spec,
+                                          degradation=degradation), tree)

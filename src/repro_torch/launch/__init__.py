@@ -1,2 +1,2 @@
-"""Launchers of the port: the batched LM serving driver (`serve`).  The
-trainer and the TPU dry-run wait for ROADMAP.md queue 1 item 11."""
+"""Launchers of the port: the LM trainer (`train`) and the batched LM
+server (`serve`).  The TPU dry-run waits for ROADMAP.md queue 1 item 11."""

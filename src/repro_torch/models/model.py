@@ -117,9 +117,13 @@ def forward(cfg: ModelConfig, params: Dict, tokens: Tensor,
         nv = vision_embeds.shape[1]
         x = torch.cat([vision_embeds.to(x.dtype), x[:, nv:]], dim=1)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
-    layer_params = params["layers"]
+    # one unbind per stacked leaf: its backward stacks the layers'
+    # gradients once, where a view per layer would add a full-size
+    # zero-padded gradient per layer
+    layer_params = {name: t.unbind(0)
+                    for name, t in params["layers"].items()}
     for i in range(cfg.n_layers):
-        lp = {name: t[i] for name, t in layer_params.items()}
+        lp = {name: ts[i] for name, ts in layer_params.items()}
         x = block(cfg, x, lp, run, positions)
     if cfg.norm == "ln":
         x = nn.layer_norm(x, params["final_norm"], params["final_norm_bias"])

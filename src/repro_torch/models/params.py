@@ -20,6 +20,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig
+from ..tree import leaves, tree_map
 
 #: Where the model families the port does not run yet stand in ROADMAP.md.
 NOT_PORTED_ITEM = "ROADMAP.md, queue 1 item 11"
@@ -112,16 +113,6 @@ def abstract_params(cfg: ModelConfig) -> Dict:
     return tree
 
 
-def _walk(tree: Dict, prefix=()):
-    """(path, meta) in sorted key order: the JAX package's leaf order."""
-    for key in sorted(tree):
-        val = tree[key]
-        if isinstance(val, dict):
-            yield from _walk(val, prefix + (key,))
-        else:
-            yield prefix + (key,), val
-
-
 def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
                 dtype: Optional[torch.dtype] = None) -> Dict:
     """Materialise the parameter tree on `device` (None: the card).
@@ -137,23 +128,19 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
 
     dev = resolve_device(device)
     dtype = dtype or cfg.torch_dtype
-    out: Dict = {}
-    for path, meta in _walk(abstract_params(cfg)):
+
+    def draw(meta: ParamMeta) -> torch.Tensor:
         if meta.init == "zeros":
-            leaf = torch.zeros(meta.shape, dtype=dtype, device=dev)
-        elif meta.init == "ones":
-            leaf = torch.ones(meta.shape, dtype=dtype, device=dev)
-        else:
-            leaf = torch.randn(meta.shape, generator=generator,
-                               dtype=torch.float32, device=dev)
-            leaf = leaf.mul_(meta.scale).to(dtype)
-        node = out
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = leaf
-    return out
+            return torch.zeros(meta.shape, dtype=dtype, device=dev)
+        if meta.init == "ones":
+            return torch.ones(meta.shape, dtype=dtype, device=dev)
+        leaf = torch.randn(meta.shape, generator=generator,
+                           dtype=torch.float32, device=dev)
+        return leaf.mul_(meta.scale).to(dtype)
+
+    return tree_map(draw, abstract_params(cfg))
 
 
 def count_params(cfg: ModelConfig) -> int:
     """Number of parameters in the tree (biases and norms included)."""
-    return sum(math.prod(m.shape) for _, m in _walk(abstract_params(cfg)))
+    return sum(math.prod(m.shape) for m in leaves(abstract_params(cfg)))

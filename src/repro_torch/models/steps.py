@@ -1,19 +1,24 @@
 """Step builders of the LM (the JAX package's `models/steps.py`).
 
-`build_loss_fn` — forward and next-token loss, the eval loss of the JAX
-package's launcher — and `build_serve_step` — one greedy decode step over
-the KV cache — are ported.  The train step waits for the optimizer and
-autograd through the reference attention (the JAX trainer runs
-``attn_impl="ref"``), and raises naming its ROADMAP item.
+`build_loss_fn` — forward and next-token loss — `build_train_step` — the
+loss and its gradients by autograd, the global-norm clip and AdamW — and
+`build_serve_step` — one greedy decode step over the KV cache.  The
+trainer attends through the plain attention (`attn_impl="ref"`, or
+"chunked", which is "ref" up to 1024 tokens), as the JAX trainer does:
+the flash kernels, like the JAX package's, have no backward.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict, Tuple
+
+import torch
 
 from ..configs.base import ModelConfig
+from ..optim.adamw import AdamWState, adamw_update, clip_scale, global_norm
+from ..tree import leaves, tree_map
 from . import decode as dec
 from .model import RunConfig, forward, lm_loss
-from .params import NOT_PORTED_ITEM
+from .params import check_supported
 
 
 def build_loss_fn(cfg: ModelConfig, run: RunConfig = RunConfig()):
@@ -27,10 +32,44 @@ def build_loss_fn(cfg: ModelConfig, run: RunConfig = RunConfig()):
     return loss_fn
 
 
-def build_train_step(cfg: ModelConfig, run: RunConfig = RunConfig()):
-    raise NotImplementedError(
-        f"the LM train step is not ported to PyTorch yet ({NOT_PORTED_ITEM}:"
-        f" training)")
+def loss_and_grads(loss_fn: Callable, params: Dict,
+                   batch: Dict) -> Tuple[torch.Tensor, Dict]:
+    """(loss, grads): the loss detached and its gradient with respect to
+    every leaf of `params`, a tree of the same keys, shapes and dtypes
+    (the stacked ``(L, ...)`` leaves get one gradient each).  `params`
+    is not modified and need not require grad."""
+    with torch.enable_grad():
+        live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        loss = loss_fn(live, batch)
+        grads = iter(torch.autograd.grad(
+            loss, leaves(live)))
+    return loss.detach(), tree_map(lambda _: next(grads), live)
+
+
+def build_train_step(cfg: ModelConfig, run: RunConfig = RunConfig(),
+                     lr: float = 3e-4, max_grad_norm: float = 1.0,
+                     weight_decay: float = 0.01):
+    """train_step(params, opt_state, batch) -> (params, opt_state,
+    {"loss", "grad_norm", "step"}): the gradients by autograd, clipped to
+    `max_grad_norm` by their global norm, then AdamW.  The parameters and
+    the state are updated in place (`optim.adamw.adamw_update`) and
+    returned."""
+    check_supported(cfg)
+    if run.attn_impl == "flash":
+        raise ValueError("the flash kernels have no backward (neither has "
+                         "the JAX package's): train with attn_impl='ref'")
+    loss_fn = build_loss_fn(cfg, run)
+
+    def train_step(params: Dict, opt_state: AdamWState, batch: Dict):
+        loss, grads = loss_and_grads(loss_fn, params, batch)
+        gnorm = global_norm(grads)
+        params, opt_state = adamw_update(
+            grads, opt_state, params, lr=lr, weight_decay=weight_decay,
+            grad_scale=clip_scale(gnorm, max_grad_norm))
+        metrics = {"loss": loss, "grad_norm": gnorm, "step": opt_state.step}
+        return params, opt_state, metrics
+
+    return train_step
 
 
 def build_serve_step(cfg: ModelConfig, run: RunConfig = RunConfig()):

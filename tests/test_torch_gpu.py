@@ -12,7 +12,8 @@ bit; the wire codec on the card byte for byte the CPU's, and the faulted
 sharded apply (2 gloo ranks on the card) equal to the CPU's; the serving
 entries (`plan.compiled`, one CUDA graph per bucket) equal to the eager
 plan calls bit for bit, captured once per bucket, with no host-to-device
-copy after plan build.
+copy after plan build; two train steps (autograd, the clip, AdamW) on the
+card against the same steps on the CPU.
 
 They carry the `gpu` marker and skip without a card (decided inside the
 `cuda` fixture, never at import).  The machine with the card has no JAX,
@@ -855,3 +856,56 @@ def test_no_host_to_device_copy_after_plan_build(serve_plan, kind):
              if e.device_type == DeviceType.CUDA]
     assert names, "the profiler saw no device work"
     assert not [k for k in names if "htod" in k.lower().replace(" ", "")]
+
+
+# ---------------------------------------------------------------------------
+# the train step on the card against the same step on the CPU
+# ---------------------------------------------------------------------------
+def _tree_to(tree, dev):
+    return {k: (_tree_to(v, dev) if isinstance(v, dict) else v.to(dev))
+            for k, v in tree.items()}
+
+
+def _tree_max_abs(a, b):
+    return max((_tree_max_abs(v, b[k]) if isinstance(v, dict)
+                else float((v.cpu().float() - b[k].float()).abs().max()))
+               for k, v in a.items())
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-3b", "qwen1.5-4b",
+                                  "qwen2-vl-2b"])
+def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """Two reduced layers in f32, two train steps (autograd through the
+    plain attention, the clip, AdamW) from the same weights and batches on
+    the card and on the CPU: loss and grad norm within 1e-5 (relative for
+    the norm), params within 2e-5, m and v within 5e-5 of the largest
+    (tests/test_torch_train.py's tolerances against the JAX step)."""
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import steps
+    from repro_torch.optim import adamw_init
+
+    cfg = get_config(arch).reduced()
+    host = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = _tree_to(host, cuda)
+    s_host, s_card = adamw_init(host), adamw_init(card)
+    assert s_card.step.device.type == "cuda"
+    data = SyntheticLMData(
+        vocab_size=cfg.vocab_size, seq_len=16, global_batch=2, seed=0,
+        n_vision_tokens=cfg.n_vision_tokens if cfg.family == "vlm" else 0,
+        d_model=cfg.d_model)
+    step = steps.build_train_step(cfg, RunConfig("ref"), lr=1e-3)
+    for i in range(2):
+        b = {k: torch.from_numpy(v) for k, v in data.batch_at(i).items()}
+        host, s_host, m_host = step(host, s_host, b)
+        card, s_card, m_card = step(card, s_card, _tree_to(b, cuda))
+        assert m_card["loss"].device.type == "cuda"
+        assert abs(float(m_card["loss"]) - float(m_host["loss"])) <= 1e-5
+        assert abs(float(m_card["grad_norm"]) - float(m_host["grad_norm"])) \
+            <= 1e-5 * float(m_host["grad_norm"])
+    assert int(s_card.step) == 2
+    assert _tree_max_abs(card, host) <= 2e-5
+    for a, b in ((s_card.m, s_host.m), (s_card.v, s_host.v)):
+        scale = max(float(t.abs().max()) for t in
+                    (x for v in b.values() for x in
+                     (v.values() if isinstance(v, dict) else (v,))))
+        assert _tree_max_abs(a, b) <= 5e-5 * scale

@@ -52,6 +52,11 @@ def test_port_files_found():
                    "serve/batching.py", "serve/clock.py", "serve/metrics.py",
                    "serve/loadgen.py", "dist/capture.py"):
         assert f"src/repro_torch/{module}" in names, module
+    # training: the optimizer, checkpoints and the train launcher
+    for module in ("optim/__init__.py", "optim/adamw.py", "ckpt/__init__.py",
+                   "ckpt/checkpoint.py", "launch/train.py",
+                   "data/pipeline.py"):
+        assert f"src/repro_torch/{module}" in names, module
     assert len(names) >= 50
 
 

@@ -317,14 +317,25 @@ def test_unported_families_name_their_roadmap_item(change):
 
 
 def test_train_and_serve_steps_name_their_roadmap_item():
-    """The train step still names its ROADMAP item; the serve step is
-    ported and runs (tests/test_torch_decode.py holds it against JAX)."""
+    """Both steps are ported and run (tests/test_torch_train.py and
+    tests/test_torch_decode.py hold them against JAX); an unported family
+    still names its ROADMAP item in the train step."""
     from repro_torch.models import decode
+    from repro_torch.optim import adamw_init
 
     cfg = get_config("starcoder2-3b").reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        steps.build_train_step(cfg)
+        steps.build_train_step(dataclasses.replace(cfg, mixer="rwkv6"))
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    before = {k: t.clone() for k, t in params["layers"].items()}
+    toks = torch.randint(0, cfg.vocab_size, (2, 8),
+                         generator=torch.Generator().manual_seed(1))
+    params, state, m = steps.build_train_step(cfg, lr=1e-3)(
+        params, adamw_init(params), {"tokens": toks, "labels": toks})
+    assert int(m["step"]) == 1 and bool(torch.isfinite(m["loss"]))
+    assert float(m["grad_norm"]) > 0
+    assert all(not torch.equal(before[k], t)
+               for k, t in params["layers"].items())
     cache = decode.init_cache(cfg, 2, 4, device="cpu")
     tok = torch.zeros(2, 1, dtype=torch.int32)
     nxt, out = steps.build_serve_step(cfg)(params, cache, tok)

@@ -48,11 +48,6 @@ MODULE_GAPS = {
     "repro.analysis.jaxpr_walk": BY_DESIGN + ": no jaxpr; comm.counting() "
                                  "is the recorder",
     "repro.dist.sharding": ITEM_11 + " (sharding)",
-    "repro.ckpt": ITEM_11 + " (training)",
-    "repro.ckpt.checkpoint": ITEM_11 + " (training)",
-    "repro.optim": ITEM_11 + " (training)",
-    "repro.optim.adamw": ITEM_11 + " (training)",
-    "repro.launch.train": ITEM_11 + " (training)",
     "repro.launch.dryrun": ITEM_11 + " (the dry-run)",
     "repro.launch.roofline": ITEM_11 + " (the dry-run)",
     "repro.launch.mesh": ITEM_11 + " (the dry-run)",
@@ -94,8 +89,6 @@ NAME_GAPS = {
     "repro.configs.base": {n: _SHAPES for n in
                            ("SHAPES", "ShapeSpec", "shape_applicable")},
     "repro.core": {"distributed": BY_DESIGN + ": a deprecated shim"},
-    "repro.data": {"SyntheticLMData": ITEM_11 + " (training)"},
-    "repro.data.pipeline": {"SyntheticLMData": ITEM_11 + " (training)"},
     "repro.dist": {
         "ShardingRules": ITEM_11 + " (sharding)",
         "make_rules": ITEM_11 + " (sharding)",
