@@ -163,7 +163,23 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    1e-5 of the plain trainer's, the consensus's `cheb_step` launches
    counted (K - 1 per leaf and per loss, each step), ms per step and the
    gossip's share;
-16. shows through the kernels' launch counters that every path ran through
+16. drives the other model families at full width (`FAMILY_RUNS`):
+   qwen3-moe-30b-a3b (48 layers, 128 experts top 8), deepseek-v2-236b (MLA
+   and 160 experts top 6 plus 2 shared; 4 of its 60 layers), rwkv6-1.6b,
+   hymba-1.5b (window 1024 beside the mamba branch) and whisper-large-v3
+   (32 encoder layers over 1500 frames, 32 decoder layers with
+   cross-attention): the bf16 forward with ``attn_impl="flash"`` (the
+   tensor-core kernel once per attention the JAX dispatch sends to it:
+   qwen3-moe's layers and whisper's encoder, decoder and cross-attention;
+   MLA, hymba and RWKV6 take the plain paths), timed and traced by kernel
+   group, then 32 serve steps from a 64-token prompt at B 2 under
+   ``set_sync_debug_mode("error")``; the same configs cut to two layers
+   in f32, decode held against the flash forward at all 96 positions
+   (MoE: no assignment dropped, every expert pick equal or a printed near
+   tie); the sub-quadratic caches at 2**20 tokens; and the tensor-core
+   kernel at whisper's non-causal and cross shapes and qwen3-moe's layer,
+   against its plain version and SDPA;
+17. shows through the kernels' launch counters that every path ran through
    its kernels: each path is driven once with the counts set to 0 just
    before it and read just after (a replayed graph launches without its
    wrappers: the served launches are each capture's launches times its
@@ -308,6 +324,45 @@ GOSSIP_TRAIN_RANKS = 4
 GOSSIP_TRAIN_ARGV = ["--arch", "starcoder2-3b", "--smoke", "--steps", "4",
                      "--batch", "8", "--seq", "32", "--log-every", "1"]
 TOL_GOSSIP_TRAIN = 1e-5
+# The other model families (MoE, MLA, RWKV6, hymba, whisper) at full
+# width: arch -> (layers kept, None for all; forward B; forward S).
+# deepseek-v2-236b keeps 4 of its 60 layers (all 60 hold 479 GB of bf16
+# weights; 4 hold 31.8 GB plus 2.1 GB of embedding and head); RWKV6 and
+# hymba run their per-token recurrences from the host at B 2, S 512;
+# whisper reads its 1500 frames with a decoder of 448 tokens (its maximum
+# target length).  The bf16 forward goes through the flash kernel where
+# the JAX dispatch sends it (FAMILY_FLASH: tensor-core launches per
+# forward) at the config's own MoE capacity factor; then FAMILY_STEPS
+# serve steps from a FAMILY_PROMPT-token prompt at FAMILY_B under
+# set_sync_debug_mode("error").  The same config cut to FAMILY_F32_LAYERS
+# layers (whisper: both stacks) in f32 holds decode against the flash
+# forward at every one of the FAMILY_PROMPT + FAMILY_STEPS positions to
+# TOL_FAMILY_F32 of the position's max logit, the MoE at the capacity
+# factor n_experts / top_k (none dropped, as decode drops none); a
+# different expert pick is a fault unless the k-th and (k+1)-th router
+# logits lie within MOE_TIE_GAP (a near tie: that position leaves the
+# hold, printed with its gap).
+FAMILY_RUNS = {"qwen3-moe-30b-a3b": (None, 1, 2048),
+               "deepseek-v2-236b": (4, 1, 2048),
+               "rwkv6-1.6b": (None, 2, 512),
+               "hymba-1.5b": (None, 2, 512),
+               "whisper-large-v3": (None, 2, 448)}
+FAMILY_B, FAMILY_PROMPT, FAMILY_STEPS = 2, 64, 32
+FAMILY_F32_LAYERS = 2
+TOL_FAMILY_F32 = 1e-4
+MOE_TIE_GAP = 1e-5
+# The sub-quadratic families' cache at 2**20 tokens against a full KV
+# cache of the same model (tests/test_models_smoke.py:78-95's criterion).
+SUBQ_MAX_SEQ, SUBQ_SHARE = 2**20, 0.01
+# The flash kernel at the families' layer shapes: (B, Hq, Hkv, Sq, Sk, D,
+# causal), bf16, held as the starcoder2-3b layer is (TOL_FLASH_ROW).
+FAMILY_FLASH_CASES = {
+    "whisper_encoder": (2, 20, 20, 1500, 1500, 64, False),
+    "whisper_cross": (2, 20, 20, 448, 1500, 64, False),
+    "whisper_decoder": (2, 20, 20, 448, 448, 64, True),
+    "qwen3_moe_layer": (1, 32, 4, 2048, 2048, 128, True),
+}
+
 # Per-round final iterate vs the sweep's (the same f32 arithmetic, P h
 # products in another grouping); the guarded solve vs the unguarded one
 # (the same kernel launches in chunks); SSL predictions are compared where
@@ -495,17 +550,22 @@ def all_device_ms(fn, iters: int):
     return total / iters / 1e3 if total > 0 else None
 
 
-def device_breakdown(fn, groups):
+def device_breakdown(fn, groups, host_ops: bool = True):
     """One call of `fn` under torch.profiler: the device time of its
     kernels by group (the first of `groups`, name -> substrings, that
     matches a kernel's name, else "other"), their sum and its share of
-    the call's wall time.  None when the trace holds no device time."""
+    the call's wall time.  None when the trace holds no device time.
+    ``host_ops=False`` traces the card alone: a forward that launches
+    ~1e5 kernels from a host loop then takes seconds to read back, not a
+    minute."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host_ops:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -2206,17 +2266,23 @@ def _report_exchange_phases(ranks, smi: str, path_rows: list, names):
     return exchange_launches, gossip_step
 
 
-def _held_decode(dec, steps, cfg, params, prompt, n_gen, vision=None):
-    """Prefill `prompt` (B, P) into a fresh cache of P + n_gen slots, then
+def _held_decode(dec, steps, cfg, params, prompt, n_gen, vision=None,
+                 run=None, frames=None):
+    """Prefill `prompt` (B, P) into a fresh cache of P + n_gen slots (for
+    whisper, `start_cache` first runs the encoder over `frames`), then
     n_gen - 1 serve steps, all under ``set_sync_debug_mode("error")`` (a
     host read in a step raises); the decode logits at the n_gen decoded
     positions are kept (the serve step's `decode_step`, recorded).
     Returns the generated ids (B, n_gen), the logits (B, n_gen, V), the
     cache, the serve step, the prefill's ms and each step's ms (CUDA
     events) and the peak MiB."""
+    from repro_torch.models import RunConfig
+
+    run = run or RunConfig()
     B = prompt.shape[0]
-    cache = dec.start_cache(cfg, params, B, prompt.shape[1] + n_gen)
-    serve_step = steps.build_serve_step(cfg)
+    cache = dec.start_cache(cfg, params, B, prompt.shape[1] + n_gen, run,
+                            encoder_frames=frames)
+    serve_step = steps.build_serve_step(cfg, run)
     marks = [torch.cuda.Event(enable_timing=True) for _ in range(n_gen + 1)]
     real = dec.decode_step
     seen = []
@@ -2231,7 +2297,7 @@ def _held_decode(dec, steps, cfg, params, prompt, n_gen, vision=None):
     torch.cuda.set_sync_debug_mode("error")
     try:
         marks[0].record()
-        logits, cache = dec.prefill(cfg, params, prompt, cache,
+        logits, cache = dec.prefill(cfg, params, prompt, cache, run,
                                     vision_embeds=vision)
         marks[1].record()
         seen.append(logits)
@@ -2849,6 +2915,386 @@ def _lm_train_phase(cfg, params, smi: str) -> list:
     with tempfile.TemporaryDirectory() as tmp:
         rows.append(_lm_train_resume(tmp))
     rows.append(_lm_train_gossip(smi))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# The other model families: MoE, MLA, RWKV6, hymba, whisper (phase 16)
+# ---------------------------------------------------------------------------
+_MATMUL = ("gemm", "gemv", "cutlass", "xmma", "nvjet")
+
+
+def _family_flash_checks(flash_rows: dict, gen) -> None:
+    """The tensor-core flash kernel at the families' layer shapes
+    (FAMILY_FLASH_CASES: whisper's non-causal encoder and cross-attention
+    and causal decoder at D 64, qwen3-moe's causal GQA 32 / 4 at D 128),
+    each against its plain version (atol = rtol = TOL_FLASH, and the
+    row-scaled TOL_FLASH_ROW against the f32 plain version on the same
+    bf16 inputs) and timed beside it and SDPA; each row joins
+    `flash_rows` under its case's name."""
+    from repro_torch.kernels.flash_attention import (flash_attention_plain,
+                                                     flash_attention_wgmma)
+
+    dev = torch.device("cuda")
+    tol = TOL_FLASH[torch.bfloat16]
+    for case, (b, hq, hkv, sq, sk, d, causal) in FAMILY_FLASH_CASES.items():
+        q = torch.randn(b, hq, sq, d, generator=gen, device=dev).bfloat16()
+        k = torch.randn(b, hkv, sk, d, generator=gen, device=dev).bfloat16()
+        v = torch.randn(b, hkv, sk, d, generator=gen, device=dev).bfloat16()
+        before = flash_attention_wgmma.launches
+        got = flash_attention_wgmma(q, k, v, causal=causal)
+        want = flash_attention_plain(q, k, v, causal=causal)
+        ref32 = flash_attention_plain(q.float(), k.float(), v.float(),
+                                      causal=causal)
+        torch.cuda.synchronize()
+        check(flash_attention_wgmma.launches == before + 1,
+              f"flash_attention_wgmma {case} did not launch")
+        err, rel = rel_err(got, want)
+        excess = float(((got.float() - want.float()).abs()
+                        - tol * want.float().abs()).max())
+        row_err = flash_row_err(got, ref32,
+                                ref32.pow(2).mean(-1, keepdim=True).sqrt())
+        check(got.dtype == torch.bfloat16 and excess <= tol,
+              f"flash_attention_wgmma {case}: |err| - rtol |ref| = "
+              f"{excess:.3e} > atol {tol}")
+        check(row_err <= TOL_FLASH_ROW, f"flash_attention_wgmma {case}: "
+              f"row-scaled error {row_err:.3e} > {TOL_FLASH_ROW}")
+        del want, ref32
+
+        def call(q=q, k=k, v=v, causal=causal):
+            return flash_attention_wgmma(q, k, v, causal=causal)
+
+        def sdpa(q=q, k=k, v=v, causal=causal):
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True)
+
+        ms = time_ms(call, 10)
+        plain_ms = time_ms(lambda: flash_attention_plain(q, k, v,
+                                                         causal=causal),
+                           3, warmup=1)
+        lib_ms = time_ms(sdpa, 10)
+        # late in the run CUPTI can return a session without the kernel's
+        # records: trace again, up to TRACE_SESSIONS sessions
+        dev_ms = lib_dev = None
+        for _ in range(TRACE_SESSIONS):
+            dev_ms = dev_ms or device_ms(call, 5,
+                                         "flash_attention_wgmma_kernel")
+            lib_dev = lib_dev or all_device_ms(sdpa, 5)
+            if dev_ms and lib_dev:
+                break
+        pairs = sq * (sq + 1) // 2 if causal else sq * sk
+        flops = 4 * b * hq * d * pairs
+        nbytes = 2 * (2 * b * hq * sq * d + 2 * b * hkv * sk * d)
+        b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
+        row = dict(kernel="flash_attention_wgmma",
+                   shape=[b, hq, hkv, sq, sk, d], causal=causal,
+                   dtype="bfloat16", max_abs_err=err, rel_err=rel, tol=tol,
+                   row_err=row_err, row_tol=TOL_FLASH_ROW, ms=ms,
+                   device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   library_device_ms=lib_dev, bound_ms=b_ms, bound_by=b_by,
+                   flops=flops, bytes=nbytes,
+                   bound_share=b_ms / dev_ms if dev_ms else None)
+        flash_rows[case] = row
+        print(f"kernel flash_attention_wgmma {case} (B, Hq, Hkv, Sq, Sk, D)="
+              f"{(b, hq, hkv, sq, sk, d)} bf16 "
+              f"{'causal' if causal else 'non-causal'}: max_abs_err="
+              f"{err:.3e} (atol = rtol = {tol}); row-scaled err="
+              f"{row_err:.3e} (tol {TOL_FLASH_ROW}) ms={ms:.4f} device_ms="
+              f"{dev_ms} plain_ms={plain_ms:.4f} library_ms("
+              f"scaled_dot_product_attention)={lib_ms:.4f} "
+              f"library_device_ms={lib_dev} bound_ms={b_ms:.5f} ({b_by}, "
+              f"bf16 peak) bound/device={row['bound_share']}")
+        del q, k, v, got
+
+
+def _family_flash_launches(cfg, kernel: str) -> dict:
+    """The flash launches of one forward of `cfg`: one per attention the
+    JAX dispatch sends to the kernel (no window, equal q and v head dims):
+    none for MLA (q 192 wide, v 128), hymba (a window) and RWKV6; a
+    decoder layer's self-attention, and for whisper its cross-attention
+    and each encoder layer's."""
+    if cfg.mixer != "attention" or cfg.sliding_window:
+        return {}
+    return {kernel: cfg.n_layers * (2 if cfg.is_encoder_decoder else 1)
+            + cfg.n_encoder_layers}
+
+
+def _no_drop(cfg):
+    """The MoE capacity factor at which nothing drops (n_experts / top_k:
+    `capacity` returns every token)."""
+    return cfg.n_experts / cfg.top_k if cfg.n_experts else None
+
+
+def _family_frames(cfg, batch: int, gen):
+    """N(0, 1) encoder frames (batch, encoder_seq, D) in the model dtype,
+    as the serve launcher draws them, in `forward`'s keyword form."""
+    if not cfg.is_encoder_decoder:
+        return {}
+    return {"encoder_frames": torch.randn(
+        batch, cfg.encoder_seq, cfg.d_model, generator=gen,
+        device=torch.device("cuda"), dtype=cfg.torch_dtype)}
+
+
+def _family_bf16(arch: str, run_path, path_rows: list, smi: str) -> list:
+    """`arch` at full width in bf16 (FAMILY_RUNS): the flash forward
+    (counted, timed, traced by kernel group), then FAMILY_STEPS serve
+    steps from a FAMILY_PROMPT-token prompt under
+    ``set_sync_debug_mode("error")`` (timed, one step traced), and
+    decode's logits against the bf16 flash forward at the no-drop MoE
+    capacity, printed (bf16 is held nowhere: the f32 run is)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import (RunConfig, count_params, decode as dec,
+                                    forward, init_params, lm_loss, steps)
+    from repro_torch.tree import leaves
+
+    dev = torch.device("cuda")
+    layers, B, S = FAMILY_RUNS[arch]
+    base = get_config(arch)
+    cfg = dataclasses.replace(base, n_layers=layers) if layers else base
+    cut = f", {layers} of {base.n_layers} layers" if layers else ""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    weight_gib = sum(t.nbytes for t in leaves(params)) / 2**30
+    print(f"{arch}{cut}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, mixer "
+          f"{cfg.mixer}, experts {cfg.n_experts} (top {cfg.top_k}, shared "
+          f"{cfg.n_shared_experts}), {count_params(cfg)} parameters, "
+          f"{weight_gib:.2f} GiB of bf16 drawn in {draw_s:.1f} s (peak "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB)")
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), device=dev,
+                           generator=gen)
+    extra = _family_frames(cfg, B, gen)
+    run = RunConfig("flash")
+    name = (f"lm_forward[{arch}{cut}, bf16, B={B}, S={S}"
+            + (f", frames={cfg.encoder_seq}" if extra else "") + "]")
+    logits, counts = run_path(
+        name, lambda: forward(cfg, params, tokens, run, **extra),
+        steady_iters=2)
+    want = _family_flash_launches(cfg, "flash_attention_wgmma")
+    check({k: v for k, v in counts.items() if v} == want,
+          f"{name}: flash launches {counts}, expected {want}")
+    check(tuple(logits.shape) == (B, S, cfg.vocab_size)
+          and logits.dtype == torch.bfloat16, f"{name}: logits shape")
+    loss = float(lm_loss(logits, tokens))
+    check(bool(torch.isfinite(logits).all()) and math.isfinite(loss),
+          f"{name}: non-finite logits or loss")
+    del logits
+    row = path_rows[-1]
+    row.update(tokens_per_s=B * S / (row["steady_ms"] / 1e3), loss=loss,
+               layers=cfg.n_layers, full_layers=base.n_layers,
+               weight_gib=weight_gib, draw_s=draw_s)
+    t0 = time.perf_counter()
+    row["profile"] = device_breakdown(
+        lambda: forward(cfg, params, tokens, run, **extra),
+        {"flash_attention": ("flash_attention_wgmma_kernel",),
+         "matmul": _MATMUL}, host_ops=False)
+    row["profile_s"] = time.perf_counter() - t0
+    print(f"  {row['tokens_per_s']:.1f} tokens/s (steady), loss {loss:.6f}"
+          f"; one forward under torch.profiler (the card's activity; "
+          f"{row['profile_s']:.1f} s with the read-back), device ms by "
+          f"kernel group and busy share: {row['profile']} ({smi})")
+
+    # -- serve steps --------------------------------------------------------
+    dname = (f"lm_decode[{arch}{cut}, bf16, B={FAMILY_B}, prompt="
+             f"{FAMILY_PROMPT}, steps={FAMILY_STEPS}]")
+    prompt = torch.randint(0, cfg.vocab_size, (FAMILY_B, FAMILY_PROMPT),
+                           device=dev, generator=gen)
+    dframes = _family_frames(cfg, FAMILY_B, gen)
+    got = _held_decode(dec, steps, cfg, params, prompt, FAMILY_STEPS + 1,
+                       frames=dframes.get("encoder_frames"))
+    cache = got["cache"]
+    steady = sum(got["step_ms"][1:]) / (FAMILY_STEPS - 1)
+    trace = _profile_call(lambda t: got["serve_step"](params, cache, t),
+                          got["generated"][:, -1:], {"matmul": _MATMUL})
+    cache_mib = sum(t.nbytes for t in cache.values()) / 2**20
+    seq = torch.cat([prompt, got["generated"][:, :-1]], dim=1)
+    ref = forward(cfg, params, seq,
+                  RunConfig("flash", moe_capacity_factor=_no_drop(cfg)),
+                  **dframes)
+    d, rel = _position_errors(got["logits"], ref[:, -(FAMILY_STEPS + 1):])
+    drow = dict(name=dname, prefill_s=got["prefill_ms"] / 1e3,
+                first_ms=got["step_ms"][0], steady_ms=steady,
+                tokens_per_s=FAMILY_B / (steady / 1e3),
+                peak_mib=got["peak_mib"], cache_mib=cache_mib, trace=trace,
+                kernels_per_step=trace["kernels"] if trace else None,
+                busy_share=trace["busy_ms"] / steady if trace else None,
+                bf16_logits_max_abs_err=float(d.max()),
+                bf16_logits_rel_err=float(rel.max()))
+    print(f"path {dname}: prefill {drow['prefill_s']:.3f} s, first step "
+          f"{drow['first_ms']:.3f} ms, steady {steady:.3f} ms per step (CUDA"
+          f" events, mean of {FAMILY_STEPS - 1}), {drow['tokens_per_s']:.1f}"
+          f" tokens/s, peak {got['peak_mib']:.1f} MiB, cache {cache_mib:.1f}"
+          f" MiB; one step under torch.profiler: {trace}; busy share "
+          f"{drow['busy_share']}; bf16 decode vs the bf16 flash forward at "
+          f"{FAMILY_STEPS + 1} positions: max abs {float(d.max()):.4e}, "
+          f"worst {float(rel.max()):.4e} of its position's max (not a "
+          f"gate) ({smi})")
+    del params, got, cache, ref
+    torch.cuda.empty_cache()
+    return [drow]
+
+
+def _route_recorder(sink: list):
+    """A stand-in for `models.moe.route` that also keeps, per call, the
+    expert ids it picks and the gap between the k-th and (k+1)-th router
+    logits (f32, on the card: nothing read on the host)."""
+    from repro_torch.models import moe
+
+    real = moe.route
+
+    def route(x, router, top_k, router_dtype=torch.float32):
+        logits = x.to(router_dtype) @ router.to(router_dtype)
+        vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+        sink.append((idx[..., :top_k], vals[..., top_k - 1] - vals[..., top_k]))
+        return real(x, router, top_k, router_dtype)
+
+    return route
+
+
+def _family_f32_hold(arch: str, run_path) -> dict:
+    """`arch` at full width, FAMILY_F32_LAYERS layers, f32: decode (the
+    prompt prefilled, then FAMILY_STEPS serve steps, under
+    ``set_sync_debug_mode("error")``) against the flash forward over the
+    same tokens at every position, to TOL_FAMILY_F32 of the position's
+    max; the MoE at the no-drop capacity, its expert picks compared
+    (a near tie leaves the hold, printed)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import (RunConfig, decode as dec, forward,
+                                    init_params, moe, steps)
+
+    dev = torch.device("cuda")
+    base = get_config(arch)
+    cfg = dataclasses.replace(
+        base, n_layers=FAMILY_F32_LAYERS, dtype="float32",
+        n_encoder_layers=min(base.n_encoder_layers, FAMILY_F32_LAYERS))
+    run = RunConfig(moe_capacity_factor=_no_drop(cfg))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    params = init_params(cfg, gen, device=dev)
+    prompt = torch.randint(0, cfg.vocab_size, (FAMILY_B, FAMILY_PROMPT),
+                           device=dev, generator=gen)
+    extra = _family_frames(cfg, FAMILY_B, gen)
+    P = FAMILY_PROMPT + FAMILY_STEPS
+    cache = dec.start_cache(cfg, params, FAMILY_B, P, run, **extra)
+    serve_step = steps.build_serve_step(cfg, run)
+    seen, dec_routes, fwd_routes = [], [], []
+    real = dec.decode_step
+
+    def recording(*args, **kwargs):
+        logits, c = real(*args, **kwargs)
+        seen.append(logits)
+        return logits, c
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with mock.patch.object(dec, "decode_step", recording), \
+                mock.patch.object(moe, "route", _route_recorder(dec_routes)):
+            logits, cache = dec.prefill(cfg, params, prompt, cache, run)
+            out = [logits.argmax(-1).to(prompt.dtype)]
+            for _ in range(FAMILY_STEPS):
+                tok, cache = serve_step(params, cache, out[-1][:, None])
+                out.append(tok)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    seq = torch.cat([prompt, torch.stack(out[:FAMILY_STEPS], dim=1)], dim=1)
+    name = (f"lm_forward[{arch}, f32, {cfg.n_layers} layers, B={FAMILY_B}, "
+            f"S={P}] (decode's reference)")
+    with mock.patch.object(moe, "route", _route_recorder(fwd_routes)):
+        full, counts = run_path(name, lambda: forward(
+            cfg, params, seq, dataclasses.replace(run, attn_impl="flash"),
+            **extra), steady_iters=0)
+    want = _family_flash_launches(cfg, "flash_attention_ffma")
+    check({k: v for k, v in counts.items() if v} == want,
+          f"{name}: flash launches {counts}, expected {want}")
+    dl = torch.stack(seen, dim=1)
+    check(len(seen) == P and bool(torch.isfinite(dl).all()),
+          f"{arch} f32: {len(seen)} decoded positions or non-finite logits")
+    d, rel = _position_errors(dl, full)
+    ties = {}
+    L = cfg.n_layers
+    for layer in range(L if cfg.n_experts else 0):
+        f_idx, f_gap = fwd_routes[layer]
+        f_idx = f_idx.reshape(FAMILY_B, P, -1).sort(-1).values
+        f_gap = f_gap.reshape(FAMILY_B, P)
+        d_idx = torch.stack([dec_routes[t * L + layer][0] for t in range(P)],
+                            dim=1).sort(-1).values
+        d_gap = torch.stack([dec_routes[t * L + layer][1] for t in range(P)],
+                            dim=1)
+        gap = torch.minimum(f_gap, d_gap)
+        for b, t in (d_idx != f_idx).any(-1).nonzero().tolist():
+            g = float(gap[b, t])
+            what = (f"{arch} f32 layer {layer}, sequence {b}, position {t}: "
+                    f"decode picks {d_idx[b, t].tolist()}, the forward "
+                    f"{f_idx[b, t].tolist()}, k-th to (k+1)-th router gap "
+                    f"{g:.3e}")
+            check(g < MOE_TIE_GAP, what + f" >= {MOE_TIE_GAP}")
+            print(f"  near tie (leaves the hold): {what}")
+            ties.setdefault(t, []).append(g)
+    held = [t for t in range(P) if t not in ties]
+    worst = float(rel[held].max())
+    at = held[int(rel[held].argmax())]
+    print(f"path lm_decode[{arch}, f32, {cfg.n_layers} layers, B="
+          f"{FAMILY_B}, prompt={FAMILY_PROMPT}, steps={FAMILY_STEPS}] vs the "
+          f"f32 flash forward at {len(held)} of {P} positions: max abs "
+          f"{float(d[held].max()):.4e}, worst position {at} at {worst:.4e} "
+          f"of its max (tol {TOL_FAMILY_F32}); near ties {len(ties)}")
+    check(worst <= TOL_FAMILY_F32,
+          f"{arch} f32: decode logits {worst} of the max from the forward's")
+    del params, cache, full, dl
+    torch.cuda.empty_cache()
+    return dict(name=f"lm_decode[{arch}, f32, {cfg.n_layers} layers] vs "
+                     f"the flash forward",
+                positions=P, held=len(held), logits_max_abs_err=float(
+                    d[held].max()), logits_rel_err=worst,
+                near_ties={str(t): g for t, g in ties.items()})
+
+
+def _subquadratic_check(arch: str) -> dict:
+    """The cache of `arch` at full width for SUBQ_MAX_SEQ tokens at B 2
+    against a full K and V cache (elements, as the JAX test counts them):
+    under SUBQ_SHARE."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode as dec
+
+    cfg = get_config(arch)
+    cache = dec.init_cache(cfg, 2, SUBQ_MAX_SEQ, device="cuda")
+    total = sum(t.nbytes for t in cache.values())
+    full_kv = cfg.n_layers * 2 * 2 * cfg.n_kv_heads * SUBQ_MAX_SEQ * cfg.hd
+    print(f"{arch}: the cache for {SUBQ_MAX_SEQ} tokens at B 2 holds "
+          f"{total} bytes, {total / full_kv:.3e} of a full KV cache "
+          f"({full_kv} elements; limit {SUBQ_SHARE})")
+    check(total < SUBQ_SHARE * full_kv, f"{arch}: the cache grows with S")
+    del cache
+    return dict(name=f"cache[{arch}, max_seq={SUBQ_MAX_SEQ}]",
+                bytes=total, full_kv_elements=full_kv,
+                share=total / full_kv)
+
+
+def _families_phase(run_path, path_rows: list, flash_rows: dict,
+                    smi: str) -> list:
+    """Phase 16: the flash kernel at the families' layer shapes, then each
+    family of FAMILY_RUNS in bf16 at full width and in f32 at
+    FAMILY_F32_LAYERS layers, and the sub-quadratic caches."""
+    from repro_torch.configs import get_config
+
+    print(f"families phase: {torch.cuda.memory_allocated() / 2**20:.1f} MiB "
+          f"still allocated on the card by the earlier phases")
+    gen = torch.Generator(device=torch.device("cuda")).manual_seed(SEED + 4)
+    _family_flash_checks(flash_rows, gen)
+    torch.cuda.empty_cache()
+    rows = []
+    for arch in FAMILY_RUNS:
+        t0 = time.perf_counter()
+        rows.extend(_family_bf16(arch, run_path, path_rows, smi))
+        rows.append(_family_f32_hold(arch, run_path))
+        if get_config(arch).sub_quadratic:
+            rows.append(_subquadratic_check(arch))
+        print(f"family {arch}: {time.perf_counter() - t0:.1f} s")
     return rows
 
 
@@ -3891,6 +4337,11 @@ def main(argv=None) -> int:
     rel_check(logits32, forward(cfg32, params32, toks32, RunConfig("ref")),
               TOL_LM_F32, "f32 LM logits vs the materialised attention")
     del params32, logits32
+
+    # -- the other model families: MoE, MLA, RWKV6, hymba, whisper ----------
+    t0 = time.perf_counter()
+    path_rows.extend(_families_phase(run_path, path_rows, flash_rows, smi))
+    print(f"lm families phase: {time.perf_counter() - t0:.1f} s")
 
     print(f"path launches (all counted runs): {path_launches}; bf16 sweep "
           f"paths: {bf16_launches}; of these, the sharded paths "

@@ -1,16 +1,15 @@
-"""Model configuration for the LM forward (the JAX package's
-`configs/base.py::ModelConfig`, field for field).
+"""Model and shape configuration (the JAX package's `configs/base.py`:
+`ModelConfig` field for field, `ShapeSpec`, `SHAPES` and
+`shape_applicable`).
 
-The fields of every family stay, so that `param_count` and `reduced` give
-the JAX package's numbers for any preset; the port's models run the dense
-family only (`models.model.check_supported`).  The JAX package's
-`ShapeSpec` / `SHAPES` belong to its launch layer and come with that
-slice.
+`param_count` and `reduced` give the JAX package's numbers for every
+preset.  The shape specs name the JAX package's benchmark cells; only the
+sub-quadratic families (RWKV6, hymba) take ``long_500k``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -134,3 +133,31 @@ class ModelConfig:
             mrope_sections=(2, 3, 3) if self.mrope_sections else (),  # hd//2 = 8
             dtype="float32",
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeSpec) -> Tuple[bool, str]:
+    """Whether a (arch, shape) cell runs, and the reason when it does not."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, ("full quadratic attention at 524k decode — skipped per "
+                       "assignment; see DESIGN.md §Arch-applicability")
+    return True, ""

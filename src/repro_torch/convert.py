@@ -78,9 +78,12 @@ def lm_params_from_numpy(tree: Mapping) -> Dict:
 
 def lm_cache_from_numpy(tree: Mapping) -> Dict:
     """The port's KV cache (`models.decode.init_cache`'s dict) from the JAX
-    package's cache after ``np.asarray``, key by key, as host tensors: K /
-    V keep their bf16 or f8 bits, ``idx`` becomes a 0-d integer tensor.
-    Decode state then crosses over as the weights do."""
+    package's cache after ``np.asarray``, key by key, as host tensors of
+    every family: K / V, MLA's latents and whisper's cross K / V keep
+    their bf16 or f8 bits, RWKV's ``wkv`` and hymba's ``ssm_h`` stay f32,
+    the shifts and convolution tails keep the model dtype, ``idx``
+    becomes a 0-d integer tensor.  Decode state then crosses over as the
+    weights do."""
     return {key: tensor_from_numpy(val) for key, val in tree.items()}
 
 

@@ -4,9 +4,11 @@
         [--smoke] --batch 4 --prompt-len 16 --gen 32 [--device cpu]
 
 Parameters and prompts are drawn from a seeded torch.Generator on the
-device (the card unless ``--device cpu``).  For the VLM backbone,
-N(0, 1) vision embeddings replace the first min(nv, prompt-len) token
-embeddings.  The printed seconds are the device's: the card is
+device (the card unless ``--device cpu``); ``--arch`` takes every preset
+of `repro_torch.configs.ARCH_IDS`.  For the VLM backbone, N(0, 1) vision
+embeddings replace the first min(nv, prompt-len) token embeddings; for
+whisper, N(0, 1) frames (B, encoder_seq, d_model) in the model dtype go
+through the encoder once, in `start_cache`.  The printed seconds are the device's: the card is
 synchronized before each clock read.
 """
 from __future__ import annotations
@@ -52,6 +54,10 @@ def main(argv=None) -> int:
     if cfg.family == "vlm":
         nv = min(cfg.n_vision_tokens, args.prompt_len)
         vision = torch.randn(B, nv, cfg.d_model, device=dev, generator=gen)
+    frames = None
+    if cfg.is_encoder_decoder:
+        frames = torch.randn(B, cfg.encoder_seq, cfg.d_model, device=dev,
+                             generator=gen, dtype=cfg.torch_dtype)
 
     def clock() -> float:
         if dev.type == "cuda":
@@ -60,7 +66,8 @@ def main(argv=None) -> int:
 
     serve_step = build_serve_step(cfg, run)
     max_seq = args.prompt_len + args.gen
-    cache = dec.start_cache(cfg, params, B, max_seq, run)
+    cache = dec.start_cache(cfg, params, B, max_seq, run,
+                            encoder_frames=frames)
     t0 = clock()
     logits, cache = dec.prefill(cfg, params, prompts, cache, run,
                                 vision_embeds=vision)

@@ -22,8 +22,10 @@ lines:
   recurrence runs the `cheb_step` kernel) instead of an all-reduce;
   ``--gossip-quantize`` sends int8 messages.  Rank 0 prints and saves.
 
-Parameters are drawn from a seeded torch.Generator on the device (the
-card unless ``--device cpu``).  The attention is the plain reference
+``--arch`` takes every preset of `repro_torch.configs.ARCH_IDS`; the
+batches carry whisper's encoder frames and the VLM's vision embeddings
+(`data.SyntheticLMData`).  Parameters are drawn from a seeded
+torch.Generator on the device (the card unless ``--device cpu``).  The attention is the plain reference
 (``attn_impl="ref"``), as the JAX trainer's: the flash kernels have no
 backward.  ``--dp-mode pjit`` and a model axis (``--mesh DxM``, M > 1)
 shard the model, which the port does not do yet.

@@ -1,6 +1,6 @@
-"""Neural primitives of the dense LM and the VLM backbone: norms, rotary
-embeddings (RoPE and M-RoPE), FFNs and attention (the JAX package's
-`models/layers.py`).
+"""Neural primitives of the LM: norms, rotary embeddings (RoPE and
+M-RoPE), sinusoidal positions, FFNs, RWKV's token shift and channel mix,
+and attention (the JAX package's `models/layers.py`).
 
 Attention has the JAX package's three implementations: 'ref'
 (materialised logits), 'chunked' (a loop over query chunks) and 'flash'
@@ -40,6 +40,17 @@ def layer_norm(x: Tensor, scale: Tensor, bias: Tensor,
     var = x.var(-1, keepdim=True, unbiased=False)
     y = (x - mu) * torch.rsqrt(var + eps)
     return (y * scale.float() + bias.float()).to(dt)
+
+
+def group_norm_heads(x: Tensor, scale: Tensor, eps: float = 64e-5) -> Tensor:
+    """Per-head LayerNorm of RWKV's wkv output; x (..., H, hd), f32
+    inside, cast back to x's dtype."""
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(-1, keepdim=True)
+    var = x.var(-1, keepdim=True, unbiased=False)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float()).to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -86,6 +97,22 @@ def _rotate(x: Tensor, ang: Tensor) -> Tensor:
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_at(positions: Tensor, d_model: int) -> Tensor:
+    """Whisper-style sinusoidal embeddings at the given positions (a
+    tensor, read on its device); positions (..., S) -> (..., S, d_model)
+    in f32, sin at the even and cos at the odd columns."""
+    pos = positions.float()[..., None]
+    dim = torch.arange(0, d_model, 2, dtype=torch.float32,
+                       device=positions.device)
+    ang = pos / torch.pow(10_000.0, dim / d_model)
+    return torch.stack([torch.sin(ang), torch.cos(ang)], dim=-1).reshape(
+        *positions.shape, d_model)
+
+
+def sinusoidal_positions(seq: int, d_model: int, device=None) -> Tensor:
+    return sinusoidal_at(torch.arange(seq, device=device), d_model)
 
 
 # ---------------------------------------------------------------------------
@@ -196,3 +223,19 @@ def ffn_swiglu(x, w_gate, w_up, w_down):
 def ffn_gelu(x, w_in, b_in, w_out, b_out):
     h = torch.nn.functional.gelu(x @ w_in + b_in, approximate="tanh")
     return h @ w_out + b_out
+
+
+def rwkv_channel_mix(x, x_prev, mu_k, mu_r, w_k, w_v, w_r):
+    """RWKV channel mix: k = relu(xk W_k)^2, out = sigmoid(xr W_r) * (k W_v)."""
+    xk = x + mu_k * (x_prev - x)
+    xr = x + mu_r * (x_prev - x)
+    k = torch.square(torch.relu(xk @ w_k))
+    return torch.sigmoid(xr @ w_r) * (k @ w_v)
+
+
+def token_shift(x: Tensor, last: Optional[Tensor] = None) -> Tensor:
+    """RWKV token shift: x_{t-1} along the sequence of x (B, S, D);
+    `last` (B, D) seeds position -1 (zeros without it)."""
+    first = (torch.zeros_like(x[:, :1]) if last is None
+             else last[:, None].to(x.dtype))
+    return torch.cat([first, x[:, :-1]], dim=1)

@@ -1,40 +1,52 @@
-"""The dense decoder-only LM and the VLM backbone: full-sequence forward
-and loss (the JAX package's `models/model.py`, dense and VLM families).
+"""The LM of every family: full-sequence forward and loss (the JAX
+package's `models/model.py`).
 
 Layers run as a Python loop over the stacked ``(L, ...)`` parameters (the
-JAX package scans them).  The forward is the prefill step of the JAX
-package's dry run and the body of its eval loss
-(`models.steps.build_loss_fn`); with ``RunConfig(attn_impl="flash")``
-every layer's attention is one launch of the flash kernel.
+JAX package scans them).  The mixer of a block follows the config: GQA
+attention, MLA (`mla_branch`), RWKV6 (`rwkv6.time_mix`, with its channel
+mix in place of the FFN) or hymba's attention over a sliding window in
+parallel with the mamba branch; the FFN is dense (SwiGLU or GELU) or MoE
+(`moe`, with shared experts).  Whisper adds an encoder stack (`encode`),
+sinusoidal positions instead of RoPE, and cross-attention over the
+encoder's output in every decoder layer.
 
-`RunConfig` keeps the attention levers only.  The JAX package's other
-levers — remat, the sharding scheme, qkv sharding constraints, the MoE
-capacity and dispatch, unrolling the layer scan — steer XLA on a TPU mesh
-or the MoE path, neither of which the port has, and are left out.  MLA,
-MoE, RWKV, hymba and encoder-decoder configurations raise
-NotImplementedError naming their ROADMAP item.  The KV-cache decode path
-is `models.decode`.
+With ``RunConfig(attn_impl="flash")`` every attention whose q and v head
+dims agree and that has no window is one launch of the flash kernel:
+GQA, whisper's encoder (non-causal), decoder (causal) and cross-attention
+(non-causal, Sq != Sk); MLA (q 192 wide, v 128) and hymba (a window) take
+the chunked path, as in the JAX package.
+
+`RunConfig` keeps the attention and MoE levers.  The JAX package's others
+— remat, the sharding scheme, qkv sharding constraints, unrolling the
+layer scan — steer XLA on a TPU mesh and are left out.  The KV-cache
+decode path is `models.decode`.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Optional
 
 import torch
 
 from ..configs.base import ModelConfig
 from . import layers as nn
-from .params import check_supported
+from . import mamba, moe, rwkv6
 
 Tensor = torch.Tensor
 
 
 @dataclasses.dataclass(frozen=True)
 class RunConfig:
-    """Attention levers of the forward."""
+    """Attention and MoE levers of the forward."""
 
     attn_impl: str = "chunked"      # ref | chunked | flash
     attn_chunk: int = 1024
+    moe_capacity_factor: Optional[float] = None  # overrides the config's
+    # 'global_sort' (one sort of all assignments) or 'grouped' (a sort per
+    # group of tokens)
+    moe_dispatch: str = "global_sort"
+    moe_groups: int = 1
 
 
 def _norm(cfg: ModelConfig, x: Tensor, p: Dict, name: str) -> Tensor:
@@ -53,15 +65,28 @@ def _merge_heads(x: Tensor) -> Tensor:
     return x.transpose(1, 2).reshape(b, s, h * d)
 
 
-def _qkv(cfg: ModelConfig, x: Tensor, p: Dict):
-    """The fused QKV projection, split into (B, H, S, hd) head views."""
+def _qkv(cfg: ModelConfig, x: Tensor, p: Dict,
+         kv_src: Optional[Tensor] = None, sfx: str = ""):
+    """q, k, v as (B, H, S, hd) head views: the fused QKV projection of
+    x, or (``sfx="_x"``, cross-attention) separate projections of q from
+    x and of k and v from `kv_src`."""
     nq, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    qkv = x @ p["wqkv"]
-    if cfg.qkv_bias:
-        qkv = qkv + p["bqkv"]
-    q = qkv[..., : nq * hd]
-    k = qkv[..., nq * hd: (nq + nkv) * hd]
-    v = qkv[..., (nq + nkv) * hd:]
+    if sfx == "":
+        qkv = x @ p["wqkv"]
+        if cfg.qkv_bias:
+            qkv = qkv + p["bqkv"]
+        q = qkv[..., : nq * hd]
+        k = qkv[..., nq * hd: (nq + nkv) * hd]
+        v = qkv[..., (nq + nkv) * hd:]
+    else:
+        kv_src = x if kv_src is None else kv_src
+        q = x @ p["wq" + sfx]
+        k = kv_src @ p["wk" + sfx]
+        v = kv_src @ p["wv" + sfx]
+        if cfg.qkv_bias:
+            q = q + p["bq" + sfx]
+            k = k + p["bk" + sfx]
+            v = v + p["bv" + sfx]
     return _split_heads(q, nq), _split_heads(k, nkv), _split_heads(v, nkv)
 
 
@@ -77,15 +102,57 @@ def _rope(cfg: ModelConfig, x: Tensor, positions: Tensor) -> Tensor:
 
 def attn_branch(cfg: ModelConfig, x: Tensor, p: Dict, run: RunConfig,
                 positions: Tensor, *, causal: bool = True,
-                window: int = 0) -> Tensor:
-    q, k, v = _qkv(cfg, x, p)
-    q, k = _rope(cfg, q, positions), _rope(cfg, k, positions)
+                use_rope: bool = True, window: int = 0,
+                kv_src: Optional[Tensor] = None, sfx: str = "") -> Tensor:
+    q, k, v = _qkv(cfg, x, p, kv_src, sfx)
+    if use_rope:
+        q, k = _rope(cfg, q, positions), _rope(cfg, k, positions)
     out = nn.attention(q, k, v, impl=run.attn_impl, causal=causal,
                        window=window, chunk=run.attn_chunk)
+    return _merge_heads(out) @ p["wo" + sfx]
+
+
+def mla_branch(cfg: ModelConfig, x: Tensor, p: Dict, run: RunConfig,
+               positions: Tensor) -> Tensor:
+    """Multi-head latent attention (DeepSeek-V2): q and the shared KV
+    latent through low-rank projections, a decoupled RoPE part of
+    `rope_head_dim` per head (one key head shared by all), scale
+    1 / sqrt(hd + rd)."""
+    b, s, _ = x.shape
+    hq, hd, rd = cfg.n_heads, cfg.hd, cfg.rope_head_dim
+    cq = nn.rms_norm(x @ p["wdq"], p["q_norm"])
+    q_nope = _split_heads(cq @ p["wuq"], hq)                    # (B,H,S,hd)
+    q_rope = nn.apply_rope(_split_heads(cq @ p["wq_rope"], hq), positions,
+                           cfg.rope_theta)
+    ckv = nn.rms_norm(x @ p["wdkv"], p["kv_norm"])              # (B,S,r_kv)
+    k_rope = nn.apply_rope(_split_heads(x @ p["wk_rope"], 1), positions,
+                           cfg.rope_theta)                      # (B,1,S,rd)
+    k_nope = _split_heads(ckv @ p["wuk"], hq)
+    v = _split_heads(ckv @ p["wuv"], hq)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope.expand(b, hq, s, rd)], dim=-1)
+    out = nn.attention(q, k, v, impl=run.attn_impl, causal=True,
+                       scale=1.0 / math.sqrt(hd + rd), chunk=run.attn_chunk)
     return _merge_heads(out) @ p["wo"]
 
 
-def ffn_branch(cfg: ModelConfig, x: Tensor, p: Dict) -> Tensor:
+def ffn_branch(cfg: ModelConfig, x: Tensor, p: Dict,
+               run: RunConfig = RunConfig()) -> Tensor:
+    b, s, d = x.shape
+    if cfg.n_experts > 0:
+        cf = run.moe_capacity_factor or cfg.capacity_factor
+        experts = (x.reshape(b * s, d), p["router"], p["we_gate"],
+                   p["we_up"], p["we_down"])
+        if run.moe_dispatch == "grouped":
+            y = moe.moe_ffn_grouped(*experts, top_k=cfg.top_k,
+                                    capacity_factor=cf,
+                                    n_groups=run.moe_groups)
+        else:
+            y = moe.moe_ffn(*experts, top_k=cfg.top_k, capacity_factor=cf)
+        y = y.reshape(b, s, d)
+        if cfg.n_shared_experts > 0:
+            y = y + moe.shared_expert_ffn(x, p)
+        return y
     if cfg.act == "swiglu":
         gate, up = (x @ p["w_gu"]).chunk(2, dim=-1)   # fused gate + up
         return (torch.nn.functional.silu(gate) * up) @ p["w_down"]
@@ -93,42 +160,109 @@ def ffn_branch(cfg: ModelConfig, x: Tensor, p: Dict) -> Tensor:
 
 
 def block(cfg: ModelConfig, x: Tensor, lp: Dict, run: RunConfig,
-          positions: Tensor) -> Tensor:
-    """One pre-norm decoder block: x + attn(norm1 x), then + ffn(norm2 x)."""
+          positions: Tensor, enc_out: Optional[Tensor] = None) -> Tensor:
+    """One pre-norm decoder block of `cfg`'s family (JAX `_make_block`)."""
+    B = x.shape[0]
+    if cfg.mixer == "rwkv6":
+        wkv0 = torch.zeros((B, cfg.n_heads, cfg.hd, cfg.hd),
+                           dtype=torch.float32, device=x.device)
+        shift0 = x.new_zeros(B, cfg.d_model)
+        y, _ = rwkv6.time_mix(_norm(cfg, x, lp, "norm1"), lp, (wkv0, shift0),
+                              cfg.n_heads)
+        x = x + y
+        y, _ = rwkv6.channel_mix(_norm(cfg, x, lp, "norm2"), lp, shift0)
+        return x + y
+
     h = _norm(cfg, x, lp, "norm1")
-    x = x + attn_branch(cfg, h, lp, run, positions, causal=True,
+    if cfg.mixer == "mla":
+        y = mla_branch(cfg, h, lp, run, positions)
+    elif cfg.mixer == "hymba":
+        y_attn = attn_branch(cfg, h, lp, run, positions,
+                             window=cfg.sliding_window)
+        d_in = cfg.ssm_expand * cfg.d_model
+        st = (torch.zeros((B, d_in, cfg.ssm_state), dtype=torch.float32,
+                          device=x.device),
+              x.new_zeros(B, cfg.conv_width - 1, d_in))
+        y_ssm, _ = mamba.ssm_branch(h, lp, st, cfg.ssm_state)
+        y = 0.5 * (y_attn + y_ssm)
+    else:
+        y = attn_branch(cfg, h, lp, run, positions, causal=True,
+                        use_rope=not cfg.is_encoder_decoder,
                         window=cfg.sliding_window)
+    x = x + y
+    if cfg.is_encoder_decoder:
+        h = _norm(cfg, x, lp, "norm3")
+        x = x + attn_branch(cfg, h, lp, run, positions, causal=False,
+                            use_rope=False, kv_src=enc_out, sfx="_x")
     h = _norm(cfg, x, lp, "norm2")
-    return x + ffn_branch(cfg, h, lp)
+    return x + ffn_branch(cfg, h, lp, run)
+
+
+def _layers(tree: Dict, n_layers: int):
+    """The per-layer parameter dicts of a stacked ``(L, ...)`` tree.  One
+    unbind per stacked leaf: its backward stacks the layers' gradients
+    once, where a view per layer would add a full-size zero-padded
+    gradient per layer."""
+    split = {name: t.unbind(0) for name, t in tree.items()}
+    return [{name: ts[i] for name, ts in split.items()}
+            for i in range(n_layers)]
+
+
+def _final_norm(cfg: ModelConfig, x: Tensor, p: Dict) -> Tensor:
+    if cfg.norm == "ln":
+        return nn.layer_norm(x, p["final_norm"], p["final_norm_bias"])
+    return nn.rms_norm(x, p["final_norm"])
+
+
+def encode(cfg: ModelConfig, params: Dict, frames: Tensor,
+           run: RunConfig = RunConfig()) -> Tensor:
+    """Whisper's encoder: frames (B, enc_seq, D), the precomputed frame
+    embeddings (the conv frontend is a stub, as in the JAX package), plus
+    sinusoidal positions, through non-causal pre-norm blocks and the
+    encoder's final norm.  The frames are cast to the model dtype (the
+    JAX stack promotes f32 frames against bf16 weights to f32; in an f32
+    model the two agree)."""
+    x = frames.to(cfg.torch_dtype)
+    x = x + nn.sinusoidal_positions(x.shape[1], cfg.d_model,
+                                    device=x.device).to(x.dtype)
+    positions = torch.arange(x.shape[1], device=x.device).expand(
+        x.shape[:2])
+    enc = params["encoder"]
+    for lp in _layers(enc["layers"], cfg.n_encoder_layers):
+        h = _norm(cfg, x, lp, "norm1")
+        x = x + attn_branch(cfg, h, lp, run, positions, causal=False,
+                            use_rope=False)
+        h = _norm(cfg, x, lp, "norm2")
+        x = x + ffn_branch(cfg, h, lp, run)
+    return _final_norm(cfg, x, enc)
 
 
 def forward(cfg: ModelConfig, params: Dict, tokens: Tensor,
             run: RunConfig = RunConfig(), *,
-            vision_embeds: Optional[Tensor] = None) -> Tensor:
+            vision_embeds: Optional[Tensor] = None,
+            encoder_frames: Optional[Tensor] = None) -> Tensor:
     """tokens (B, S) -> logits (B, S, V), on the device of the params.
 
     vision_embeds: optional (B, nv, D) for the VLM; they replace the
     first nv token embeddings (the vision frontend is a stub, as in the
-    JAX package)."""
-    check_supported(cfg)
+    JAX package).  encoder_frames: (B, enc_seq, D), required by the
+    encoder-decoder (whisper)."""
     B, S = tokens.shape
     x = params["embed"][tokens].to(cfg.torch_dtype)
     if cfg.family == "vlm" and vision_embeds is not None:
         nv = vision_embeds.shape[1]
         x = torch.cat([vision_embeds.to(x.dtype), x[:, nv:]], dim=1)
+    enc_out = None
+    if cfg.is_encoder_decoder:
+        if encoder_frames is None:
+            raise ValueError(f"{cfg.name} needs encoder frames")
+        x = x + nn.sinusoidal_positions(S, cfg.d_model,
+                                        device=x.device).to(x.dtype)
+        enc_out = encode(cfg, params, encoder_frames, run)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
-    # one unbind per stacked leaf: its backward stacks the layers'
-    # gradients once, where a view per layer would add a full-size
-    # zero-padded gradient per layer
-    layer_params = {name: t.unbind(0)
-                    for name, t in params["layers"].items()}
-    for i in range(cfg.n_layers):
-        lp = {name: ts[i] for name, ts in layer_params.items()}
-        x = block(cfg, x, lp, run, positions)
-    if cfg.norm == "ln":
-        x = nn.layer_norm(x, params["final_norm"], params["final_norm_bias"])
-    else:
-        x = nn.rms_norm(x, params["final_norm"])
+    for lp in _layers(params["layers"], cfg.n_layers):
+        x = block(cfg, x, lp, run, positions, enc_out)
+    x = _final_norm(cfg, x, params)
     return x @ params["lm_head"].T.to(x.dtype)
 
 

@@ -1,7 +1,9 @@
-"""Parameter metadata of the dense LM: one source of truth for the shapes,
-logical axes and initialisation of every tensor (the JAX package's
-`models/params.py`, restricted to the dense attention, FFN and norm
-metas).
+"""Parameter metadata of the LM: one source of truth for the shapes,
+logical axes and initialisation of every tensor of every family (the JAX
+package's `models/params.py`): attention (fused QKV, and the separate
+cross-attention projections of the encoder-decoder), MLA, RWKV6, the
+mamba branch of hymba, the dense and MoE FFNs, the norms and whisper's
+`encoder` subtree.
 
 `abstract_params(cfg)` builds a nested dict of `ParamMeta`; `init_params`
 materialises it.  Every per-layer tensor is stacked with a leading
@@ -22,8 +24,15 @@ import torch
 from ..configs.base import ModelConfig
 from ..tree import leaves, tree_map
 
-#: Where the model families the port does not run yet stand in ROADMAP.md.
+#: Where what the port does not run yet (sharding the model) stands in
+#: ROADMAP.md.
 NOT_PORTED_ITEM = "ROADMAP.md, queue 1 item 11"
+
+#: A normal leaf of more elements than this (8 GiB of f32) is drawn one
+#: slice of its leading axis at a time: drawn whole, its f32 temporary
+#: would not fit on the card beside the tree (qwen3-moe-30b-a3b's expert
+#: leaves hold 9.66e9 elements).  Every smaller leaf is drawn whole.
+WHOLE_DRAW_ELEMENTS = 2**31
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,38 +48,129 @@ class ParamMeta:
                              f"differ in rank")
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for a configuration the port's forward
-    and decode do not run (they run the dense family and the VLM
-    backbone), naming its ROADMAP item."""
-    what = None
-    if cfg.mixer != "attention":
-        what = f"the {cfg.mixer} mixer"
-    elif cfg.n_experts > 0:
-        what = "the MoE FFN"
-    elif cfg.is_encoder_decoder:
-        what = "the encoder-decoder (whisper) stack"
-    if what is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: {what} is not ported to PyTorch yet "
-            f"({NOT_PORTED_ITEM}: MoE, MLA, RWKV, hymba and whisper)")
-
-
-def _attn_metas(cfg: ModelConfig, L: int) -> Dict[str, ParamMeta]:
+def _attn_metas(cfg: ModelConfig, L: int,
+                cross: bool = False) -> Dict[str, ParamMeta]:
+    """Self-attention: one fused QKV projection.  Cross-attention (the
+    ``_x`` keys): separate q, k and v projections (k and v read another
+    stream)."""
     d, hd = cfg.d_model, cfg.hd
-    fused = (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
+    nq, nkv = cfg.n_heads, cfg.n_kv_heads
+    if cross:
+        m = {
+            "wq_x": ParamMeta((L, d, nq * hd), ("layers", "embed", "heads")),
+            "wk_x": ParamMeta((L, d, nkv * hd),
+                              ("layers", "embed", "kv_heads")),
+            "wv_x": ParamMeta((L, d, nkv * hd),
+                              ("layers", "embed", "kv_heads")),
+            "wo_x": ParamMeta((L, nq * hd, d), ("layers", "heads", "embed")),
+        }
+        if cfg.qkv_bias:
+            m["bq_x"] = ParamMeta((L, nq * hd), ("layers", "heads"), "zeros")
+            m["bk_x"] = ParamMeta((L, nkv * hd), ("layers", "kv_heads"),
+                                  "zeros")
+            m["bv_x"] = ParamMeta((L, nkv * hd), ("layers", "kv_heads"),
+                                  "zeros")
+        return m
+    fused = (nq + 2 * nkv) * hd
     m = {
         "wqkv": ParamMeta((L, d, fused), ("layers", "embed", "heads")),
-        "wo": ParamMeta((L, cfg.n_heads * hd, d),
-                        ("layers", "heads", "embed")),
+        "wo": ParamMeta((L, nq * hd, d), ("layers", "heads", "embed")),
     }
     if cfg.qkv_bias:
         m["bqkv"] = ParamMeta((L, fused), ("layers", "heads"), "zeros")
     return m
 
 
+def _mla_metas(cfg: ModelConfig, L: int) -> Dict[str, ParamMeta]:
+    d, hd, nq = cfg.d_model, cfg.hd, cfg.n_heads
+    r_kv, r_q, r_rope = cfg.kv_lora_rank, cfg.q_lora_rank, cfg.rope_head_dim
+    return {
+        "wdq": ParamMeta((L, d, r_q), ("layers", "embed", "kv_lora")),
+        "q_norm": ParamMeta((L, r_q), ("layers", "kv_lora"), "ones"),
+        "wuq": ParamMeta((L, r_q, nq * hd), ("layers", "kv_lora", "heads")),
+        "wq_rope": ParamMeta((L, r_q, nq * r_rope),
+                             ("layers", "kv_lora", "heads")),
+        "wdkv": ParamMeta((L, d, r_kv), ("layers", "embed", "kv_lora")),
+        "kv_norm": ParamMeta((L, r_kv), ("layers", "kv_lora"), "ones"),
+        "wk_rope": ParamMeta((L, d, r_rope), ("layers", "embed", "head_dim")),
+        "wuk": ParamMeta((L, r_kv, nq * hd), ("layers", "kv_lora", "heads")),
+        "wuv": ParamMeta((L, r_kv, nq * hd), ("layers", "kv_lora", "heads")),
+        "wo": ParamMeta((L, nq * hd, d), ("layers", "heads", "embed")),
+    }
+
+
+def _rwkv_metas(cfg: ModelConfig, L: int) -> Dict[str, ParamMeta]:
+    d, F, H, hd = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.hd
+    lora = 64
+    sq = ("layers", "embed", "heads")
+    vec = ("layers", "embed")
+    return {
+        # time mix
+        "w_r": ParamMeta((L, d, d), sq),
+        "w_k": ParamMeta((L, d, d), sq),
+        "w_v": ParamMeta((L, d, d), sq),
+        "w_g": ParamMeta((L, d, d), sq),
+        "w_o": ParamMeta((L, d, d), ("layers", "heads", "embed")),
+        "mu_r": ParamMeta((L, d), vec, "zeros"),
+        "mu_k": ParamMeta((L, d), vec, "zeros"),
+        "mu_v": ParamMeta((L, d), vec, "zeros"),
+        "mu_g": ParamMeta((L, d), vec, "zeros"),
+        "mu_w": ParamMeta((L, d), vec, "zeros"),
+        "decay_base": ParamMeta((L, d), vec, "zeros"),
+        "w_dd1": ParamMeta((L, d, lora), ("layers", "embed", None)),
+        "w_dd2": ParamMeta((L, lora, d), ("layers", None, "embed")),
+        "bonus": ParamMeta((L, H, hd), ("layers", "heads", None), "zeros"),
+        "ln_x": ParamMeta((L, H, hd), ("layers", "heads", None), "ones"),
+        # channel mix
+        "w_ck": ParamMeta((L, d, F), ("layers", "embed", "ffn")),
+        "w_cv": ParamMeta((L, F, d), ("layers", "ffn", "embed")),
+        "w_cr": ParamMeta((L, d, d), ("layers", "embed", None)),
+        "mu_ck": ParamMeta((L, d), vec, "zeros"),
+        "mu_cr": ParamMeta((L, d), vec, "zeros"),
+    }
+
+
+def _mamba_metas(cfg: ModelConfig, L: int) -> Dict[str, ParamMeta]:
+    d = cfg.d_model
+    d_in = cfg.ssm_expand * d
+    st = cfg.ssm_state
+    dt_rank = max(1, d // 16)
+    return {
+        "w_in": ParamMeta((L, d, 2 * d_in), ("layers", "embed", "ffn")),
+        "conv_w": ParamMeta((L, cfg.conv_width, d_in),
+                            ("layers", None, "ffn")),
+        "conv_b": ParamMeta((L, d_in), ("layers", "ffn"), "zeros"),
+        "w_bcdt": ParamMeta((L, d_in, 2 * st + dt_rank),
+                            ("layers", "ffn", None)),
+        "w_dt": ParamMeta((L, dt_rank, d_in), ("layers", None, "ffn")),
+        "dt_bias": ParamMeta((L, d_in), ("layers", "ffn"), "zeros"),
+        "A_log": ParamMeta((L, d_in, st), ("layers", "ffn", "state"), "ones"),
+        "D_skip": ParamMeta((L, d_in), ("layers", "ffn"), "ones"),
+        "w_ssm_out": ParamMeta((L, d_in, d), ("layers", "ffn", "embed")),
+    }
+
+
 def _ffn_metas(cfg: ModelConfig, L: int) -> Dict[str, ParamMeta]:
     d, F = cfg.d_model, cfg.d_ff
+    if cfg.n_experts > 0:
+        E = cfg.n_experts
+        m = {
+            "router": ParamMeta((L, d, E), ("layers", "embed", "expert")),
+            "we_gate": ParamMeta((L, E, d, F),
+                                 ("layers", "expert", "embed", "ffn")),
+            "we_up": ParamMeta((L, E, d, F),
+                               ("layers", "expert", "embed", "ffn")),
+            "we_down": ParamMeta((L, E, F, d),
+                                 ("layers", "expert", "ffn", "embed")),
+        }
+        if cfg.n_shared_experts > 0:
+            Fs = F * cfg.n_shared_experts
+            m.update({
+                "ws_gate": ParamMeta((L, d, Fs), ("layers", "embed", "ffn")),
+                "ws_up": ParamMeta((L, d, Fs), ("layers", "embed", "ffn")),
+                "ws_down": ParamMeta((L, Fs, d), ("layers", "ffn", "embed")),
+            })
+        return m
     if cfg.act == "swiglu":
         return {
             "w_gu": ParamMeta((L, d, 2 * F), ("layers", "embed", "ffn")),
@@ -94,22 +194,45 @@ def _norm_metas(cfg: ModelConfig, L: int, names) -> Dict[str, ParamMeta]:
     return m
 
 
-def abstract_params(cfg: ModelConfig) -> Dict:
-    """The nested ParamMeta tree of a dense decoder-only LM."""
-    check_supported(cfg)
-    L, d = cfg.n_layers, cfg.d_model
-    layers: Dict[str, ParamMeta] = {}
-    layers.update(_attn_metas(cfg, L))
-    layers.update(_ffn_metas(cfg, L))
-    layers.update(_norm_metas(cfg, L, ["norm1", "norm2"]))
-    tree: Dict = {
-        "embed": ParamMeta((cfg.vocab_size, d), ("vocab", "embed")),
-        "lm_head": ParamMeta((cfg.vocab_size, d), ("vocab", "embed")),
-        "final_norm": ParamMeta((d,), ("embed",), "ones"),
-        "layers": layers,
-    }
+def _final_norm(cfg: ModelConfig, tree: Dict) -> Dict:
+    d = cfg.d_model
+    tree["final_norm"] = ParamMeta((d,), ("embed",), "ones")
     if cfg.norm == "ln":
         tree["final_norm_bias"] = ParamMeta((d,), ("embed",), "zeros")
+    return tree
+
+
+def abstract_params(cfg: ModelConfig) -> Dict:
+    """The nested ParamMeta tree of `cfg`'s family."""
+    L, d = cfg.n_layers, cfg.d_model
+    layers: Dict[str, ParamMeta] = {}
+    if cfg.mixer == "mla":
+        layers.update(_mla_metas(cfg, L))
+    elif cfg.mixer == "rwkv6":
+        layers.update(_rwkv_metas(cfg, L))
+    else:
+        layers.update(_attn_metas(cfg, L))
+        if cfg.mixer == "hymba":
+            layers.update(_mamba_metas(cfg, L))
+    if cfg.mixer != "rwkv6":  # RWKV's channel mix is its FFN
+        layers.update(_ffn_metas(cfg, L))
+    norm_names = ["norm1", "norm2"]
+    if cfg.is_encoder_decoder:
+        layers.update(_attn_metas(cfg, L, cross=True))
+        norm_names.append("norm3")
+    layers.update(_norm_metas(cfg, L, norm_names))
+    tree: Dict = _final_norm(cfg, {
+        "embed": ParamMeta((cfg.vocab_size, d), ("vocab", "embed")),
+        "lm_head": ParamMeta((cfg.vocab_size, d), ("vocab", "embed")),
+        "layers": layers,
+    })
+    if cfg.is_encoder_decoder:
+        E = cfg.n_encoder_layers
+        enc: Dict[str, ParamMeta] = {}
+        enc.update(_attn_metas(cfg, E))
+        enc.update(_ffn_metas(cfg, E))
+        enc.update(_norm_metas(cfg, E, ["norm1", "norm2"]))
+        tree["encoder"] = _final_norm(cfg, {"layers": enc})
     return tree
 
 
@@ -120,23 +243,33 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
     The JAX package's rule: zeros, ones, or a normal draw of std 0.02 in
     f32 cast to `dtype` (default ``cfg.torch_dtype``).  The leaves are
     drawn in sorted key order from `generator`, which must live on the
-    target device; the values differ from the JAX package's, whose PRNG
-    the port cannot reproduce (tests carry its tree across with
-    `convert.lm_params_from_numpy`).
+    target device; a leaf of more than `WHOLE_DRAW_ELEMENTS` elements is
+    drawn one slice of its leading axis after another into the leaf, so
+    that its f32 temporary is one slice.  The values differ from the JAX
+    package's, whose PRNG the port cannot reproduce (tests carry its tree
+    across with `convert.lm_params_from_numpy`).
     """
     from ..dist.backends import resolve_device
 
     dev = resolve_device(device)
     dtype = dtype or cfg.torch_dtype
 
+    def normal(shape, scale: float) -> torch.Tensor:
+        leaf = torch.randn(shape, generator=generator, dtype=torch.float32,
+                           device=dev)
+        return leaf.mul_(scale).to(dtype)
+
     def draw(meta: ParamMeta) -> torch.Tensor:
         if meta.init == "zeros":
             return torch.zeros(meta.shape, dtype=dtype, device=dev)
         if meta.init == "ones":
             return torch.ones(meta.shape, dtype=dtype, device=dev)
-        leaf = torch.randn(meta.shape, generator=generator,
-                           dtype=torch.float32, device=dev)
-        return leaf.mul_(meta.scale).to(dtype)
+        if math.prod(meta.shape) <= WHOLE_DRAW_ELEMENTS:
+            return normal(meta.shape, meta.scale)
+        leaf = torch.empty(meta.shape, dtype=dtype, device=dev)
+        for part in leaf:
+            part.copy_(normal(part.shape, meta.scale))
+        return leaf
 
     return tree_map(draw, abstract_params(cfg))
 

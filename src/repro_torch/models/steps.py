@@ -18,15 +18,17 @@ from ..optim.adamw import AdamWState, adamw_update, clip_scale, global_norm
 from ..tree import leaves, tree_map
 from . import decode as dec
 from .model import RunConfig, forward, lm_loss
-from .params import check_supported
 
 
 def build_loss_fn(cfg: ModelConfig, run: RunConfig = RunConfig()):
-    """loss_fn(params, batch) with batch {"tokens", "labels"} (B, S)."""
+    """loss_fn(params, batch) with batch {"tokens", "labels"} (B, S), and
+    "vision_embeds" (the VLM) or "encoder_frames" (whisper) where the
+    config takes them."""
 
     def loss_fn(params: Dict, batch: Dict):
         logits = forward(cfg, params, batch["tokens"], run,
-                         vision_embeds=batch.get("vision_embeds"))
+                         vision_embeds=batch.get("vision_embeds"),
+                         encoder_frames=batch.get("encoder_frames"))
         return lm_loss(logits, batch["labels"])
 
     return loss_fn
@@ -54,7 +56,6 @@ def build_train_step(cfg: ModelConfig, run: RunConfig = RunConfig(),
     `max_grad_norm` by their global norm, then AdamW.  The parameters and
     the state are updated in place (`optim.adamw.adamw_update`) and
     returned."""
-    check_supported(cfg)
     if run.attn_impl == "flash":
         raise ValueError("the flash kernels have no backward (neither has "
                          "the JAX package's): train with attn_impl='ref'")

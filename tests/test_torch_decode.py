@@ -34,6 +34,7 @@ from repro.models import layers as jlayers
 from repro.models.model import RunConfig as JRunConfig
 from repro.models.model import forward as jforward
 from repro.models.steps import build_serve_step as jbuild_serve_step
+from _families import FAMILIES, frames, perturbed_params
 from repro_torch.analysis import astlint
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.convert import lm_cache_from_numpy, lm_params_from_numpy
@@ -126,7 +127,13 @@ def test_cache_carries_narrow_bits_exactly():
 # ---------------------------------------------------------------------------
 # the reduced presets
 # ---------------------------------------------------------------------------
-@pytest.fixture(scope="module", params=ARCH_IDS)
+#: The dense presets and the VLM backbone; the other families have their
+#: own fixture below (their caches hold other keys, and the ring cache is
+#: an attention cache's).
+DENSE = [a for a in ARCH_IDS if a not in FAMILIES]
+
+
+@pytest.fixture(scope="module", params=DENSE)
 def lm(request):
     """A reduced preset (f32), its JAX weights and the same weights in the
     port, and the JAX decode step compiled once."""
@@ -320,6 +327,153 @@ def test_vlm_prefill_with_vision_embeds_matches_jax(vlm):
 
 
 # ---------------------------------------------------------------------------
+# the other families: MoE, MLA, RWKV6, hymba, whisper
+# ---------------------------------------------------------------------------
+def _no_drop(cfg):
+    """The MoE capacity factor at which `capacity` returns every token, so
+    that a forward over B * S tokens and a decode step over B drop alike
+    (none): n_experts / top_k (the JAX tests run 8.0 at this size)."""
+    return cfg.n_experts / cfg.top_k if cfg.n_experts else None
+
+
+@pytest.fixture(scope="module", params=FAMILIES)
+def family_lm(request):
+    """A reduced family preset (f32), its perturbed JAX weights and the
+    same weights in the port, whisper's encoder frames, the run configs
+    at the no-drop capacity factor and the JAX decode step compiled
+    once."""
+    jcfg = jget_config(request.param).reduced()
+    cfg = get_config(request.param).reduced()
+    jp, tp = perturbed_params(jcfg, 11)
+    jfr, tfr = frames(cfg, 12, B)
+    jrun = JRunConfig(attn_impl="ref", moe_capacity_factor=_no_drop(cfg))
+    run = RunConfig("ref", moe_capacity_factor=_no_drop(cfg))
+    jstep = jax.jit(lambda p, c, t: jdec.decode_step(jcfg, p, c, t, RULES,
+                                                     jrun))
+    return dict(jcfg=jcfg, cfg=cfg, jp=jp, tp=tp, jfr=jfr, tfr=tfr,
+                jrun=jrun, run=run, jstep=jstep)
+
+
+def _jfamily_prefill(f, toks, max_seq):
+    cache = jdec.start_cache(f["jcfg"], f["jp"], toks.shape[0], max_seq,
+                             RULES, f["jrun"], **f["jfr"])
+    return jdec.prefill(f["jcfg"], f["jp"], jnp.asarray(toks), cache, RULES,
+                        f["jrun"])
+
+
+def _close_caches(cache, jcache):
+    assert set(cache) == set(jcache)
+    for key in cache:
+        if key != "idx":
+            assert cache[key].dtype == torch.float32, key
+            _close(cache[key], jcache[key], TOL_CACHE)
+    assert int(cache["idx"]) == int(jcache["idx"])
+
+
+def test_family_prefill_matches_jax_prefill(family_lm):
+    f = family_lm
+    cfg = f["cfg"]
+    toks = _tokens(cfg, 13)
+    want, jcache = _jfamily_prefill(f, toks, S + 4)
+    cache = dec.start_cache(cfg, f["tp"], B, S + 4, f["run"], **f["tfr"])
+    got, out = dec.prefill(cfg, f["tp"], torch.from_numpy(toks), cache,
+                           f["run"])
+    assert out is cache and got.shape == (B, cfg.vocab_size)
+    _close(got, want, TOL_LOGITS)
+    _close_caches(cache, jcache)
+    assert int(cache["idx"]) == S
+
+
+def test_family_prefill_matches_forward(family_lm):
+    """The serving invariant on the port alone: token by token against
+    the cache gives the forward's logits at every position."""
+    f = family_lm
+    cfg = f["cfg"]
+    toks = torch.from_numpy(_tokens(cfg, 14))
+    full = forward(cfg, f["tp"], toks, f["run"], **f["tfr"])
+    cache = dec.start_cache(cfg, f["tp"], B, S + 4, f["run"], **f["tfr"])
+    for t in range(S):
+        got, cache = dec.decode_step(cfg, f["tp"], cache, toks[:, t:t + 1],
+                                     f["run"])
+        torch.testing.assert_close(got, full[:, t], atol=TOL_LOGITS, rtol=0)
+
+
+def test_family_decode_and_serve_step_from_jax_cache(family_lm):
+    """One step from a JAX cache carried across (`lm_cache_from_numpy`):
+    logits, the greedy token and every updated cache entry match the JAX
+    step's."""
+    f = family_lm
+    cfg = f["cfg"]
+    _, jcache = _jfamily_prefill(f, _tokens(cfg, 15), S + 4)
+    nxt = _tokens(cfg, 16, s=1)
+    want, jnew = f["jstep"](f["jp"], jcache, jnp.asarray(nxt))
+    jtok, _ = jax.jit(jbuild_serve_step(f["jcfg"], RULES, f["jrun"]))(
+        f["jp"], jcache, jnp.asarray(nxt, jnp.int32))
+    cache = _carry(jcache)
+    got, out = dec.decode_step(cfg, f["tp"], cache, torch.from_numpy(nxt),
+                               f["run"])
+    assert out is cache
+    _close(got, want, TOL_LOGITS)
+    _close_caches(cache, jnew)
+    tok, _ = steps.build_serve_step(cfg, f["run"])(
+        f["tp"], _carry(jcache), torch.from_numpy(nxt).int())
+    assert tok.shape == (B,) and tok.dtype == torch.int32
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(jtok))
+
+
+def test_family_generate_matches_jax(family_lm):
+    f = family_lm
+    prompt = _tokens(f["cfg"], 17, s=8)
+    want = jdec.generate(f["jcfg"], f["jp"], jnp.asarray(prompt, jnp.int32),
+                         6, RULES, f["jrun"], **f["jfr"])
+    got = dec.generate(f["cfg"], f["tp"], torch.from_numpy(prompt).int(), 6,
+                       f["run"], **f["tfr"])
+    assert got.shape == (B, 6) and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_family_cache_metadata_matches_jax(arch, dtype):
+    """Keys, axes, shapes and dtypes of the reduced cache in an f32 and a
+    bf16 model (recurrent states stay f32 where JAX keeps them f32)."""
+    jcfg = dataclasses.replace(jget_config(arch).reduced(), dtype=dtype)
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype=dtype)
+    assert dec.cache_axes(cfg) == jdec.cache_axes(jcfg)
+    cache = dec.init_cache(cfg, 3, 20, device="cpu")
+    jcache = jdec.init_cache(jcfg, 3, 20)
+    assert set(cache) == set(jcache)
+    for key in cache:
+        assert tuple(cache[key].shape) == jcache[key].shape, key
+        assert str(cache[key].dtype).split(".")[-1] == \
+            str(jcache[key].dtype), key
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "rwkv6-1.6b"])
+def test_subquadratic_cache_stays_small(arch):
+    """The JAX test's criterion (tests/test_models_smoke.py:78-95): at
+    max_seq = 2**20 the cache is under 1% of a full KV cache, and a serve
+    step runs from it."""
+    cfg = get_config(arch).reduced()
+    cache = dec.init_cache(cfg, 2, max_seq=1 << 20, device="cpu")
+    total = sum(t.numel() * t.element_size() for t in cache.values())
+    full_kv = cfg.n_layers * 2 * 2 * cfg.n_kv_heads * (1 << 20) * cfg.hd
+    assert total < full_kv / 100
+    tp = perturbed_params(jget_config(arch).reduced(), 18)[1]
+    nxt, out = steps.build_serve_step(cfg)(tp, cache,
+                                           torch.zeros(2, 1, dtype=torch.int32))
+    assert out is cache and nxt.shape == (2,) and int(cache["idx"]) == 1
+
+
+def test_whisper_needs_encoder_frames():
+    cfg = get_config("whisper-large-v3").reduced()
+    tp = perturbed_params(jget_config("whisper-large-v3").reduced(), 19)[1]
+    with pytest.raises(ValueError, match="encoder frames"):
+        dec.start_cache(cfg, tp, B, 8)
+    assert int(dec.init_cache(cfg, B, 8, device="cpu")["xk"].abs().max()) == 0
+
+
+# ---------------------------------------------------------------------------
 # device rules, families, the launcher and the lint
 # ---------------------------------------------------------------------------
 def test_cache_device_rules():
@@ -340,18 +494,8 @@ def test_cache_device_rules():
     assert idx.device == cache["k"].device
 
 
-@pytest.mark.parametrize("change", [{"mixer": "mla"}, {"mixer": "rwkv6"},
-                                    {"mixer": "hymba"}, {"n_experts": 4},
-                                    {"n_encoder_layers": 2}])
-def test_unported_families_raise_in_decode(change):
-    cfg = dataclasses.replace(get_config("qwen1.5-4b").reduced(), **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dec.init_cache(cfg, 1, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dec.cache_axes(cfg)
-
-
-@pytest.mark.parametrize("arch", ["qwen1.5-4b", "qwen2-vl-2b"])
+@pytest.mark.parametrize("arch", ["qwen1.5-4b", "qwen2-vl-2b",
+                                  "whisper-large-v3", "rwkv6-1.6b"])
 def test_serve_launcher_runs_on_cpu(arch, capsys):
     assert serve.main(["--arch", arch, "--smoke", "--batch", "2",
                        "--prompt-len", "10", "--gen", "4", "--device",
@@ -366,4 +510,13 @@ def test_decode_reads_no_device_value_on_the_host():
     scaffold module the lint would skip it)."""
     findings = astlint.lint_file(
         str(ROOT / "src" / "repro_torch" / "models" / "decode.py"))
+    assert findings == [], findings
+
+
+@pytest.mark.parametrize("module", ["moe", "rwkv6", "mamba"])
+def test_family_modules_read_no_device_value_on_the_host(module):
+    """The modules a decode step runs for the MoE, RWKV6 and hymba, held
+    to the same rule."""
+    findings = astlint.lint_file(
+        str(ROOT / "src" / "repro_torch" / "models" / f"{module}.py"))
     assert findings == [], findings

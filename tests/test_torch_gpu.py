@@ -4,7 +4,8 @@ against float64 dense; both flash-attention kernels (tensor cores for
 bf16 at D = 64 and 128, FFMA otherwise, at every head dim to 256, on
 strided and unaligned views) and the reduced dense LM forward
 through them; one KV-cache decode step with no host read (f32 and f8
-caches, the VLM's M-RoPE); the bf16 instances of the two sweeps; float64 signals cast
+caches, the VLM's M-RoPE, and the MoE, MLA, RWKV6, hymba and whisper
+families against their flash forward); the bf16 instances of the two sweeps; float64 signals cast
 at the plans' boundary; the 1-shard `cuda_halo` plan against the `cuda`
 plan; the SpMV's rectangular, accumulating launch on a general
 partition's couplings, and two calls of a 1-shard general plan bit for
@@ -33,6 +34,8 @@ bf16 sweeps against their plain bf16 versions: 3e-2 (the JAX package's
 bf16 sweep tolerance; the same roundings, which may fall differently
 where the f32 sums run in another order).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -864,6 +867,54 @@ def test_no_host_to_device_copy_after_plan_build(serve_plan, kind):
 def _tree_to(tree, dev):
     return {k: (_tree_to(v, dev) if isinstance(v, dict) else v.to(dev))
             for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "qwen3-moe-30b-a3b",
+                                  "rwkv6-1.6b", "hymba-1.5b",
+                                  "whisper-large-v3"])
+def test_family_decode_step_reads_nothing_on_the_host(cuda, arch):
+    """The other families, two reduced layers in f32: a prefill of 8
+    tokens, then one serve step under ``set_sync_debug_mode("error")``;
+    every cache tensor stays on the card and the step's logits match the
+    forward's (through the flash kernels) at that position within 1e-4,
+    the MoE at the capacity factor that drops nothing."""
+    from repro_torch.models import decode, steps
+
+    cfg = get_config(arch).reduced()
+    run = RunConfig("ref", moe_capacity_factor=(
+        cfg.n_experts / cfg.top_k if cfg.n_experts else None))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = init_params(cfg, gen)
+    toks = torch.randint(0, cfg.vocab_size, (2, 9), device=cuda,
+                         generator=gen)
+    extra = {}
+    if cfg.is_encoder_decoder:
+        extra["encoder_frames"] = torch.randn(
+            2, cfg.encoder_seq, cfg.d_model, device=cuda, generator=gen)
+    cache = decode.start_cache(cfg, params, 2, 9, run, **extra)
+    decode.prefill(cfg, params, toks[:, :8], cache, run)
+    serve_step = steps.build_serve_step(cfg, run)
+    seen = []
+    real = decode.decode_step
+
+    def recording(*args, **kwargs):
+        out = real(*args, **kwargs)
+        seen.append(out[0])
+        return out
+
+    torch.cuda.synchronize()
+    decode.decode_step = recording
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        nxt, cache = serve_step(params, cache, toks[:, 8:])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        decode.decode_step = real
+    assert nxt.shape == (2,) and int(cache["idx"]) == 9
+    assert all(t.device.type == "cuda" for t in cache.values())
+    want = forward(cfg, params, toks,
+                   dataclasses.replace(run, attn_impl="flash"), **extra)
+    torch.testing.assert_close(seen[0], want[:, 8], atol=1e-4, rtol=0)
 
 
 def _tree_max_abs(a, b):

@@ -1,5 +1,5 @@
-"""The port's LM forward (dense presets and the VLM backbone) and its
-flash-attention plain version, held against the JAX package on the same
+"""The port's LM forward (every preset) and its flash-attention plain
+version, held against the JAX package on the same
 numpy inputs and weights.
 
 Tolerances, each the JAX package's own for the same function:
@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from _families import frames
 from repro.configs import get_config as jget_config
 from repro.dist.sharding import ShardingRules
 from repro.kernels import ref as jref
@@ -305,31 +306,26 @@ def test_convert_carries_bf16_bits():
         np.asarray(jp["layers"]["w_gu"], np.float32))
 
 
-@pytest.mark.parametrize("change", [{"mixer": "mla"}, {"mixer": "rwkv6"},
-                                    {"mixer": "hymba"}, {"n_experts": 4},
-                                    {"n_encoder_layers": 2}])
-def test_unported_families_name_their_roadmap_item(change):
-    cfg = dataclasses.replace(get_config("qwen1.5-4b").reduced(), **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        abstract_params(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        forward(cfg, {}, torch.zeros(1, 4, dtype=torch.long))
-
-
 def test_train_and_serve_steps_name_their_roadmap_item():
     """Both steps are ported and run (tests/test_torch_train.py and
-    tests/test_torch_decode.py hold them against JAX); an unported family
-    still names its ROADMAP item in the train step."""
+    tests/test_torch_decode.py hold them against JAX), for the dense
+    family and, since the other families were ported, an RWKV6 mixer
+    too."""
     from repro_torch.models import decode
     from repro_torch.optim import adamw_init
 
     cfg = get_config("starcoder2-3b").reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        steps.build_train_step(dataclasses.replace(cfg, mixer="rwkv6"))
-    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    before = {k: t.clone() for k, t in params["layers"].items()}
     toks = torch.randint(0, cfg.vocab_size, (2, 8),
                          generator=torch.Generator().manual_seed(1))
+    rcfg = dataclasses.replace(cfg, mixer="rwkv6")
+    rparams = init_params(rcfg, torch.Generator().manual_seed(0),
+                          device="cpu")
+    rparams, _, m = steps.build_train_step(rcfg, lr=1e-3)(
+        rparams, adamw_init(rparams), {"tokens": toks, "labels": toks})
+    assert "w_dd1" in rparams["layers"] and "wqkv" not in rparams["layers"]
+    assert int(m["step"]) == 1 and bool(torch.isfinite(m["loss"]))
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    before = {k: t.clone() for k, t in params["layers"].items()}
     params, state, m = steps.build_train_step(cfg, lr=1e-3)(
         params, adamw_init(params), {"tokens": toks, "labels": toks})
     assert int(m["step"]) == 1 and bool(torch.isfinite(m["loss"]))
@@ -349,7 +345,7 @@ def test_train_and_serve_steps_name_their_roadmap_item():
 # ---------------------------------------------------------------------------
 @pytest.fixture(scope="module", params=ARCH_IDS)
 def reduced_lm(request):
-    """A reduced dense preset, its JAX weights and the same weights in the
+    """A reduced preset, its JAX weights and the same weights in the
     port."""
     jcfg = jget_config(request.param).reduced()
     jp = jinit_params(jcfg, jax.random.PRNGKey(0))
@@ -363,12 +359,16 @@ def _tokens(cfg, seed, B, S):
 
 def test_forward_flash_matches_jax_flash(reduced_lm):
     """B = 2, S = 128: the JAX side through its Pallas flash kernel in
-    interpret mode, the port through the flash kernel's plain version."""
+    interpret mode, the port through the flash kernel's plain version.
+    Whisper's encoder reads 128 frames (the JAX kernel takes multiples of
+    128 only): its encoder, decoder and cross-attention all go through
+    the kernel."""
     jcfg, cfg, jp, tp = reduced_lm
     toks = _tokens(cfg, 0, 2, 128)
+    jfr, tfr = frames(cfg, 4, 2, 128)
     want = jforward(jcfg, jp, jnp.asarray(toks), RULES,
-                    JRunConfig(attn_impl="flash"))
-    got = forward(cfg, tp, torch.from_numpy(toks), RunConfig("flash"))
+                    JRunConfig(attn_impl="flash"), **jfr)
+    got = forward(cfg, tp, torch.from_numpy(toks), RunConfig("flash"), **tfr)
     assert got.shape == (2, 128, cfg.vocab_size)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
     np.testing.assert_allclose(
@@ -382,9 +382,10 @@ def test_forward_ragged_matches_jax_ref(reduced_lm, impl):
     attention implementation against the JAX ``attn_impl="ref"``."""
     jcfg, cfg, jp, tp = reduced_lm
     toks = _tokens(cfg, 1, 2, 100)
+    jfr, tfr = frames(cfg, 5, 2)
     want = jforward(jcfg, jp, jnp.asarray(toks), RULES,
-                    JRunConfig(attn_impl="ref"))
-    got = forward(cfg, tp, torch.from_numpy(toks), RunConfig(impl))
+                    JRunConfig(attn_impl="ref"), **jfr)
+    got = forward(cfg, tp, torch.from_numpy(toks), RunConfig(impl), **tfr)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
 
 
@@ -392,10 +393,12 @@ def test_loss_fn_matches_jax(reduced_lm):
     jcfg, cfg, jp, tp = reduced_lm
     toks = _tokens(cfg, 2, 2, 64)
     labels = _tokens(cfg, 3, 2, 64)
+    jfr, tfr = frames(cfg, 6, 2)
     want = jbuild_loss_fn(jcfg, RULES, JRunConfig(attn_impl="chunked",
                                                   attn_chunk=16))(
-        jp, {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)})
+        jp, {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels),
+             **jfr})
     got = steps.build_loss_fn(cfg, RunConfig("chunked", attn_chunk=16))(
         tp, {"tokens": torch.from_numpy(toks),
-             "labels": torch.from_numpy(labels)})
+             "labels": torch.from_numpy(labels), **tfr})
     assert abs(float(got) - float(want)) < 1e-4

@@ -52,18 +52,9 @@ MODULE_GAPS = {
     "repro.launch.roofline": ITEM_11 + " (the dry-run)",
     "repro.launch.mesh": ITEM_11 + " (the dry-run)",
     "repro.launch.inputs": ITEM_11 + " (the dry-run)",
-    "repro.models.moe": ITEM_11 + " (other model families)",
-    "repro.models.mamba": ITEM_11 + " (other model families)",
-    "repro.models.rwkv6": ITEM_11 + " (other model families)",
-    "repro.configs.deepseek_v2_236b": ITEM_11 + " (other model families)",
-    "repro.configs.qwen3_moe_30b_a3b": ITEM_11 + " (other model families)",
-    "repro.configs.rwkv6_1_6b": ITEM_11 + " (other model families)",
-    "repro.configs.hymba_1_5b": ITEM_11 + " (other model families)",
-    "repro.configs.whisper_large_v3": ITEM_11 + " (other model families)",
 }
 
 _JAXPR = BY_DESIGN + ": jaxpr machinery (analysis/jaxpr_walk.py)"
-_SHAPES = ITEM_11 + " (shape specs)"
 #: Public names of a reference module that its counterpart lacks, and why.
 NAME_GAPS = {
     "repro": {"_compat": BY_DESIGN + ": jax-version shims"},
@@ -84,10 +75,6 @@ NAME_GAPS = {
         "check_vmem_budget": "moved: check_l2_budget",
         "pallas_footprint": "moved: sweep_l2_bytes",
     },
-    "repro.configs": {n: _SHAPES for n in
-                      ("SHAPES", "ShapeSpec", "shape_applicable")},
-    "repro.configs.base": {n: _SHAPES for n in
-                           ("SHAPES", "ShapeSpec", "shape_applicable")},
     "repro.core": {"distributed": BY_DESIGN + ": a deprecated shim"},
     "repro.dist": {
         "ShardingRules": ITEM_11 + " (sharding)",
@@ -126,15 +113,9 @@ NAME_GAPS = {
                                  "(cheb_sweep_l2_bytes)",
         "jacobi_sweep_vmem_bytes": BY_DESIGN + ": a TPU name "
                                    "(jacobi_sweep_l2_bytes)"},
-    "repro.models": {n: ITEM_11 for n in
-                     ("mamba", "moe", "rwkv6", "param_pspecs",
-                      "param_shapes")},
+    "repro.models": {n: ITEM_11 + " (sharding)" for n in
+                     ("param_pspecs", "param_shapes")},
     "repro.models.decode": {"cache_pspecs": ITEM_11 + " (sharding)"},
-    "repro.models.layers": {n: ITEM_11 + " (other model families)" for n in
-                            ("group_norm_heads", "rwkv_channel_mix",
-                             "sinusoidal_at", "sinusoidal_positions",
-                             "token_shift")},
-    "repro.models.model": {"encode": ITEM_11, "mla_branch": ITEM_11},
     "repro.models.params": {n: ITEM_11 + " (sharding)" for n in
                             ("param_pspecs", "param_shapes",
                              "param_shardings")},
