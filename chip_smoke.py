@@ -145,7 +145,17 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    where bf16 alone sits at this model's noise floor.  Decode attends
    through the plain `attention_ref`, as the JAX package does outside
    its Pallas kernel;
-15. trains (`models.steps.build_train_step`, `launch.train`): (a) the
+15. trains (`models.steps.build_train_step`, `launch.train`): first the
+   sharded step on a 1x1 ("data", "model") DeviceMesh over a one-rank
+   NCCL group ("mesh 1x1, NCCL, one card": `dist.sharding`, DTensor
+   parameters laid out by `param_pspecs` under the default and fsdp
+   schemes), 2 steps from the parameters of phase 7 held against the
+   plain step (step 0's loss and grad norm in float32 ulps, ms per step,
+   peak MiB), the launcher's ``--dp-mode pjit --mesh 1x1`` against the
+   plain launcher, qwen3-moe-30b-a3b reduced with the grouped dispatch
+   under rules, the other families reduced (train steps and a sharded
+   prefill against the plain ones), and gloo's collectives on CUDA
+   tensors tried once (in (c)'s ranks); (a) the
    starcoder2-3b parameters of phase 7 at full width and depth, on
    `SyntheticLMData` batches of 8 x 256 tokens, 6 steps at lr 1e-3
    (autograd through the plain attention, the global-norm clip, AdamW
@@ -324,6 +334,29 @@ GOSSIP_TRAIN_RANKS = 4
 GOSSIP_TRAIN_ARGV = ["--arch", "starcoder2-3b", "--smoke", "--steps", "4",
                      "--batch", "8", "--seq", "32", "--log-every", "1"]
 TOL_GOSSIP_TRAIN = 1e-5
+# The mesh phase ("mesh 1x1, NCCL, one card"): (a) the train phase's
+# starcoder2-3b parameters (seed 0, full width and depth) on a 1x1
+# ("data", "model") DeviceMesh over a one-rank NCCL group, laid out by
+# `param_pspecs` under each of MESH_SCHEMES, MESH_STEPS steps of TRAIN_B
+# x TRAIN_S at TRAIN_LR from copies of the same state, against the plain
+# step: step 0's loss and grad norm run the same operations in the same
+# order, so bit for bit is expected, and they are held at TOL_MESH
+# relative; (b) the launcher's ``--dp-mode pjit --mesh 1x1`` (one rank in
+# its own process group) against the plain launcher on GOSSIP_TRAIN_ARGV
+# within TOL_MESH; (c) MESH_MOE_ARCH reduced (f32) with the grouped
+# dispatch over MESH_MOE_GROUPS groups, MESH_STEPS steps of MESH_MOE_B x
+# MESH_MOE_S under each scheme against the plain step within TOL_MESH;
+# (d) each of MESH_FAMILIES reduced (f32) the same way under `default`,
+# and its prefill of MESH_PROMPT tokens at B 2 (the sharded decode, the
+# cache laid out by `cache_pspecs`) against the plain prefill within
+# TOL_MESH of the logits' max.
+MESH_LABEL = "mesh 1x1, NCCL, one card"
+MESH_SCHEMES, MESH_STEPS, TOL_MESH = ("default", "fsdp"), 2, 1e-5
+MESH_MOE_ARCH, MESH_MOE_GROUPS, MESH_MOE_B, MESH_MOE_S = (
+    "qwen3-moe-30b-a3b", 2, 4, 16)
+MESH_FAMILIES = ("deepseek-v2-236b", "rwkv6-1.6b", "hymba-1.5b",
+                 "whisper-large-v3", "qwen2-vl-2b")
+MESH_PROMPT = 4
 # The other model families (MoE, MLA, RWKV6, hymba, whisper) at full
 # width: arch -> (layers kept, None for all; forward B; forward S).
 # deepseek-v2-236b keeps 4 of its 60 layers (all 60 hold 479 GB of bf16
@@ -2841,11 +2874,12 @@ def _gossip_train_rank(argv) -> dict:
 
     cheb_step.launches = 0
     with mock.patch.object(gossip, "gossip_mean_tree", timed):
-        rec = train.run(train.parse_args(argv), dist.group.WORLD)
+        rec = train.run(train.parse_args(argv))
     launched = cheb_step.launches
     per_rank = [None] * dist.get_world_size()
     dist.all_gather_object(per_rank, launched)
-    rec.update(cheb_step_launches=per_rank, gossip_s=spent)
+    rec.update(cheb_step_launches=per_rank, gossip_s=spent,
+               gloo_cuda=_gloo_cuda_check())
     return rec
 
 
@@ -2895,7 +2929,9 @@ def _lm_train_gossip(smi: str) -> dict:
           f"not {want_launches} each")
     check(max(diffs.values()) <= TOL_GOSSIP_TRAIN,
           f"gossip losses vs plain: {diffs}")
-    return dict(name=name, losses=rec["losses"], plain_losses=plain["losses"],
+    print(f"gloo collectives on CUDA tensors, {world} ranks on the one card "
+          f"(what a DTensor redistribute sends; {smi}): {rec['gloo_cuda']}")
+    return dict(name=name, gloo_cuda=rec["gloo_cuda"], losses=rec["losses"], plain_losses=plain["losses"],
                 max_abs_loss_diff=max(diffs.values()),
                 cheb_step_launches=rec["cheb_step_launches"],
                 cheb_step_launches_sum=sum(rec["cheb_step_launches"]),
@@ -2903,6 +2939,255 @@ def _lm_train_gossip(smi: str) -> dict:
                 gossip_share=gossip_ms / step_ms,
                 plain_steady_ms=1e3 * sum(plain["step_s"][1:]) / len(steady),
                 spawn_s=spawn_s, K=K, leaves=n_leaves)
+
+
+def _f32_ulps(a: float, b: float) -> float:
+    """|a - b| in float32 units in the last place at max(|a|, |b|)."""
+    fin = np.finfo(np.float32)
+    mag = max(abs(a), abs(b), float(fin.tiny))
+    return abs(a - b) / (2.0 ** math.floor(math.log2(mag)) * float(fin.eps))
+
+
+def _mesh_steps(cfg, params, batches, run, rules) -> dict:
+    """MESH_STEPS train steps from a copy of `params`, laid out by `rules`
+    (None: the plain step): the metrics, ms per step (CUDA events and the
+    host clock, the card synchronized after each step) and peak MiB."""
+    from repro_torch.models import params as mparams
+    from repro_torch.models import steps
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_map
+
+    p = tree_map(lambda t: t.clone(), params)
+    kw = {}
+    if rules is not None:
+        p = mparams.distribute_params(p, mparams.param_pspecs(cfg, rules),
+                                      rules.mesh)
+        batches = [steps.distribute_batch(b, rules) for b in batches]
+        kw["rules"] = rules
+    state = adamw_init(p)
+    step = steps.build_train_step(cfg, run, lr=TRAIN_LR, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    metrics, ev_ms, host_ms = [], [], []
+    for b in batches[:MESH_STEPS]:
+        a = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        p, state, m = step(p, state, b)
+        e.record()
+        torch.cuda.synchronize()
+        host_ms.append(1e3 * (time.perf_counter() - t0))
+        ev_ms.append(a.elapsed_time(e))
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    del p, state
+    torch.cuda.empty_cache()
+    return dict(metrics=metrics, ms=ev_ms, host_ms=host_ms, peak_mib=peak)
+
+
+def _mesh_batches(cfg, n: int) -> list:
+    """`n` SyntheticLMData batches of MESH_MOE_B x MESH_MOE_S on the card
+    (vision embeddings and encoder frames where `cfg` takes them)."""
+    from repro_torch.data import SyntheticLMData
+
+    data = SyntheticLMData(
+        vocab_size=cfg.vocab_size, seq_len=MESH_MOE_S,
+        global_batch=MESH_MOE_B, seed=SEED,
+        n_vision_tokens=cfg.n_vision_tokens if cfg.family == "vlm" else 0,
+        d_model=cfg.d_model, encoder_seq=cfg.encoder_seq)
+    return [{k: torch.from_numpy(v).to("cuda") for k, v in
+             data.batch_at(i).items()} for i in range(n)]
+
+
+def _mesh_prefill(cfg, params, run, rules) -> float:
+    """The prefill of MESH_PROMPT tokens at B 2 with the cache laid out by
+    `cache_pspecs` against the plain prefill: max |d logits| over the
+    plain logits' max."""
+    from repro_torch.dist.sharding import full
+    from repro_torch.models import decode as dec
+    from repro_torch.models import params as mparams
+    from repro_torch.tree import tree_map
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    prompt = torch.randint(0, cfg.vocab_size, (2, MESH_PROMPT),
+                           device="cuda", generator=gen)
+    kw0 = kw1 = {}
+    if cfg.is_encoder_decoder:
+        f = torch.randn(2, cfg.encoder_seq, cfg.d_model, device="cuda",
+                        generator=gen)
+        kw0 = {"encoder_frames": f}
+        kw1 = {"encoder_frames": rules.distribute(f, "batch", "frames",
+                                                  "embed")}
+    ps = mparams.distribute_params(tree_map(lambda t: t.clone(), params),
+                                   mparams.param_pspecs(cfg, rules),
+                                   rules.mesh)
+    c0 = dec.start_cache(cfg, params, 2, 2 * MESH_PROMPT, run, **kw0)
+    c1 = dec.start_cache(cfg, ps, 2, 2 * MESH_PROMPT, run, rules=rules,
+                         **kw1)
+    want, _ = dec.prefill(cfg, params, prompt, c0, run)
+    got, _ = dec.prefill(cfg, ps, rules.distribute(prompt, "batch", None),
+                         c1, run, rules=rules)
+    return float((full(got) - want).abs().max() / want.abs().max())
+
+
+def _gloo_cuda_check() -> dict:
+    """gloo's all_reduce and all_gather_into_tensor (what a redistribute
+    sends) on CUDA tensors over the default group (the gossip phase's
+    gloo ranks on the one card; every rank calls it): "ran" or the
+    error's first line."""
+    import torch.distributed as dist
+
+    t = torch.ones(4, device="cuda")
+    out = {}
+    for name, call in (
+            ("all_reduce", lambda: dist.all_reduce(t.clone())),
+            ("all_gather_into_tensor", lambda: dist.all_gather_into_tensor(
+                torch.empty(4 * dist.get_world_size(), device="cuda"), t))):
+        try:
+            call()
+            torch.cuda.synchronize()
+            out[name] = "ran"
+        except Exception as e:   # the outcome is the finding
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0]}"
+    return out
+
+
+def _mesh_hold(name, plain, sharded) -> dict:
+    """Each step's loss and grad norm of `sharded` against `plain`: the
+    relative gaps and step 0's float32 ulps; fails past TOL_MESH."""
+    rel = [max(abs(a - b) / abs(b) for a, b in zip(s, p))
+           for s, p in zip(sharded["metrics"], plain["metrics"])]
+    (l0, g0), (pl0, pg0) = sharded["metrics"][0], plain["metrics"][0]
+    ulps = dict(loss=_f32_ulps(l0, pl0), grad_norm=_f32_ulps(g0, pg0))
+    check(max(rel) <= TOL_MESH, f"{name} vs the plain step: rel {rel}")
+    return dict(rel=rel, step0_ulps=ulps)
+
+
+def _mesh_phase(cfg, params, smi: str) -> list:
+    """The mesh phase (MESH_LABEL; see the constants): (a) the full-width
+    sharded step under each scheme against the plain one, (c) the MoE's
+    grouped dispatch with rules and (d) the other families, in a one-rank
+    NCCL group made here; (b) the launcher's --dp-mode pjit --mesh 1x1
+    against the plain launcher (its own group)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.dist.sharding import make_rules
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import RunConfig, init_params
+
+    dev = torch.device("cuda")
+    rows = []
+    data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=TRAIN_S,
+                           global_batch=TRAIN_B, seed=SEED)
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in data.batch_at(i).items()}
+               for i in range(MESH_STEPS)]
+    run = RunConfig(attn_impl="ref")
+    moe_cfg = get_config(MESH_MOE_ARCH).reduced()
+    moe_run = RunConfig(attn_impl="ref", moe_dispatch="grouped",
+                        moe_groups=MESH_MOE_GROUPS)
+    moe_params = init_params(moe_cfg, torch.Generator(
+        device=dev).manual_seed(SEED), device=dev)
+    moe_batches = _mesh_batches(moe_cfg, MESH_STEPS)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            t0 = time.perf_counter()
+            mesh = make_test_mesh((1, 1))
+            plain = _mesh_steps(cfg, params, batches, run, None)
+            for scheme in MESH_SCHEMES:
+                rules = make_rules(mesh, scheme)
+                got = _mesh_steps(cfg, params, batches, run, rules)
+                name = (f"lm_train_mesh[{cfg.name}, {scheme}, B={TRAIN_B}, "
+                        f"S={TRAIN_S}, {MESH_STEPS} steps]")
+                hold = _mesh_hold(name, plain, got)
+                row = dict(name=name, label=MESH_LABEL, scheme=scheme,
+                           metrics=got["metrics"],
+                           plain_metrics=plain["metrics"], **hold,
+                           ms=got["ms"], host_ms=got["host_ms"],
+                           plain_ms=plain["ms"],
+                           plain_host_ms=plain["host_ms"],
+                           peak_mib=got["peak_mib"],
+                           plain_peak_mib=plain["peak_mib"])
+                print(f"path {name} [{MESH_LABEL}]: losses / grad norms "
+                      f"{got['metrics']} vs the plain step's "
+                      f"{plain['metrics']} (rel {hold['rel']}, tol "
+                      f"{TOL_MESH}); step 0 float32 ulps "
+                      f"{hold['step0_ulps']}; ms per step (events) "
+                      f"{got['ms']} vs plain {plain['ms']}, host clock "
+                      f"{got['host_ms']} vs {plain['host_ms']}; peak "
+                      f"{got['peak_mib']:.1f} MiB vs plain "
+                      f"{plain['peak_mib']:.1f} ({smi})")
+                rows.append(row)
+            moe_plain = _mesh_steps(moe_cfg, moe_params, moe_batches,
+                                    moe_run, None)
+            for scheme in MESH_SCHEMES:
+                got = _mesh_steps(moe_cfg, moe_params, moe_batches, moe_run,
+                                  make_rules(mesh, scheme))
+                name = (f"lm_train_mesh[{moe_cfg.name}, grouped "
+                        f"x{MESH_MOE_GROUPS}, {scheme}, B={MESH_MOE_B}, "
+                        f"S={MESH_MOE_S}]")
+                hold = _mesh_hold(name, moe_plain, got)
+                print(f"path {name} [{MESH_LABEL}]: {got['metrics']} vs "
+                      f"plain {moe_plain['metrics']} (rel {hold['rel']}); "
+                      f"host ms per step {got['host_ms']} vs "
+                      f"{moe_plain['host_ms']}")
+                rows.append(dict(name=name, label=MESH_LABEL, scheme=scheme,
+                                 metrics=got["metrics"],
+                                 plain_metrics=moe_plain["metrics"], **hold,
+                                 host_ms=got["host_ms"],
+                                 plain_host_ms=moe_plain["host_ms"]))
+            rules = make_rules(mesh, "default")
+            for arch in MESH_FAMILIES:
+                fcfg = get_config(arch).reduced()
+                fp = init_params(fcfg, torch.Generator(
+                    device=dev).manual_seed(SEED), device=dev)
+                fb = _mesh_batches(fcfg, MESH_STEPS)
+                fplain = _mesh_steps(fcfg, fp, fb, run, None)
+                got = _mesh_steps(fcfg, fp, fb, run, rules)
+                name = (f"lm_train_mesh[{fcfg.name}, default, "
+                        f"B={MESH_MOE_B}, S={MESH_MOE_S}]")
+                hold = _mesh_hold(name, fplain, got)
+                pre = _mesh_prefill(fcfg, fp, run, rules)
+                print(f"path {name} [{MESH_LABEL}]: {got['metrics']} vs "
+                      f"plain {fplain['metrics']} (rel {hold['rel']}); "
+                      f"prefill of {MESH_PROMPT} tokens vs plain {pre!r} "
+                      f"of the max (tol {TOL_MESH})")
+                check(pre <= TOL_MESH, f"{name}: sharded prefill {pre}")
+                rows.append(dict(name=name, label=MESH_LABEL,
+                                 scheme="default", metrics=got["metrics"],
+                                 plain_metrics=fplain["metrics"], **hold,
+                                 prefill_rel=pre))
+                del fp, fb
+            mesh_s = time.perf_counter() - t0
+        finally:
+            dist.destroy_process_group()
+    del moe_params, moe_batches
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    plain_l = train.run(train.parse_args(GOSSIP_TRAIN_ARGV))["losses"]
+    argv = GOSSIP_TRAIN_ARGV + ["--dp-mode", "pjit", "--mesh", "1x1"]
+    got_l = train.train(train.parse_args(argv))["losses"]
+    diffs = {s: abs(got_l[s] - plain_l[s]) for s in plain_l}
+    name = f"launch.train {' '.join(argv)}"
+    print(f"path {name} [{MESH_LABEL}]: losses {got_l} vs the plain "
+          f"launcher's {plain_l} (max |d| {max(diffs.values()):.3e}, tol "
+          f"{TOL_MESH}); {time.perf_counter() - t0:.1f} s for both; the "
+          f"in-process phases {mesh_s:.1f} s")
+    check(sorted(got_l) == sorted(plain_l)
+          and max(diffs.values()) <= TOL_MESH,
+          f"launcher pjit 1x1 vs plain: {diffs}")
+    rows.append(dict(name=name, label=MESH_LABEL, losses=got_l,
+                     plain_losses=plain_l,
+                     max_abs_loss_diff=max(diffs.values())))
+    return rows
 
 
 def _lm_train_phase(cfg, params, smi: str) -> list:
@@ -4307,6 +4592,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     path_rows.extend(_lm_decode_phase(cfg, params, run_path, smi))
     print(f"lm decode phase: {time.perf_counter() - t0:.1f} s")
+
+    # -- the sharded train step on a 1x1 mesh: the same parameters ----------
+    t0 = time.perf_counter()
+    path_rows.extend(_mesh_phase(cfg, params, smi))
+    print(f"mesh phase: {time.perf_counter() - t0:.1f} s")
 
     # -- LM training: the same parameters, then the launcher ---------------
     t0 = time.perf_counter()

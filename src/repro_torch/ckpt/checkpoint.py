@@ -17,6 +17,11 @@ stored as raw 2- and 1-byte ``V`` arrays, as numpy stores the JAX
 package's, with the dtype's name in the manifest; `load_checkpoint`
 decodes them by that name (the JAX package's `restore_arrays` cannot
 cast such an array back).
+
+Checkpoints are reshardable: a save gathers each DTensor leaf (every rank
+of its mesh calls `save_checkpoint` together) and only rank 0 of the
+default group writes; `restore_arrays` lays each leaf out as its target
+leaf, whatever mesh that one is on (or none).
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..dist.sharding import full, is_dtensor
 from ..tree import leaves_with_paths, map_with_path
 
 Tensor = torch.Tensor
@@ -86,18 +92,23 @@ def save_checkpoint(
     extra: Optional[Dict] = None,
 ) -> str:
     """trees: named trees, e.g. {'params': ..., 'opt_state': ...}.  Every
-    leaf is copied to the host before this returns."""
-    os.makedirs(directory, exist_ok=True)
+    leaf is copied to the host before this returns; DTensor leaves are
+    gathered whole first, and then only rank 0 writes."""
     arrays: Dict[str, np.ndarray] = {}
     manifest = {"step": int(step), "trees": {}, "extra": extra or {}}
+    sharded = False
     for name, tree in trees.items():
         leaves = manifest["trees"][name] = {}
         for path, leaf in leaves_with_paths(tree):
-            a, dtype = tensor_to_numpy(leaf)
+            sharded = sharded or is_dtensor(leaf)
+            a, dtype = tensor_to_numpy(full(leaf))
             leaves[_key(path)] = {"shape": list(a.shape), "dtype": dtype}
             arrays[f"{name}/{_key(path)}"] = a
 
     final = os.path.join(directory, f"step_{step:08d}")
+    if sharded and torch.distributed.get_rank() != 0:
+        return final
+    os.makedirs(directory, exist_ok=True)
     tmp = f"{final}.tmp{os.getpid()}_{threading.get_ident()}_{id(trees)}"
 
     def write():
@@ -164,11 +175,18 @@ def load_checkpoint(path: str) -> Tuple[int, Dict[str, Dict[str, Tensor]],
 def restore_arrays(flat: Dict[str, Any], target_tree):
     """Rebuild a tree like `target_tree` from path-keyed leaves (tensors,
     or numpy arrays of a dtype numpy names): each cast to its target
-    leaf's dtype and put on that leaf's device."""
+    leaf's dtype and put on that leaf's device; a DTensor target's leaf
+    is laid out as it is, on its mesh (each rank keeps its shards)."""
 
     def leaf(path, target):
         src = flat[_key(path)]
         src = src if isinstance(src, Tensor) else tensor_from_numpy(src)
-        return src.to(device=target.device, dtype=target.dtype)
+        src = src.to(device=target.device, dtype=target.dtype)
+        if is_dtensor(target):
+            from torch.distributed.tensor import distribute_tensor
+
+            return distribute_tensor(src, target.device_mesh,
+                                     target.placements, src_data_rank=None)
+        return src
 
     return map_with_path(leaf, target_tree)

@@ -21,12 +21,15 @@
 * :mod:`repro_torch.dist.partition` — edge-cut partitions of arbitrary
   sparse graphs (`GeneralPartition`, `partition_general`), the CSR
   container and the million-vertex community graph.
+* :mod:`repro_torch.dist.sharding` — logical-axis `ShardingRules` /
+  `make_rules` on a `torch.distributed` DeviceMesh: PartitionSpecs, their
+  DTensor placements, and the model's sharding constraints.
 * :mod:`repro_torch.dist.solvers` — Section-V iterative solvers (Jacobi,
   Chebyshev-accelerated Jacobi, parallel ARMA) behind `plan.solve`,
   running inside every backend via the `matvec_runner` primitive.
 """
 from . import (capture, comm, faults, gossip, partition, quantize,
-               solvers)
+               sharding, solvers)
 from .backends import available_backends, get_backend, register_backend
 from .comm import (CommStats, plan_comm_stats, solve_comm_stats,
                    verify_message_scaling)
@@ -35,15 +38,16 @@ from .operator import (ExecutionPlan, GraphOperator, as_graph_operator,
                        canonical_kwarg)
 from .partition import (CSRMatrix, GeneralPartition, OverfullSlotsError,
                         community_graph_csr, partition_general)
+from .sharding import ShardingRules, make_rules
 from .solvers import METHODS, SolveResult, solve_plan
 
 __all__ = [
     "CSRMatrix", "CommStats", "DEGRADATIONS", "ExecutionPlan", "FaultSpec",
     "GeneralPartition", "GraphOperator", "METHODS", "OverfullSlotsError",
-    "SolveResult", "as_graph_operator", "available_backends",
-    "canonical_kwarg", "capture",
-    "comm",
-    "community_graph_csr", "faults", "get_backend", "gossip", "partition",
-    "partition_general", "plan_comm_stats", "quantize", "register_backend",
-    "solve_comm_stats", "solve_plan", "solvers", "verify_message_scaling",
+    "ShardingRules", "SolveResult", "as_graph_operator",
+    "available_backends", "canonical_kwarg", "capture", "comm",
+    "community_graph_csr", "faults", "get_backend", "gossip",
+    "make_rules", "partition", "partition_general", "plan_comm_stats",
+    "quantize", "register_backend", "sharding", "solve_comm_stats",
+    "solve_plan", "solvers", "verify_message_scaling",
 ]

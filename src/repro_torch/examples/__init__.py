@@ -48,11 +48,14 @@ def mse(a, b) -> float:
     return float(torch.mean(d * d))
 
 
-def _rank(rank: int, world: int, tmp: str, fn: Callable, args: Tuple):
+def _rank(rank: int, world: int, tmp: str, fn: Callable, args: Tuple,
+          backend: str = "gloo"):
     import torch.distributed as dist
 
     torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
-    dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+    if backend == "nccl":
+        torch.cuda.set_device(rank)
+    dist.init_process_group(backend, init_method=f"file://{tmp}/store",
                             rank=rank, world_size=world,
                             timeout=timedelta(seconds=600))
     try:
@@ -63,13 +66,15 @@ def _rank(rank: int, world: int, tmp: str, fn: Callable, args: Tuple):
         torch.save(out, os.path.join(tmp, "result.pt"))
 
 
-def spawn(fn: Callable, world: int, *args) -> Any:
-    """``fn(*args)`` on `world` gloo ranks of one default group (file
-    store in a temporary directory); returns rank 0's result.  `fn` is a
-    module-level function; every rank calls it with the same args."""
+def spawn(fn: Callable, world: int, *args, backend: str = "gloo") -> Any:
+    """``fn(*args)`` on `world` ranks of one default group (file store in
+    a temporary directory); returns rank 0's result.  `fn` is a
+    module-level function; every rank calls it with the same args.
+    `backend` "gloo" (CPU tensors; CUDA ones staged by the callers) or
+    "nccl" (rank r on card r)."""
     import torch.multiprocessing as mp
 
     with tempfile.TemporaryDirectory() as tmp:
-        mp.spawn(_rank, args=(world, tmp, fn, args), nprocs=world,
+        mp.spawn(_rank, args=(world, tmp, fn, args, backend), nprocs=world,
                  join=True)
         return torch.load(os.path.join(tmp, "result.pt"), weights_only=False)

@@ -31,6 +31,15 @@ non-causal over the whole cache with a valid-slot mask), as the JAX
 package attends outside its Pallas kernel here whatever
 ``RunConfig.attn_impl`` says; prefill is sequential decode, token by
 token, as in the JAX package.
+
+Sharding: every function takes ``rules`` (default the null rules).  Under
+rules bound to a DeviceMesh the parameters, the tokens and the cache are
+DTensors, the cache laid out by `cache_pspecs` (`start_cache` does it);
+the block output and the logits are constrained as in the JAX package.
+The slot write (`index_copy_`, f8 through uint8 views; no DTensor rule)
+runs on each rank's local shard of the cache: it writes along
+``kv_seq``, which no scheme shards, after the new K / V are laid out as
+the cache.
 """
 from __future__ import annotations
 
@@ -40,10 +49,11 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig
+from ..dist.sharding import ShardingRules, distribute, is_dtensor, lift
 from . import layers as nn
 from . import mamba, rwkv6
-from .model import (RunConfig, _final_norm, _merge_heads, _norm, _qkv,
-                    _rope, _split_heads, encode, ffn_branch)
+from .model import (NULL_RULES, RunConfig, _final_norm, _merge_heads, _norm,
+                    _qkv, _rope, _split_heads, embed, encode, ffn_branch)
 
 Tensor = torch.Tensor
 
@@ -94,8 +104,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
 
 
 def cache_axes(cfg: ModelConfig) -> Dict:
-    """Logical sharding axes matching init_cache's structure (metadata, as
-    `params` keeps its own; the port runs on one device)."""
+    """Logical sharding axes matching init_cache's structure."""
     ax: Dict = {"idx": ()}
     if cfg.mixer == "rwkv6":
         ax.update({
@@ -119,14 +128,34 @@ def cache_axes(cfg: ModelConfig) -> Dict:
     return ax
 
 
+def cache_pspecs(cfg: ModelConfig, rules: ShardingRules) -> Dict:
+    """The PartitionSpec of every cache entry under `rules`."""
+    return {k: rules.spec(*axes) for k, axes in cache_axes(cfg).items()}
+
+
+def distribute_cache(cfg: ModelConfig, cache: Dict,
+                     rules: ShardingRules) -> Dict:
+    """`cache` (full tensors, alike on every rank) as DTensors laid out by
+    `cache_pspecs`; itself without a mesh."""
+    if rules.mesh is None:
+        return cache
+    specs = cache_pspecs(cfg, rules)
+    return {k: distribute(t, rules.mesh, specs[k]) for k, t in cache.items()}
+
+
 # ---------------------------------------------------------------------------
 # Decode step
 # ---------------------------------------------------------------------------
 def _write_slot(buf: Tensor, val: Tensor, slot: Tensor, axis: int) -> Tensor:
     """Write `val` (length 1 along `axis`) into `buf` in place at the
     position held by the one-element index tensor `slot`.  An f8 buffer
-    is written through uint8 views (`index_copy_` has no f8 kernel)."""
+    is written through uint8 views (`index_copy_` has no f8 kernel).  A
+    DTensor buffer is written on its local shard, `val` first laid out
+    as the buffer (`axis` is never sharded)."""
     val = val.to(buf.dtype)
+    if is_dtensor(buf):
+        val = val.redistribute(buf.device_mesh, buf.placements).to_local()
+        buf, slot = buf.to_local(), slot.to_local()
     if buf.dtype in nn._F8:
         buf, val = buf.view(torch.uint8), val.view(torch.uint8)
     buf.index_copy_(axis, slot, val)
@@ -184,7 +213,8 @@ def _mla_decode(cfg: ModelConfig, h: Tensor, lp: Dict, ckv: Tensor,
 
 def decode_step(cfg: ModelConfig, params: Dict, cache: Dict, tokens: Tensor,
                 run: RunConfig = RunConfig(),
-                token_embeds: Optional[Tensor] = None
+                token_embeds: Optional[Tensor] = None,
+                rules: ShardingRules = NULL_RULES
                 ) -> Tuple[Tensor, Dict]:
     """tokens (B, 1) -> (logits (B, V), cache).
 
@@ -199,7 +229,7 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict, tokens: Tensor,
     if token_embeds is not None:
         x = token_embeds.to(cfg.torch_dtype)
     else:
-        x = params["embed"][tokens].to(cfg.torch_dtype)
+        x = embed(params, tokens).to(cfg.torch_dtype)
     positions = idx.expand(B, 1)
     if cfg.is_encoder_decoder:
         x = x + nn.sinusoidal_at(positions, cfg.d_model).to(x.dtype)
@@ -209,7 +239,8 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict, tokens: Tensor,
         slot = (torch.remainder(idx, sc) if cfg.sliding_window > 0
                 else idx).long().reshape(1)
         # slots written so far (a ring: all of them once it wrapped)
-        valid = torch.arange(sc, device=idx.device) <= idx.clamp(max=sc - 1)
+        valid = (lift(torch.arange(sc, device=idx.device), idx)
+                 <= idx.clamp(max=sc - 1))
     layer_params = params["layers"]
     for i in range(cfg.n_layers):
         lp = {name: t[i] for name, t in layer_params.items()}
@@ -247,11 +278,12 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict, tokens: Tensor,
             out = nn.attention(_split_heads(q, cfg.n_heads), cache["xk"][i],
                                cache["xv"][i], impl="ref", causal=False)
             x = x + _merge_heads(out) @ lp["wo_x"]
-        x = x + ffn_branch(cfg, _norm(cfg, x, lp, "norm2"), lp, run)
+        x = x + ffn_branch(cfg, _norm(cfg, x, lp, "norm2"), lp, run, rules)
+        x = rules.constrain(x, "batch", None, "embed")
     x = _final_norm(cfg, x, params)
     logits = (x @ params["lm_head"].T.to(x.dtype))[:, 0]
     idx.add_(1)
-    return logits, cache
+    return rules.constrain(logits, "batch", "vocab"), cache
 
 
 # ---------------------------------------------------------------------------
@@ -259,39 +291,39 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict, tokens: Tensor,
 # ---------------------------------------------------------------------------
 def start_cache(cfg: ModelConfig, params: Dict, batch: int, max_seq: int,
                 run: RunConfig = RunConfig(),
-                encoder_frames: Optional[Tensor] = None) -> Dict:
-    """A fresh cache on the parameters' device; for the encoder-decoder
-    also runs the encoder over `encoder_frames` (B, enc_seq, D) and fills
-    every layer's cross-attention K / V."""
-    cache = init_cache(cfg, batch, max_seq, device=params["embed"].device)
+                encoder_frames: Optional[Tensor] = None,
+                rules: ShardingRules = NULL_RULES) -> Dict:
+    """A fresh cache on the parameters' device, laid out by
+    `cache_pspecs` under a mesh; for the encoder-decoder also runs the
+    encoder over `encoder_frames` (B, enc_seq, D) and fills every layer's
+    cross-attention K / V."""
+    cache = distribute_cache(cfg, init_cache(
+        cfg, batch, max_seq, device=params["embed"].device), rules)
     if cfg.is_encoder_decoder:
         if encoder_frames is None:
             raise ValueError(f"{cfg.name} needs encoder frames")
-        enc_out = encode(cfg, params, encoder_frames, run)
+        enc_out = encode(cfg, params, encoder_frames, run, rules)
         lw = params["layers"]
-
-        def proj(w, b):
-            y = torch.einsum("bsd,ldh->lbsh", enc_out, w)
-            if b is not None:
-                y = y + b[:, None, None, :]
-            L, B, S, _ = y.shape
-            return y.reshape(L, B, S, cfg.n_kv_heads, cfg.hd).transpose(2, 3)
-
-        cache["xk"].copy_(proj(lw["wk_x"], lw.get("bk_x")))
-        cache["xv"].copy_(proj(lw["wv_x"], lw.get("bv_x")))
+        for i in range(cfg.n_layers):       # the forward's cross K / V
+            for name in ("k", "v"):
+                y = enc_out @ lw[f"w{name}_x"][i]
+                if cfg.qkv_bias:
+                    y = y + lw[f"b{name}_x"][i]
+                cache[f"x{name}"][i].copy_(_split_heads(y, cfg.n_kv_heads))
     return cache
 
 
 def prefill(cfg: ModelConfig, params: Dict, tokens: Tensor, cache: Dict,
             run: RunConfig = RunConfig(),
-            vision_embeds: Optional[Tensor] = None) -> Tuple[Tensor, Dict]:
+            vision_embeds: Optional[Tensor] = None,
+            rules: ShardingRules = NULL_RULES) -> Tuple[Tensor, Dict]:
     """Sequential prefill: feed the prompt (B, S) token by token through
     `decode_step`.  Returns (last logits (B, V), cache), the cache updated
     in place.
 
     vision_embeds: optional (B, nv, D); they override the first nv token
     embeddings (VLM image tokens), as `forward` does."""
-    embeds = params["embed"][tokens].to(cfg.torch_dtype)
+    embeds = embed(params, tokens).to(cfg.torch_dtype)
     if vision_embeds is not None:
         nv = vision_embeds.shape[1]
         embeds = torch.cat([vision_embeds.to(embeds.dtype), embeds[:, nv:]],
@@ -299,21 +331,24 @@ def prefill(cfg: ModelConfig, params: Dict, tokens: Tensor, cache: Dict,
     logits = None
     for t in range(tokens.shape[1]):
         logits, cache = decode_step(cfg, params, cache, tokens[:, t:t + 1],
-                                    run, token_embeds=embeds[:, t:t + 1])
+                                    run, token_embeds=embeds[:, t:t + 1],
+                                    rules=rules)
     return logits, cache
 
 
 def generate(cfg: ModelConfig, params: Dict, prompt: Tensor, n_tokens: int,
              run: RunConfig = RunConfig(),
-             encoder_frames: Optional[Tensor] = None) -> Tensor:
+             encoder_frames: Optional[Tensor] = None,
+             rules: ShardingRules = NULL_RULES) -> Tensor:
     """Greedy generation; returns (B, n_tokens) of generated ids."""
     B = prompt.shape[0]
     cache = start_cache(cfg, params, B, prompt.shape[1] + n_tokens, run,
-                        encoder_frames)
-    logits, cache = prefill(cfg, params, prompt, cache, run)
+                        encoder_frames, rules)
+    logits, cache = prefill(cfg, params, prompt, cache, run, rules=rules)
     toks = []
     for _ in range(n_tokens):
         tok = logits.argmax(-1).to(prompt.dtype)
-        logits, cache = decode_step(cfg, params, cache, tok[:, None], run)
+        logits, cache = decode_step(cfg, params, cache, tok[:, None], run,
+                                    rules=rules)
         toks.append(tok)
     return torch.stack(toks, dim=1)

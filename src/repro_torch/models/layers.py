@@ -6,7 +6,11 @@ Attention has the JAX package's three implementations: 'ref'
 (materialised logits), 'chunked' (a loop over query chunks) and 'flash'
 (the hand-written kernel, `kernels.ops.flash_attention`), chosen by
 :func:`attention` under the JAX package's exact conditions.  Tensors keep
-its layouts: activations (B, S, D), heads (B, H, S, hd).
+its layouts: activations (B, S, D), heads (B, H, S, hd).  Under a mesh
+(DTensor operands) the constants built here — RoPE frequencies, masks —
+are lifted to replicated DTensors (`dist.sharding.lift`), and attention
+runs on each rank's shards of the batch and the heads (`local_map`:
+einsum's views of sharded dims have no DTensor rule in every torch).
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..dist.sharding import is_dtensor, lift
 from ..kernels import ops as kops
 
 Tensor = torch.Tensor
@@ -67,7 +72,7 @@ def apply_rope(x: Tensor, positions: Tensor,
                theta: float = 10_000.0) -> Tensor:
     """x: (B, H, S, hd); positions: (B, S) absolute token positions."""
     d = x.shape[-1]
-    freqs = rope_freqs(d, theta, device=x.device)              # (d/2,)
+    freqs = lift(rope_freqs(d, theta, device=x.device), positions)
     return _rotate(x, positions[:, None, :, None].float() * freqs)
 
 
@@ -83,7 +88,7 @@ def apply_mrope(x: Tensor, positions: Tensor, sections: Tuple[int, ...],
     if sum(sections) != d // 2:
         raise ValueError(f"sections {tuple(sections)} must cover half the "
                          f"head dim {d}")
-    freqs = rope_freqs(d, theta, device=x.device)              # (d/2,)
+    freqs = lift(rope_freqs(d, theta, device=x.device), positions)
     pos = torch.cat([positions[:, i:i + 1].float().expand(b, sec, s)
                      for i, sec in enumerate(sections)], dim=1)  # (B,d/2,S)
     ang = (pos * freqs[:, None]).transpose(1, 2)[:, None]      # (B,1,S,d/2)
@@ -104,8 +109,8 @@ def sinusoidal_at(positions: Tensor, d_model: int) -> Tensor:
     tensor, read on its device); positions (..., S) -> (..., S, d_model)
     in f32, sin at the even and cos at the odd columns."""
     pos = positions.float()[..., None]
-    dim = torch.arange(0, d_model, 2, dtype=torch.float32,
-                       device=positions.device)
+    dim = lift(torch.arange(0, d_model, 2, dtype=torch.float32,
+                            device=positions.device), positions)
     ang = pos / torch.pow(10_000.0, dim / d_model)
     return torch.stack([torch.sin(ang), torch.cos(ang)], dim=-1).reshape(
         *positions.shape, d_model)
@@ -159,7 +164,7 @@ def attention_ref(q, k, v, *, causal=True, window=0, scale=None,
     rows = (torch.arange(sk - sq, sk, device=dev) if causal
             else torch.arange(sq, device=dev))[:, None]
     cols = torch.arange(sk, device=dev)[None, :]
-    mask = _window_mask(rows, cols, causal, window)
+    mask = lift(_window_mask(rows, cols, causal, window), s)
     if kv_valid is not None:
         mask = (mask[None] & kv_valid[:, None, :])[:, None, None]
     s = torch.where(mask, s, torch.full_like(s, _NEG_INF))
@@ -189,7 +194,7 @@ def attention_chunked(q, k, v, *, causal=True, window=0, scale=None,
         qi = qg[..., i * chunk:(i + 1) * chunk, :].float()
         s = torch.einsum("bhgqd,bhkd->bhgqk", qi, kf) * scale
         rows = i * chunk + torch.arange(chunk, device=q.device)[:, None]
-        mask = _window_mask(rows, cols, causal, window)
+        mask = lift(_window_mask(rows, cols, causal, window), s)
         s = torch.where(mask, s, torch.full_like(s, _NEG_INF))
         p = torch.softmax(s, dim=-1)
         outs.append(torch.einsum("bhgqk,bhkd->bhgqd", p, vf).to(q.dtype))
@@ -201,7 +206,11 @@ def attention(q, k, v, *, impl="chunked", causal=True, window=0, scale=None,
     """The JAX package's dispatch rule: the flash kernel for
     ``impl="flash"`` with no window, no kv_valid mask and equal q / v head
     dims; the chunked loop for ``impl="chunked"`` without kv_valid; the
-    materialised reference otherwise."""
+    materialised reference otherwise.  DTensor operands: the same on each
+    rank's shards (`_local_attention`)."""
+    if is_dtensor(q):
+        return _local_attention(q, k, v, kv_valid, impl=impl, causal=causal,
+                                window=window, scale=scale, chunk=chunk)
     if (impl == "flash" and window == 0 and kv_valid is None
             and q.shape[-1] == v.shape[-1]):
         return kops.flash_attention(q, k, v, causal=causal, scale=scale)
@@ -210,6 +219,34 @@ def attention(q, k, v, *, impl="chunked", causal=True, window=0, scale=None,
                                  scale=scale, chunk=chunk)
     return attention_ref(q, k, v, causal=causal, window=window, scale=scale,
                          kv_valid=kv_valid)
+
+
+def _local_attention(q, k, v, kv_valid, **kw) -> Tensor:
+    """`attention` of DTensor operands on each rank's shards: q, k, v and
+    the output laid out as q's batch and heads (k and v's heads cut like
+    q's, which keeps each q head beside its kv head); a mesh dim that
+    shards anything else, or the heads unevenly, is gathered first."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    heads = math.prod(mesh.size(i) for i, p in enumerate(q.placements)
+                    if p.is_shard(1))
+    even = q.shape[1] % heads == 0 and k.shape[1] % heads == 0
+    lay = tuple(p if p.is_shard(0) or (p.is_shard(1) and even)
+                else Replicate() for p in q.placements)
+    mask = None
+    if kv_valid is not None:
+        mask = tuple(p if p.is_shard(0) else Replicate() for p in lay)
+        kv_valid = lift(kv_valid, q)
+
+    def local(ql, kl, vl, ml):
+        return attention(ql, kl, vl, kv_valid=ml, **kw)
+
+    return local_map(local, out_placements=list(lay),
+                     in_placements=(lay, lay, lay, mask),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        q, k, v, kv_valid)
 
 
 # ---------------------------------------------------------------------------

@@ -16,10 +16,15 @@ GQA, whisper's encoder (non-causal), decoder (causal) and cross-attention
 (non-causal, Sq != Sk); MLA (q 192 wide, v 128) and hymba (a window) take
 the chunked path, as in the JAX package.
 
-`RunConfig` keeps the attention and MoE levers.  The JAX package's others
-— remat, the sharding scheme, qkv sharding constraints, unrolling the
-layer scan — steer XLA on a TPU mesh and are left out.  The KV-cache
-decode path is `models.decode`.
+Sharding: every function takes ``rules`` (`dist.sharding.ShardingRules`,
+default the null rules, a no-op).  Under rules bound to a DeviceMesh the
+parameters and the batch are DTensors, and the JAX package's sharding
+constraints become ``rules.constrain`` (a ``redistribute``) at its
+points: the embedded input, q / k / v (``RunConfig.qkv_constraints``),
+the SwiGLU hidden, each block's output, each encoder block's output and
+the logits.  `RunConfig` keeps the attention, MoE and sharding levers;
+the JAX package's remat and layer-unrolling levers are not ported
+(ROADMAP.md).  The KV-cache decode path is `models.decode`.
 """
 from __future__ import annotations
 
@@ -30,15 +35,19 @@ from typing import Dict, Optional
 import torch
 
 from ..configs.base import ModelConfig
+from ..dist.sharding import ShardingRules, is_dtensor, lift, shard_range
 from . import layers as nn
 from . import mamba, moe, rwkv6
 
 Tensor = torch.Tensor
 
+#: The rules of an unsharded call: every constraint is the identity.
+NULL_RULES = ShardingRules.null()
+
 
 @dataclasses.dataclass(frozen=True)
 class RunConfig:
-    """Attention and MoE levers of the forward."""
+    """Attention, MoE and sharding levers of the forward."""
 
     attn_impl: str = "chunked"      # ref | chunked | flash
     attn_chunk: int = 1024
@@ -47,6 +56,9 @@ class RunConfig:
     # group of tokens)
     moe_dispatch: str = "global_sort"
     moe_groups: int = 1
+    scheme: str = "default"         # sharding scheme (dist/sharding.py)
+    # constrain q / k / v to their head sharding (else propagate)
+    qkv_constraints: bool = True
 
 
 def _norm(cfg: ModelConfig, x: Tensor, p: Dict, name: str) -> Tensor:
@@ -57,7 +69,15 @@ def _norm(cfg: ModelConfig, x: Tensor, p: Dict, name: str) -> Tensor:
 
 def _split_heads(x: Tensor, n_heads: int) -> Tensor:
     b, s, _ = x.shape
-    return x.reshape(b, s, n_heads, -1).transpose(1, 2)
+    y = x.reshape(b, s, n_heads, -1)
+    if is_dtensor(y) and y.requires_grad:
+        # its gradient arrives transposed; DTensor's view back to (B, S,
+        # n_heads * hd) reads the global strides and fails on the local
+        # ones: copy it contiguous (`contiguous()` reads the global
+        # strides too, and would return it as it is)
+        y.register_hook(
+            lambda g: g.clone(memory_format=torch.contiguous_format))
+    return y.transpose(1, 2)
 
 
 def _merge_heads(x: Tensor) -> Tensor:
@@ -103,17 +123,23 @@ def _rope(cfg: ModelConfig, x: Tensor, positions: Tensor) -> Tensor:
 def attn_branch(cfg: ModelConfig, x: Tensor, p: Dict, run: RunConfig,
                 positions: Tensor, *, causal: bool = True,
                 use_rope: bool = True, window: int = 0,
-                kv_src: Optional[Tensor] = None, sfx: str = "") -> Tensor:
+                kv_src: Optional[Tensor] = None, sfx: str = "",
+                rules: ShardingRules = NULL_RULES) -> Tensor:
     q, k, v = _qkv(cfg, x, p, kv_src, sfx)
     if use_rope:
         q, k = _rope(cfg, q, positions), _rope(cfg, k, positions)
+    if run.qkv_constraints:
+        q = rules.constrain(q, "batch", "heads", "seq", "head_dim")
+        k = rules.constrain(k, "batch", "kv_heads", None, "head_dim")
+        v = rules.constrain(v, "batch", "kv_heads", None, "head_dim")
     out = nn.attention(q, k, v, impl=run.attn_impl, causal=causal,
                        window=window, chunk=run.attn_chunk)
     return _merge_heads(out) @ p["wo" + sfx]
 
 
 def mla_branch(cfg: ModelConfig, x: Tensor, p: Dict, run: RunConfig,
-               positions: Tensor) -> Tensor:
+               positions: Tensor, rules: ShardingRules = NULL_RULES
+               ) -> Tensor:
     """Multi-head latent attention (DeepSeek-V2): q and the shared KV
     latent through low-rank projections, a decoupled RoPE part of
     `rope_head_dim` per head (one key head shared by all), scale
@@ -131,13 +157,18 @@ def mla_branch(cfg: ModelConfig, x: Tensor, p: Dict, run: RunConfig,
     v = _split_heads(ckv @ p["wuv"], hq)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope.expand(b, hq, s, rd)], dim=-1)
+    if run.qkv_constraints:
+        q = rules.constrain(q, "batch", "heads", "seq", None)
+        k = rules.constrain(k, "batch", "heads", None, None)
+        v = rules.constrain(v, "batch", "heads", None, None)
     out = nn.attention(q, k, v, impl=run.attn_impl, causal=True,
                        scale=1.0 / math.sqrt(hd + rd), chunk=run.attn_chunk)
     return _merge_heads(out) @ p["wo"]
 
 
 def ffn_branch(cfg: ModelConfig, x: Tensor, p: Dict,
-               run: RunConfig = RunConfig()) -> Tensor:
+               run: RunConfig = RunConfig(),
+               rules: ShardingRules = NULL_RULES) -> Tensor:
     b, s, d = x.shape
     if cfg.n_experts > 0:
         cf = run.moe_capacity_factor or cfg.capacity_factor
@@ -146,27 +177,35 @@ def ffn_branch(cfg: ModelConfig, x: Tensor, p: Dict,
         if run.moe_dispatch == "grouped":
             y = moe.moe_ffn_grouped(*experts, top_k=cfg.top_k,
                                     capacity_factor=cf,
-                                    n_groups=run.moe_groups)
+                                    n_groups=run.moe_groups, rules=rules)
         else:
-            y = moe.moe_ffn(*experts, top_k=cfg.top_k, capacity_factor=cf)
+            y = moe.moe_ffn(*experts, top_k=cfg.top_k, capacity_factor=cf,
+                            rules=rules)
         y = y.reshape(b, s, d)
         if cfg.n_shared_experts > 0:
             y = y + moe.shared_expert_ffn(x, p)
         return y
     if cfg.act == "swiglu":
         gate, up = (x @ p["w_gu"]).chunk(2, dim=-1)   # fused gate + up
-        return (torch.nn.functional.silu(gate) * up) @ p["w_down"]
+        h = rules.constrain(torch.nn.functional.silu(gate) * up,
+                            "batch", "seq", "ffn")
+        return h @ p["w_down"]
     return nn.ffn_gelu(x, p["w_in"], p["b_in"], p["w_out"], p["b_out"])
 
 
+def _zeros(x: Tensor, *shape, dtype: torch.dtype) -> Tensor:
+    """A zero state of `shape` on x's device (replicated on x's mesh)."""
+    return lift(torch.zeros(shape, dtype=dtype, device=x.device), x)
+
+
 def block(cfg: ModelConfig, x: Tensor, lp: Dict, run: RunConfig,
-          positions: Tensor, enc_out: Optional[Tensor] = None) -> Tensor:
+          positions: Tensor, enc_out: Optional[Tensor] = None,
+          rules: ShardingRules = NULL_RULES) -> Tensor:
     """One pre-norm decoder block of `cfg`'s family (JAX `_make_block`)."""
     B = x.shape[0]
     if cfg.mixer == "rwkv6":
-        wkv0 = torch.zeros((B, cfg.n_heads, cfg.hd, cfg.hd),
-                           dtype=torch.float32, device=x.device)
-        shift0 = x.new_zeros(B, cfg.d_model)
+        wkv0 = _zeros(x, B, cfg.n_heads, cfg.hd, cfg.hd, dtype=torch.float32)
+        shift0 = _zeros(x, B, cfg.d_model, dtype=x.dtype)
         y, _ = rwkv6.time_mix(_norm(cfg, x, lp, "norm1"), lp, (wkv0, shift0),
                               cfg.n_heads)
         x = x + y
@@ -175,27 +214,28 @@ def block(cfg: ModelConfig, x: Tensor, lp: Dict, run: RunConfig,
 
     h = _norm(cfg, x, lp, "norm1")
     if cfg.mixer == "mla":
-        y = mla_branch(cfg, h, lp, run, positions)
+        y = mla_branch(cfg, h, lp, run, positions, rules)
     elif cfg.mixer == "hymba":
         y_attn = attn_branch(cfg, h, lp, run, positions,
-                             window=cfg.sliding_window)
+                             window=cfg.sliding_window, rules=rules)
         d_in = cfg.ssm_expand * cfg.d_model
-        st = (torch.zeros((B, d_in, cfg.ssm_state), dtype=torch.float32,
-                          device=x.device),
-              x.new_zeros(B, cfg.conv_width - 1, d_in))
+        st = (_zeros(x, B, d_in, cfg.ssm_state, dtype=torch.float32),
+              _zeros(x, B, cfg.conv_width - 1, d_in, dtype=x.dtype))
         y_ssm, _ = mamba.ssm_branch(h, lp, st, cfg.ssm_state)
         y = 0.5 * (y_attn + y_ssm)
     else:
         y = attn_branch(cfg, h, lp, run, positions, causal=True,
                         use_rope=not cfg.is_encoder_decoder,
-                        window=cfg.sliding_window)
+                        window=cfg.sliding_window, rules=rules)
     x = x + y
     if cfg.is_encoder_decoder:
         h = _norm(cfg, x, lp, "norm3")
         x = x + attn_branch(cfg, h, lp, run, positions, causal=False,
-                            use_rope=False, kv_src=enc_out, sfx="_x")
+                            use_rope=False, kv_src=enc_out, sfx="_x",
+                            rules=rules)
     h = _norm(cfg, x, lp, "norm2")
-    return x + ffn_branch(cfg, h, lp, run)
+    x = x + ffn_branch(cfg, h, lp, run, rules)
+    return rules.constrain(x, "batch", "seq", "embed")
 
 
 def _layers(tree: Dict, n_layers: int):
@@ -215,7 +255,8 @@ def _final_norm(cfg: ModelConfig, x: Tensor, p: Dict) -> Tensor:
 
 
 def encode(cfg: ModelConfig, params: Dict, frames: Tensor,
-           run: RunConfig = RunConfig()) -> Tensor:
+           run: RunConfig = RunConfig(),
+           rules: ShardingRules = NULL_RULES) -> Tensor:
     """Whisper's encoder: frames (B, enc_seq, D), the precomputed frame
     embeddings (the conv frontend is a stub, as in the JAX package), plus
     sinusoidal positions, through non-causal pre-norm blocks and the
@@ -223,24 +264,61 @@ def encode(cfg: ModelConfig, params: Dict, frames: Tensor,
     JAX stack promotes f32 frames against bf16 weights to f32; in an f32
     model the two agree)."""
     x = frames.to(cfg.torch_dtype)
-    x = x + nn.sinusoidal_positions(x.shape[1], cfg.d_model,
-                                    device=x.device).to(x.dtype)
-    positions = torch.arange(x.shape[1], device=x.device).expand(
-        x.shape[:2])
+    x = x + lift(nn.sinusoidal_positions(x.shape[1], cfg.d_model,
+                                         device=x.device).to(x.dtype), x)
+    positions = lift(torch.arange(x.shape[1], device=x.device).expand(
+        x.shape[:2]), x)
     enc = params["encoder"]
     for lp in _layers(enc["layers"], cfg.n_encoder_layers):
         h = _norm(cfg, x, lp, "norm1")
         x = x + attn_branch(cfg, h, lp, run, positions, causal=False,
-                            use_rope=False)
+                            use_rope=False, rules=rules)
         h = _norm(cfg, x, lp, "norm2")
-        x = x + ffn_branch(cfg, h, lp, run)
+        x = x + ffn_branch(cfg, h, lp, run, rules)
+        x = rules.constrain(x, "batch", "frames", "embed")
     return _final_norm(cfg, x, enc)
+
+
+def embed(params: Dict, tokens: Tensor) -> Tensor:
+    """The embedding rows of `tokens`.  Under a mesh (DTensor table and
+    tokens) each rank looks its tokens up in its own rows of the table
+    (zero for a token outside them), the table gathered over the mesh
+    dims that shard the tokens or the table's embed dim; the rows are a
+    pending sum over the vocab's mesh dims."""
+    w = params["embed"]
+    if not is_dtensor(w):
+        return w[tokens]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = w.device_mesh
+    tok = tuple(tokens.placements)
+    on_vocab = [p.is_shard(0) and not t.is_shard()
+                for p, t in zip(w.placements, tok)]
+    lay = tuple(Shard(0) if v else Replicate() for v in on_vocab)
+    v_lo, v_n = shard_range(w.shape[0], lay, mesh, 0)
+    grad_w = tuple(Shard(0) if v else Partial() if t.is_shard() else
+                   Replicate() for v, t in zip(on_vocab, tok))
+    out = tuple(Partial() if v else t for v, t in zip(on_vocab, tok))
+
+    def local(wl, tl):
+        idx = tl.long() - v_lo
+        ok = (idx >= 0) & (idx < v_n)
+        rows = wl[idx.clamp(0, max(v_n - 1, 0))]
+        return torch.where(ok[..., None], rows,
+                           torch.zeros((), dtype=rows.dtype))
+
+    return local_map(local, out_placements=list(out),
+                     in_placements=(lay, tok),
+                     in_grad_placements=(grad_w, tok),
+                     device_mesh=mesh, redistribute_inputs=True)(w, tokens)
 
 
 def forward(cfg: ModelConfig, params: Dict, tokens: Tensor,
             run: RunConfig = RunConfig(), *,
             vision_embeds: Optional[Tensor] = None,
-            encoder_frames: Optional[Tensor] = None) -> Tensor:
+            encoder_frames: Optional[Tensor] = None,
+            rules: ShardingRules = NULL_RULES) -> Tensor:
     """tokens (B, S) -> logits (B, S, V), on the device of the params.
 
     vision_embeds: optional (B, nv, D) for the VLM; they replace the
@@ -248,7 +326,7 @@ def forward(cfg: ModelConfig, params: Dict, tokens: Tensor,
     JAX package).  encoder_frames: (B, enc_seq, D), required by the
     encoder-decoder (whisper)."""
     B, S = tokens.shape
-    x = params["embed"][tokens].to(cfg.torch_dtype)
+    x = embed(params, tokens).to(cfg.torch_dtype)
     if cfg.family == "vlm" and vision_embeds is not None:
         nv = vision_embeds.shape[1]
         x = torch.cat([vision_embeds.to(x.dtype), x[:, nv:]], dim=1)
@@ -256,14 +334,43 @@ def forward(cfg: ModelConfig, params: Dict, tokens: Tensor,
     if cfg.is_encoder_decoder:
         if encoder_frames is None:
             raise ValueError(f"{cfg.name} needs encoder frames")
-        x = x + nn.sinusoidal_positions(S, cfg.d_model,
-                                        device=x.device).to(x.dtype)
-        enc_out = encode(cfg, params, encoder_frames, run)
-    positions = torch.arange(S, device=tokens.device).expand(B, S)
+        x = x + lift(nn.sinusoidal_positions(S, cfg.d_model,
+                                             device=x.device).to(x.dtype), x)
+        enc_out = encode(cfg, params, encoder_frames, run, rules)
+    x = rules.constrain(x, "batch", "seq", "embed")
+    positions = lift(torch.arange(S, device=x.device).expand(B, S), x)
     for lp in _layers(params["layers"], cfg.n_layers):
-        x = block(cfg, x, lp, run, positions, enc_out)
+        x = block(cfg, x, lp, run, positions, enc_out, rules)
     x = _final_norm(cfg, x, params)
-    return x @ params["lm_head"].T.to(x.dtype)
+    logits = x @ params["lm_head"].T.to(x.dtype)
+    return rules.constrain(logits, "batch", "seq", "vocab")
+
+
+def _picked(lg: Tensor, tg: Tensor) -> Tensor:
+    """lg[..., tg]: the logit of each target.  Under a mesh whose ranks
+    hold shards of the vocab, each picks from its own shard (zero for a
+    target outside it) and the picks are a pending sum over the vocab's
+    mesh dims: no rank gathers the logits."""
+    if not is_dtensor(lg):
+        return torch.gather(lg, -1, tg[..., None].long())[..., 0]
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, lay, vd = lg.device_mesh, tuple(lg.placements), lg.ndim - 1
+    v_lo, v_n = shard_range(lg.shape[-1], lay, mesh, vd)
+    on_vocab = [p.is_shard(vd) for p in lay]
+    tok = tuple(Replicate() if v else p for v, p in zip(on_vocab, lay))
+    out = tuple(Partial() if v else p for v, p in zip(on_vocab, lay))
+
+    def local(lgl, tgl):
+        idx = tgl.long() - v_lo
+        ok = (idx >= 0) & (idx < v_n)
+        got = torch.gather(lgl, -1, idx.clamp(0, max(v_n - 1, 0))[..., None])
+        return torch.where(ok, got[..., 0], torch.zeros((), dtype=got.dtype))
+
+    return local_map(local, out_placements=list(out),
+                     in_placements=(lay, tok),
+                     device_mesh=mesh, redistribute_inputs=True)(lg, tg)
 
 
 def lm_loss(logits: Tensor, tokens: Tensor) -> Tensor:
@@ -271,5 +378,4 @@ def lm_loss(logits: Tensor, tokens: Tensor) -> Tensor:
     lg = logits[:, :-1].float()
     tg = tokens[:, 1:]
     lse = torch.logsumexp(lg, dim=-1)
-    picked = torch.gather(lg, -1, tg[..., None].long())[..., 0]
-    return (lse - picked).mean()
+    return (lse - _picked(lg, tg)).mean()

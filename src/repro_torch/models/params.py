@@ -9,9 +9,12 @@ mamba branch of hymba, the dense and MoE FFNs, the norms and whisper's
 materialises it.  Every per-layer tensor is stacked with a leading
 ``layers`` axis of length L, under the same keys as the JAX package, so a
 parameter tree of either package carries across key by key
-(`repro_torch.convert.lm_params_from_numpy`).  The logical axes are the
-JAX package's sharding metadata, kept so the trees stay alike; the port
-runs on one device and does not read them.
+(`repro_torch.convert.lm_params_from_numpy`).  The logical axes lay the
+tree out on a mesh: `param_pspecs` gives each leaf's PartitionSpec under
+a `dist.sharding.ShardingRules`, `param_shardings` its (mesh, spec,
+placements), and `distribute_params` makes a tree of full tensors DTensors
+laid out so (the counterpart of ``device_put(params, param_shardings)``).
+`param_shapes` holds meta tensors of the leaves' shapes and dtype.
 """
 from __future__ import annotations
 
@@ -22,11 +25,9 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig
-from ..tree import leaves, tree_map
-
-#: Where what the port does not run yet (sharding the model) stands in
-#: ROADMAP.md.
-NOT_PORTED_ITEM = "ROADMAP.md, queue 1 item 11"
+from ..dist import sharding
+from ..dist.sharding import ShardingRules
+from ..tree import leaves, map_with_path, tree_map
 
 #: A normal leaf of more elements than this (8 GiB of f32) is drawn one
 #: slice of its leading axis at a time: drawn whole, its f32 temporary
@@ -272,6 +273,54 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
         return leaf
 
     return tree_map(draw, abstract_params(cfg))
+
+
+def param_shapes(cfg: ModelConfig, dtype: Optional[torch.dtype] = None
+                 ) -> Dict:
+    """Meta tensors of every leaf's shape, in `dtype` (default
+    ``cfg.torch_dtype``): the counterpart of the JAX ShapeDtypeStruct
+    tree.  No memory is allocated."""
+    dtype = dtype or cfg.torch_dtype
+    return tree_map(lambda m: torch.empty(m.shape, dtype=dtype,
+                                          device="meta"),
+                    abstract_params(cfg))
+
+
+def param_pspecs(cfg: ModelConfig, rules: ShardingRules) -> Dict:
+    """The PartitionSpec of every leaf under `rules`."""
+    return tree_map(lambda m: rules.spec(*m.axes), abstract_params(cfg))
+
+
+def param_shardings(cfg: ModelConfig, rules: ShardingRules) -> Dict:
+    """(mesh, spec, placements) of every leaf under `rules`: the
+    counterpart of the JAX NamedSharding tree."""
+    def one(m: ParamMeta):
+        spec = rules.spec(*m.axes)
+        return rules.mesh, spec, sharding.placements(spec, rules.mesh)
+
+    return tree_map(one, abstract_params(cfg))
+
+
+def distribute_params(tree: Dict, specs: Dict, mesh) -> Dict:
+    """`tree` (full tensors, alike on every rank) as DTensors on `mesh`
+    laid out leaf by leaf by `specs` (e.g. `param_pspecs`); each rank
+    keeps its own shards.  Works for any tree whose leaves `specs`
+    matches, the AdamW moments too."""
+    flat = dict(spec_leaves(specs))
+    return map_with_path(
+        lambda path, t: sharding.distribute(t, mesh, flat[path]), tree)
+
+
+def spec_leaves(specs: Dict, prefix=()):
+    """(path, spec) of every leaf of a tree of specs (e.g. `param_pspecs`)
+    in the tree walker's order.  A PartitionSpec is a tuple, which
+    `repro_torch.tree` would walk into: this walks the dicts only."""
+    for k in sorted(specs):
+        v = specs[k]
+        if isinstance(v, dict):
+            yield from spec_leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
 
 
 def count_params(cfg: ModelConfig) -> int:

@@ -14,6 +14,12 @@ float32 copy of a whole leaf: `adamw_update` walks each leaf in slices of
 its leading axis (the update is elementwise, so this changes no bit),
 updates m, v and the parameters in place, and takes the clip scale as
 `grad_scale` instead of a clipped float32 gradient tree.
+
+Sharded trees (DTensor leaves, `dist.sharding`): the moments take their
+parameter's placements, the update runs on each rank's local shards (p,
+g, m and v share placements, and the update is elementwise: no
+collective), and `global_norm` sums each rank's shards and reduces that
+one scalar over the mesh.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ from typing import Dict, Iterator, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..dist.sharding import is_dtensor
 from ..tree import leaves, tree_map
 
 Tensor = torch.Tensor
@@ -48,8 +55,11 @@ def _chunks(t: Tensor) -> Iterator[Tensor]:
 
 def adamw_init(params: Dict) -> AdamWState:
     """Zero float32 moments shaped like `params`, each on its leaf's
-    device; step 0 (int32) on the device of the first leaf."""
+    device (a DTensor leaf's in its placements); step 0 (int32) on the
+    device of the first leaf."""
     def zeros(p):
+        if is_dtensor(p):
+            return torch.zeros_like(p, dtype=torch.float32)
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
     first = leaves(params)[0]
@@ -58,13 +68,40 @@ def adamw_init(params: Dict) -> AdamWState:
                       m=tree_map(zeros, params), v=tree_map(zeros, params))
 
 
+def _owned_local(g) -> Optional[Tensor]:
+    """The local shard of DTensor `g` if this rank counts it in a sum over
+    the mesh (it sits at coordinate 0 of every mesh dim that replicates
+    `g`), else None."""
+    coord = g.device_mesh.get_coordinate()
+    if any(not p.is_shard() and c != 0
+           for p, c in zip(g.placements, coord)):
+        return None
+    return g.to_local()
+
+
 def global_norm(grads: Dict) -> Tensor:
-    """sqrt of the float32 sum of squares over every leaf (0-d float32)."""
-    total = None
+    """sqrt of the float32 sum of squares over every leaf (0-d float32).
+    DTensor leaves: each rank sums the shards it owns, and that one
+    scalar is summed over the mesh (every rank calls it together); the
+    norm is a plain tensor, alike on every rank."""
+    total, mesh = None, None
     for g in leaves(grads):
+        if is_dtensor(g):
+            mesh = g.device_mesh
+            g = _owned_local(g)
+            if g is None:
+                continue
         for c in _chunks(g):
             s = c.float().square().sum()
             total = s if total is None else total + s
+    if mesh is not None:
+        from torch.distributed.tensor import DTensor, Partial
+
+        if total is None:
+            total = torch.zeros((), dtype=torch.float32,
+                                device=mesh.device_type)
+        total = DTensor.from_local(total, mesh, [Partial()] * mesh.ndim,
+                                   run_check=False).full_tensor()
     return torch.sqrt(total)
 
 
@@ -117,8 +154,21 @@ def adamw_update(
     bc2 = 1.0 - b2 ** step.float()
     for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state.m),
                           leaves(state.v), strict=True):
+        if is_dtensor(p):
+            p, g, m, v = _local_shards(p, g, m, v)
         for ps, gs, ms, vs in zip(_chunks(p), _chunks(g), _chunks(m),
                                   _chunks(v)):
             _update_slice(ps, gs, ms, vs, bc1, bc2, grad_scale, lr, b1, b2,
                           eps, weight_decay)
     return params, AdamWState(step=step, m=state.m, v=state.v)
+
+
+def _local_shards(*ts):
+    """The local shards of DTensors laid out alike (a parameter, its
+    gradient and its moments)."""
+    lay = ts[0].placements
+    for t in ts[1:]:
+        if t.placements != lay:
+            raise ValueError(f"AdamW needs one layout: {t.placements} "
+                             f"beside {lay}")
+    return [t.to_local() for t in ts]

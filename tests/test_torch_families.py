@@ -225,9 +225,16 @@ def test_capacity_matches_jax(T, E, k, cf):
 
 
 def test_grouped_dispatch_refuses_rules_and_uneven_groups():
+    """Rules without a mesh (the null rules) are the plain dispatch, bit
+    for bit (the sharded dispatch is held in
+    tests/test_torch_sharded_lm.py); uneven groups are refused."""
+    from repro_torch.dist.sharding import ShardingRules
+
     x, router, wg, wu, wd = map(torch.from_numpy, _moe_inputs(5))
-    with pytest.raises(NotImplementedError, match="sharding"):
-        moe.moe_ffn_grouped(x, router, wg, wu, wd, top_k=2, rules=object())
+    kw = dict(top_k=2, n_groups=2)
+    plain = moe.moe_ffn_grouped(x[:24], router, wg, wu, wd, **kw)
+    assert torch.equal(plain, moe.moe_ffn_grouped(
+        x[:24], router, wg, wu, wd, rules=ShardingRules.null(), **kw))
     with pytest.raises(ValueError, match="groups"):
         moe.moe_ffn_grouped(x, router, wg, wu, wd, top_k=2, n_groups=5)
 

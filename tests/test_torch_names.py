@@ -47,10 +47,8 @@ MODULE_GAPS = {
                          "kernel plays its role",
     "repro.analysis.jaxpr_walk": BY_DESIGN + ": no jaxpr; comm.counting() "
                                  "is the recorder",
-    "repro.dist.sharding": ITEM_11 + " (sharding)",
     "repro.launch.dryrun": ITEM_11 + " (the dry-run)",
     "repro.launch.roofline": ITEM_11 + " (the dry-run)",
-    "repro.launch.mesh": ITEM_11 + " (the dry-run)",
     "repro.launch.inputs": ITEM_11 + " (the dry-run)",
 }
 
@@ -77,9 +75,6 @@ NAME_GAPS = {
     },
     "repro.core": {"distributed": BY_DESIGN + ": a deprecated shim"},
     "repro.dist": {
-        "ShardingRules": ITEM_11 + " (sharding)",
-        "make_rules": ITEM_11 + " (sharding)",
-        "sharding": ITEM_11 + " (sharding)",
         "commstats": "moved: dist.comm",
     },
     "repro.dist.backends.pallas_halo": {
@@ -113,12 +108,9 @@ NAME_GAPS = {
                                  "(cheb_sweep_l2_bytes)",
         "jacobi_sweep_vmem_bytes": BY_DESIGN + ": a TPU name "
                                    "(jacobi_sweep_l2_bytes)"},
-    "repro.models": {n: ITEM_11 + " (sharding)" for n in
-                     ("param_pspecs", "param_shapes")},
-    "repro.models.decode": {"cache_pspecs": ITEM_11 + " (sharding)"},
-    "repro.models.params": {n: ITEM_11 + " (sharding)" for n in
-                            ("param_pspecs", "param_shapes",
-                             "param_shardings")},
+    "repro.launch.mesh": {
+        "make_production_mesh": ITEM_11 + " (the dry-run)",
+    },
 }
 
 

@@ -533,13 +533,17 @@ def test_fail_and_resume_reproduces_loss(tmp_path):
 
 
 @pytest.mark.parametrize("argv,err", [
-    (["--dp-mode", "pjit"], NotImplementedError),
-    (["--mesh", "2x2", "--dp-mode", "gossip"], NotImplementedError),
-    (["--mesh", "4x1"], NotImplementedError),
+    (["--mesh", "2"], ValueError),
+    (["--mesh", "0x2", "--dp-mode", "pjit"], ValueError),
+    (["--mesh", "4xm"], ValueError),
     (["--dp-mode", "gossip"], ValueError),
     (["--dp-mode", "gossip", "--mesh", "3x1"], ValueError),   # batch 8
 ])
 def test_launcher_refuses_what_shards_the_model(argv, err):
+    """What the launcher cannot run: a malformed mesh, gossip without a
+    mesh or over a data axis the batch does not split over.  (The model
+    is sharded now: ``--dp-mode pjit`` and ``--mesh DxM`` run, held in
+    tests/test_torch_sharding.py.)"""
     with pytest.raises(err, match="ROADMAP|mesh|split"):
         train.main(["--arch", "qwen1.5-4b", "--smoke", "--device", "cpu"]
                    + argv)
