@@ -357,6 +357,28 @@ MESH_MOE_ARCH, MESH_MOE_GROUPS, MESH_MOE_B, MESH_MOE_S = (
 MESH_FAMILIES = ("deepseek-v2-236b", "rwkv6-1.6b", "hymba-1.5b",
                  "whisper-large-v3", "qwen2-vl-2b")
 MESH_PROMPT = 4
+# The remat phase: the train phase's starcoder2-3b parameters (seed 0,
+# full width and depth), TRAIN_B x TRAIN_S, one `loss_and_grads` and one
+# train step at TRAIN_LR under each of REMAT_RUNS from the same state
+# (the parameters restored from a host copy after each step).  The
+# levers replay the same operations on the same inputs, so step 0's
+# loss, grad norm and every gradient must equal `none`'s bit for bit
+# (REMAT_ULPS float32 units in the last place).  Printed: each mode's
+# peak MiB of `loss_and_grads` alone and of the whole step, and the ms
+# of two calls of each (CUDA events).
+REMAT_RUNS = {"none": {}, "full": {"remat": "full"},
+              "dots": {"remat": "dots"}, "named": {"remat": "named"},
+              "dots+attn_remat": {"remat": "dots", "attn_remat": True}}
+REMAT_ULPS = 0
+# The dry-run phase: `python -m repro_torch.launch.dryrun` in a child
+# process (its own fake group of 256 ranks, meta tensors) on DRYRUN_CELLS,
+# one per kind; then `dryrun.count_step` over the real plain train step
+# of the remat phase on the card and over the same step on meta tensors
+# in this process: the same FLOPs (DRYRUN_FLOPS_REL), so the dry-run
+# counts the step that runs.
+DRYRUN_CELLS = (("starcoder2-3b", "train_4k"),
+                ("starcoder2-3b", "decode_32k"), ("rwkv6-1.6b", "long_500k"))
+DRYRUN_FLOPS_REL = 0.0
 # The other model families (MoE, MLA, RWKV6, hymba, whisper) at full
 # width: arch -> (layers kept, None for all; forward B; forward S).
 # deepseek-v2-236b keeps 4 of its 60 layers (all 60 hold 479 GB of bf16
@@ -3204,6 +3226,214 @@ def _lm_train_phase(cfg, params, smi: str) -> list:
 
 
 # ---------------------------------------------------------------------------
+# The remat levers and the dry-run
+# ---------------------------------------------------------------------------
+def _restore(params: dict, host: dict) -> None:
+    """Copy the host copy `host` back into the parameters in place."""
+    from repro_torch.tree import leaves
+
+    for p, h in zip(leaves(params), leaves(host)):
+        p.copy_(h, non_blocking=True)
+    torch.cuda.synchronize()
+
+
+def _remat_phase(cfg, params, smi: str) -> dict:
+    """The remat phase (see REMAT_RUNS): each mode's loss and gradients
+    against `none`'s bit for bit, its peaks and ms (after one untimed
+    step under `none`); returns the rows by mode and what the dry-run
+    phase reuses (the batch and the host copy of the parameters)."""
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import RunConfig, steps
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.tree import leaves, leaves_with_paths, tree_map
+
+    dev = torch.device("cuda")
+    data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=TRAIN_S,
+                           global_batch=TRAIN_B, seed=SEED)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in data.batch_at(0).items()}
+    host = tree_map(lambda t: t.to("cpu", copy=True), params)
+    a, b = (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+
+    def timed(fn):
+        """(fn(), its ms by CUDA events, the peak MiB while it ran)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        return out, a.elapsed_time(b), peak
+
+    def one_step(run):
+        opt = adamw_init(params)
+        step = steps.build_train_step(cfg, run, lr=TRAIN_LR)
+        (_, opt, m), ms, peak = timed(lambda: step(params, opt, batch))
+        out = float(m["loss"]), float(m["grad_norm"]), ms, peak
+        del opt, m
+        _restore(params, host)
+        return out
+
+    # untimed warm-up: a step, and the checkpoint's first call (which
+    # imports torch._dynamo, seconds of host time)
+    one_step(RunConfig(attn_impl="ref"))
+    steps.loss_and_grads(steps.build_loss_fn(
+        cfg, RunConfig(attn_impl="ref", remat="dots")), params, batch)
+    ref, rows = None, {}
+    for label, kw in REMAT_RUNS.items():
+        run = RunConfig(attn_impl="ref", **kw)
+        loss_fn = steps.build_loss_fn(cfg, run)
+        (loss, grads), grads_ms, grads_peak = timed(
+            lambda: steps.loss_and_grads(loss_fn, params, batch))
+        del grads
+        (loss, grads), grads_ms2, _ = timed(
+            lambda: steps.loss_and_grads(loss_fn, params, batch))
+        gnorm = float(global_norm(grads))
+        if ref is None:
+            ref = dict(loss=float(loss), gnorm=gnorm,
+                       grads=tree_map(lambda t: t.to("cpu"), grads))
+            differ = []
+        else:
+            differ = ["/".join(k) for (k, g), h in zip(
+                leaves_with_paths(grads), leaves(ref["grads"]))
+                if not torch.equal(g, h.to(dev))]
+        del grads
+        step_loss, step_gnorm, step_ms, step_peak = one_step(run)
+        _, _, step_ms2, _ = one_step(run)
+        ulps = dict(loss=_f32_ulps(float(loss), ref["loss"]),
+                    grad_norm=_f32_ulps(gnorm, ref["gnorm"]),
+                    step_loss=_f32_ulps(step_loss, ref["loss"]),
+                    step_grad_norm=_f32_ulps(step_gnorm, ref["gnorm"]))
+        rows[label] = dict(loss=float(loss), grad_norm=gnorm,
+                           step_loss=step_loss, step_grad_norm=step_gnorm,
+                           ulps_vs_none=ulps, leaves_differ=differ,
+                           grads_peak_mib=grads_peak,
+                           grads_ms=[grads_ms, grads_ms2],
+                           step_peak_mib=step_peak,
+                           step_ms=[step_ms, step_ms2])
+        print(f"path lm_train_remat[{cfg.name}, {label}, B={TRAIN_B}, "
+              f"S={TRAIN_S}]: loss {float(loss)!r}, grad norm {gnorm!r}; "
+              f"float32 ulps from none {ulps} (limit {REMAT_ULPS}); "
+              f"gradients of {len(differ)} leaves differ from none's "
+              f"{differ}; loss_and_grads {grads_ms:.3f}, {grads_ms2:.3f}"
+              f" ms, peak {grads_peak:.1f} MiB; the train step "
+              f"{step_ms:.3f}, {step_ms2:.3f} ms, peak {step_peak:.1f} MiB "
+              f"(CUDA events, two calls each; {smi})")
+        check(not differ and max(ulps.values()) <= REMAT_ULPS,
+              f"remat {label} vs none: ulps {ulps}, leaves {differ}")
+        check(math.isfinite(step_loss) and math.isfinite(step_gnorm),
+              f"remat {label}: the step's loss and grad norm")
+    del ref
+    torch.cuda.empty_cache()
+    none = rows["none"]
+    for r in rows.values():
+        r.update(grads_peak_vs_none_mib=r["grads_peak_mib"]
+                 - none["grads_peak_mib"],
+                 step_peak_vs_none_mib=r["step_peak_mib"]
+                 - none["step_peak_mib"])
+    vs = {k: (round(r["grads_peak_vs_none_mib"], 1),
+              round(r["step_peak_vs_none_mib"], 1)) for k, r in rows.items()}
+    print(f"remat peaks vs none (MiB; loss_and_grads / the whole step): "
+          f"{vs}")
+    return dict(rows=rows, batch=batch, host=host)
+
+
+def _dryrun_phase(cfg, params, remat: dict, smi: str) -> list:
+    """The dry-run phase (see DRYRUN_CELLS): the launcher's cells in a
+    child process, then the counter over the real plain train step on
+    the card against the same step on meta tensors, and the roofline of
+    that step beside its measured ms."""
+    import os
+    import tempfile
+
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import dryrun, inputs
+    from repro_torch.launch.roofline import Roofline
+    from repro_torch.models import RunConfig, params as mparams, steps
+    from repro_torch.optim import adamw_init
+
+    rows = []
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = {}
+        for arch, shape in DRYRUN_CELLS:      # one child per cell, at once
+            out = Path(tmp) / f"{arch}-{shape}.json"
+            procs[(arch, shape)] = (out, subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 arch, "--shape", shape, "--out", str(out)], env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for (arch, shape), (out, proc) in procs.items():
+            try:
+                stdout, stderr = proc.communicate(timeout=600)
+            finally:
+                proc.kill()
+            secs = time.perf_counter() - t0
+            line = [ln for ln in stdout.splitlines()
+                    if ln.startswith("[dryrun]")]
+            check(proc.returncode == 0 and out.is_file(),
+                  f"dryrun {arch} x {shape}: rc {proc.returncode}, "
+                  f"{stdout[-1000:]} {stderr[-2000:]}")
+            rec = json.loads(out.read_text())[0]
+            mf = rec["model_flops"]["model_flops_per_device"]
+            print(f"path dryrun[{arch} x {shape}, 16x16 fake group, meta]: "
+                  f"{line[-1] if line else ''}; done {secs:.1f} s after "
+                  f"the start (setup {rec['lower_s']} s, the counted run "
+                  f"{rec['compile_s']} s); counted {rec['cost']['flops']:.4e} "
+                  f"FLOPs per rank = {rec['cost']['flops'] / mf:.3f} x "
+                  f"model_flops_per_device {mf:.4e}; collective bytes per "
+                  f"rank {rec['collectives']['collective_bytes_per_device']}"
+                  f"; resident {rec['memory']['total_hbm_bytes'] / 1e9:.3f}"
+                  f" GB, fits 80 GB {rec['fits_hbm_80g']}")
+            check(rec["status"] == "ok", f"dryrun {arch} x {shape}: {rec}")
+            rows.append(dict(name=f"dryrun[{arch} x {shape}]", seconds=secs,
+                             flops_per_device=rec["cost"]["flops"],
+                             model_flops_per_device=mf,
+                             collective_bytes_per_device=rec["collectives"][
+                                 "collective_bytes_per_device"],
+                             roofline=rec["roofline"],
+                             memory=rec["memory"],
+                             fits_hbm_80g=rec["fits_hbm_80g"]))
+    # the counter over the real plain step on the card and over the same
+    # step on meta tensors
+    run = RunConfig(attn_impl="ref")
+    batch, host = remat["batch"], remat["host"]
+    step = steps.build_train_step(cfg, run, lr=TRAIN_LR)
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    _, card = dryrun.count_step(step, params, opt, batch)
+    torch.cuda.synchronize()
+    del opt
+    _restore(params, host)
+    shape = ShapeSpec("smoke", TRAIN_S, TRAIN_B, "train")
+    meta_p = mparams.param_shapes(cfg)
+    _, meta = dryrun.count_step(
+        steps.build_train_step(cfg, run, lr=TRAIN_LR), meta_p,
+        adamw_init(meta_p), inputs.batch_specs(cfg, shape))
+    rel = abs(card.flops - meta.flops) / meta.flops
+    rf = Roofline(card.flops, card.bytes, 0.0)
+    ms = remat["rows"]["none"]["step_ms"][-1]
+    print(f"path dryrun.count_step[{cfg.name} train step, B={TRAIN_B}, "
+          f"S={TRAIN_S}, plain]: on the card {card.flops:.6e} FLOPs, "
+          f"{card.bytes:.6e} bytes; on meta tensors {meta.flops:.6e} "
+          f"FLOPs, {meta.bytes:.6e} bytes (rel {rel:.3e}, tol "
+          f"{DRYRUN_FLOPS_REL}); roofline compute {1e3 * rf.compute_s:.3f}"
+          f" ms, memory {1e3 * rf.memory_s:.3f} ms (unfused bytes), "
+          f"measured {ms:.3f} ms per step ({smi})")
+    check(rel <= DRYRUN_FLOPS_REL, f"count_step on the card vs meta: rel "
+          f"{rel}")
+    rows.append(dict(name=f"dryrun.count_step[{cfg.name}, B={TRAIN_B}, "
+                          f"S={TRAIN_S}]", card_flops=card.flops,
+                     meta_flops=meta.flops, card_bytes=card.bytes,
+                     meta_bytes=meta.bytes, compute_ms=1e3 * rf.compute_s,
+                     memory_ms=1e3 * rf.memory_s, measured_ms=ms))
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # The other model families: MoE, MLA, RWKV6, hymba, whisper (phase 16)
 # ---------------------------------------------------------------------------
 _MATMUL = ("gemm", "gemv", "cutlass", "xmma", "nvjet")
@@ -4597,6 +4827,18 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     path_rows.extend(_mesh_phase(cfg, params, smi))
     print(f"mesh phase: {time.perf_counter() - t0:.1f} s")
+
+    # -- the remat levers and the dry-run: the same parameters -------------
+    t0 = time.perf_counter()
+    remat = _remat_phase(cfg, params, smi)
+    path_rows.append(dict(name=f"lm_train_remat[{cfg.name}]",
+                          modes=remat["rows"]))
+    print(f"remat phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    path_rows.extend(_dryrun_phase(cfg, params, remat, smi))
+    del remat
+    torch.cuda.empty_cache()
+    print(f"dryrun phase: {time.perf_counter() - t0:.1f} s")
 
     # -- LM training: the same parameters, then the launcher ---------------
     t0 = time.perf_counter()

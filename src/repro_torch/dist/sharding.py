@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import torch
@@ -265,6 +266,63 @@ def like(x, ref):
     if not is_dtensor(x) or x.placements == ref.placements:
         return x
     return x.redistribute(ref.device_mesh, ref.placements)
+
+
+def unshard(x, *dims: int):
+    """DTensor `x` gathered along `dims` and along every dim its mesh
+    shards unevenly (those mesh dims made Replicate); a plain tensor as
+    it is.  DTensor's argmax over a sharded dim, or over uneven shards (a
+    batch of 1 over 16 ranks), fails on a large mesh."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    mesh, lay = x.device_mesh, list(x.placements)
+    for d in range(x.ndim):
+        n = math.prod(mesh.size(i) for i, p in enumerate(lay)
+                      if p.is_shard(d))
+        if x.shape[d] % n or d in [e % x.ndim for e in dims]:
+            lay = [Replicate() if p.is_shard(d) else p for p in lay]
+    if lay == list(x.placements):
+        return x
+    return x.redistribute(mesh, lay)
+
+
+def _cut(x, dim: int) -> int:
+    """The number of pieces DTensor `x`'s mesh cuts `dim` into."""
+    mesh = x.device_mesh
+    return math.prod(mesh.size(i) for i, p in enumerate(x.placements)
+                     if p.is_shard(dim))
+
+
+def reshape(x, shape):
+    """``x.reshape(shape)``; for a DTensor whose sharded dims keep their
+    place (the dims before them unchanged, or the outer part of the one
+    split or merged dim), on each rank's shard in x's placements, that
+    dim gathered first when the mesh cannot cut it evenly.  DTensor's own
+    view refuses to split a sharded dim on some torches, cannot cut a
+    head count unevenly, and its gradient's view back reads the global
+    strides; a pending sum's gradient comes back replicated."""
+    if not is_dtensor(x):
+        return x.reshape(shape)
+    from torch.distributed.tensor import DTensor, Replicate
+
+    shape = tuple(shape)
+    k = 0
+    while k < min(x.ndim, len(shape)) and x.shape[k] == shape[k]:
+        k += 1
+    if any(p.is_shard() and p.dim > k for p in x.placements):
+        return x.reshape(shape)
+    if k < len(shape) and (shape[k] % _cut(x, k) or x.shape[k] % _cut(x, k)):
+        x = unshard(x, k)
+    lay = x.placements
+    local = x.to_local(grad_placements=[Replicate() if p.is_partial()
+                                        else p for p in lay])
+    y = local.reshape(tuple(local.shape[:k]) + tuple(
+        n // _cut(x, d) for d, n in enumerate(shape) if d >= k))
+    return DTensor.from_local(
+        y, x.device_mesh, lay, run_check=False, shape=torch.Size(shape),
+        stride=torch.empty(shape, device="meta").stride())
 
 
 def full(x):

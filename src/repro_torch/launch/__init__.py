@@ -1,2 +1,3 @@
-"""Launchers of the port: the LM trainer (`train`) and the batched LM
-server (`serve`).  The TPU dry-run waits for ROADMAP.md queue 1 item 11."""
+"""Launchers of the port: the LM trainer (`train`), the batched LM server
+(`serve`) and the multi-pod dry-run (`dryrun`, with its `roofline`
+terms, its meta-tensor `inputs` and `mesh.make_production_mesh`)."""

@@ -49,7 +49,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig
-from ..dist.sharding import ShardingRules, distribute, is_dtensor, lift
+from ..dist.sharding import (ShardingRules, distribute, is_dtensor, lift,
+                             reshape)
 from . import layers as nn
 from . import mamba, rwkv6
 from .model import (NULL_RULES, RunConfig, _final_norm, _merge_heads, _norm,
@@ -208,7 +209,7 @@ def _mla_decode(cfg: ModelConfig, h: Tensor, lp: Dict, ckv: Tensor,
     pr = torch.softmax(s, dim=-1)
     ctx = torch.einsum("bhs,bsr->bhr", pr, ckv32)
     out = torch.einsum("bhr,rhd->bhd", ctx, wuv)
-    return out.reshape(b, 1, hq * hd).to(h.dtype) @ lp["wo"]
+    return reshape(out, (b, 1, hq * hd)).to(h.dtype) @ lp["wo"]
 
 
 def decode_step(cfg: ModelConfig, params: Dict, cache: Dict, tokens: Tensor,

@@ -22,20 +22,51 @@ parameters and the batch are DTensors, and the JAX package's sharding
 constraints become ``rules.constrain`` (a ``redistribute``) at its
 points: the embedded input, q / k / v (``RunConfig.qkv_constraints``),
 the SwiGLU hidden, each block's output, each encoder block's output and
-the logits.  `RunConfig` keeps the attention, MoE and sharding levers;
-the JAX package's remat and layer-unrolling levers are not ported
-(ROADMAP.md).  The KV-cache decode path is `models.decode`.
+the logits.  The KV-cache decode path is `models.decode`.
+
+Rematerialisation (`RunConfig.remat`, the JAX package's `_maybe_remat`):
+every decoder block, and every block of whisper's encoder, runs under
+non-reentrant `torch.utils.checkpoint`, which keeps what the mode saves
+and recomputes the rest of the block in the backward:
+
+* ``none``: autograd keeps what it keeps (no checkpoint);
+* ``full``: nothing inside the block (JAX ``nothing_saveable``);
+* ``dots``: the outputs of products with no batch dims (JAX
+  ``checkpoint_dots_with_no_batch_dims``).  A ``(B, S, D) @ (D, F)``
+  product lowers to ``aten.mm`` (``aten.addmm`` with a fused bias): the
+  projections, the router and the shared experts, MLA's down- and
+  up-projections, RWKV's and mamba's projections, which JAX writes as
+  dot_generals without batch dims.  Attention's einsums, the MoE
+  experts' products, RWKV's per-step wkv and mamba's per-step readout
+  lower to ``aten.bmm`` and are recomputed, as JAX recomputes their
+  batched dot_generals;
+* ``named``: only the two branch outputs JAX tags ``mix_out`` (the
+  mixer's output; not RWKV's, which JAX does not tag) and ``ffn_out``.
+  Torch has no ``checkpoint_name``: `_tag` copies the tensor once
+  (``aten.clone``) while a module flag names it, and the policy saves
+  exactly those copies.  Under a mesh the copy of a pending-sum DTensor
+  changes how DTensor lays out its gradient, so the sums of the
+  backward run in another order (within rounding of ``none``).
+
+``attn_remat`` checkpoints the attention call of `attn_branch` and
+`mla_branch` (the `local_map` of a sharded call included), saving
+nothing inside it.  ``unroll_layers`` is accepted and recorded and
+changes nothing: the layers already run as a Python loop, which the JAX
+package gets by unrolling its scan.  Under every mode the loss and the
+gradients are the bits of ``none`` (``named`` under a mesh: above).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
 from ..configs.base import ModelConfig
-from ..dist.sharding import ShardingRules, is_dtensor, lift, shard_range
+from ..dist.sharding import (ShardingRules, is_dtensor, lift, reshape,
+                             shard_range)
 from . import layers as nn
 from . import mamba, moe, rwkv6
 
@@ -45,20 +76,108 @@ Tensor = torch.Tensor
 NULL_RULES = ShardingRules.null()
 
 
+#: The values of `RunConfig.remat`.
+REMAT_MODES = ("none", "full", "dots", "named")
+
+
 @dataclasses.dataclass(frozen=True)
 class RunConfig:
-    """Attention, MoE and sharding levers of the forward."""
+    """Attention, remat, MoE and sharding levers of the forward (the JAX
+    package's fields, in its order)."""
 
     attn_impl: str = "chunked"      # ref | chunked | flash
     attn_chunk: int = 1024
+    remat: str = "none"             # none | full | dots | named
+    scheme: str = "default"         # sharding scheme (dist/sharding.py)
     moe_capacity_factor: Optional[float] = None  # overrides the config's
+    # recompute the attention call in the backward (saves nothing of it)
+    attn_remat: bool = False
+    # constrain q / k / v to their head sharding (else propagate)
+    qkv_constraints: bool = True
     # 'global_sort' (one sort of all assignments) or 'grouped' (a sort per
     # group of tokens)
     moe_dispatch: str = "global_sort"
     moe_groups: int = 1
-    scheme: str = "default"         # sharding scheme (dist/sharding.py)
-    # constrain q / k / v to their head sharding (else propagate)
-    qkv_constraints: bool = True
+    # the JAX package unrolls its layer scan with it; the port's layers
+    # are a Python loop already, so it changes nothing here
+    unroll_layers: bool = False
+
+    def __post_init__(self):
+        if self.remat not in REMAT_MODES:
+            raise ValueError(f"remat={self.remat!r}: one of {REMAT_MODES}")
+
+
+#: The name `_tag` is tagging while it copies (read by `_save_named`).
+_TAGGING = [None]
+
+
+def _tag(x: Tensor, name: str, run: RunConfig) -> Tensor:
+    """x under remat "named": a copy that the policy saves (the JAX
+    ``checkpoint_name(x, name)``); x itself under every other mode."""
+    if run.remat != "named":
+        return x
+    _TAGGING[0] = name
+    try:
+        return x.clone()
+    finally:
+        _TAGGING[0] = None
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Save the products with no batch dims, recompute the rest."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _save_named(ctx, op, *args, **kwargs):
+    """Save the copies `_tag` makes, recompute the rest."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op is torch.ops.aten.clone.default and _TAGGING[0] is not None:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+#: The selective policy of each remat mode that keeps something.
+POLICIES = {"dots": _save_dots, "named": _save_named}
+
+
+def _checkpointed(fn: Callable, policy: Optional[Callable] = None):
+    """fn under non-reentrant checkpoint: `policy` picks what is saved
+    (None: nothing)."""
+    from torch.utils import checkpoint as ckpt
+
+    def run(*args):
+        kw = {}
+        if policy is not None:
+            kw["context_fn"] = functools.partial(
+                ckpt.create_selective_checkpoint_contexts, policy)
+        return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return run
+
+
+def _maybe_remat(fn: Callable, run: RunConfig) -> Callable:
+    """fn (a block) under `run.remat` (the JAX `_maybe_remat`)."""
+    if run.remat == "none":
+        return fn
+    if run.remat == "full":
+        return _checkpointed(fn)
+    return _checkpointed(fn, POLICIES[run.remat])
+
+
+def _attend(run: RunConfig, q: Tensor, k: Tensor, v: Tensor,
+            **kw) -> Tensor:
+    """`nn.attention` of q, k, v, checkpointed under ``attn_remat``."""
+    attn = functools.partial(nn.attention, impl=run.attn_impl,
+                             chunk=run.attn_chunk, **kw)
+    if run.attn_remat:
+        attn = _checkpointed(attn)
+    return attn(q, k, v)
 
 
 def _norm(cfg: ModelConfig, x: Tensor, p: Dict, name: str) -> Tensor:
@@ -68,21 +187,13 @@ def _norm(cfg: ModelConfig, x: Tensor, p: Dict, name: str) -> Tensor:
 
 
 def _split_heads(x: Tensor, n_heads: int) -> Tensor:
-    b, s, _ = x.shape
-    y = x.reshape(b, s, n_heads, -1)
-    if is_dtensor(y) and y.requires_grad:
-        # its gradient arrives transposed; DTensor's view back to (B, S,
-        # n_heads * hd) reads the global strides and fails on the local
-        # ones: copy it contiguous (`contiguous()` reads the global
-        # strides too, and would return it as it is)
-        y.register_hook(
-            lambda g: g.clone(memory_format=torch.contiguous_format))
-    return y.transpose(1, 2)
+    b, s, d = x.shape
+    return reshape(x, (b, s, n_heads, d // n_heads)).transpose(1, 2)
 
 
 def _merge_heads(x: Tensor) -> Tensor:
     b, h, s, d = x.shape
-    return x.transpose(1, 2).reshape(b, s, h * d)
+    return reshape(x.transpose(1, 2), (b, s, h * d))
 
 
 def _qkv(cfg: ModelConfig, x: Tensor, p: Dict,
@@ -132,8 +243,7 @@ def attn_branch(cfg: ModelConfig, x: Tensor, p: Dict, run: RunConfig,
         q = rules.constrain(q, "batch", "heads", "seq", "head_dim")
         k = rules.constrain(k, "batch", "kv_heads", None, "head_dim")
         v = rules.constrain(v, "batch", "kv_heads", None, "head_dim")
-    out = nn.attention(q, k, v, impl=run.attn_impl, causal=causal,
-                       window=window, chunk=run.attn_chunk)
+    out = _attend(run, q, k, v, causal=causal, window=window)
     return _merge_heads(out) @ p["wo" + sfx]
 
 
@@ -161,8 +271,7 @@ def mla_branch(cfg: ModelConfig, x: Tensor, p: Dict, run: RunConfig,
         q = rules.constrain(q, "batch", "heads", "seq", None)
         k = rules.constrain(k, "batch", "heads", None, None)
         v = rules.constrain(v, "batch", "heads", None, None)
-    out = nn.attention(q, k, v, impl=run.attn_impl, causal=True,
-                       scale=1.0 / math.sqrt(hd + rd), chunk=run.attn_chunk)
+    out = _attend(run, q, k, v, causal=True, scale=1.0 / math.sqrt(hd + rd))
     return _merge_heads(out) @ p["wo"]
 
 
@@ -227,14 +336,14 @@ def block(cfg: ModelConfig, x: Tensor, lp: Dict, run: RunConfig,
         y = attn_branch(cfg, h, lp, run, positions, causal=True,
                         use_rope=not cfg.is_encoder_decoder,
                         window=cfg.sliding_window, rules=rules)
-    x = x + y
+    x = x + _tag(y, "mix_out", run)
     if cfg.is_encoder_decoder:
         h = _norm(cfg, x, lp, "norm3")
         x = x + attn_branch(cfg, h, lp, run, positions, causal=False,
                             use_rope=False, kv_src=enc_out, sfx="_x",
                             rules=rules)
     h = _norm(cfg, x, lp, "norm2")
-    x = x + ffn_branch(cfg, h, lp, run, rules)
+    x = x + _tag(ffn_branch(cfg, h, lp, run, rules), "ffn_out", run)
     return rules.constrain(x, "batch", "seq", "embed")
 
 
@@ -269,13 +378,18 @@ def encode(cfg: ModelConfig, params: Dict, frames: Tensor,
     positions = lift(torch.arange(x.shape[1], device=x.device).expand(
         x.shape[:2]), x)
     enc = params["encoder"]
-    for lp in _layers(enc["layers"], cfg.n_encoder_layers):
+
+    def enc_block(x: Tensor, lp: Dict) -> Tensor:
         h = _norm(cfg, x, lp, "norm1")
         x = x + attn_branch(cfg, h, lp, run, positions, causal=False,
                             use_rope=False, rules=rules)
         h = _norm(cfg, x, lp, "norm2")
         x = x + ffn_branch(cfg, h, lp, run, rules)
-        x = rules.constrain(x, "batch", "frames", "embed")
+        return rules.constrain(x, "batch", "frames", "embed")
+
+    enc_block = _maybe_remat(enc_block, run)
+    for lp in _layers(enc["layers"], cfg.n_encoder_layers):
+        x = enc_block(x, lp)
     return _final_norm(cfg, x, enc)
 
 
@@ -339,8 +453,10 @@ def forward(cfg: ModelConfig, params: Dict, tokens: Tensor,
         enc_out = encode(cfg, params, encoder_frames, run, rules)
     x = rules.constrain(x, "batch", "seq", "embed")
     positions = lift(torch.arange(S, device=x.device).expand(B, S), x)
+    blk = _maybe_remat(
+        lambda x, lp: block(cfg, x, lp, run, positions, enc_out, rules), run)
     for lp in _layers(params["layers"], cfg.n_layers):
-        x = block(cfg, x, lp, run, positions, enc_out, rules)
+        x = blk(x, lp)
     x = _final_norm(cfg, x, params)
     logits = x @ params["lm_head"].T.to(x.dtype)
     return rules.constrain(logits, "batch", "seq", "vocab")

@@ -28,7 +28,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from ..dist.sharding import is_dtensor, lift
+from ..dist.sharding import is_dtensor, lift, reshape
 from . import layers as nn
 
 Tensor = torch.Tensor
@@ -54,17 +54,18 @@ def time_mix(x: Tensor, p: Dict, state: Tuple[Tensor, Tensor],
     wkv0, shift0 = state
     xprev = nn.token_shift(x, shift0)
 
-    r = _project(x, xprev, p["mu_r"], p["w_r"]).reshape(B, S, H, hd).float()
-    k = _project(x, xprev, p["mu_k"], p["w_k"]).reshape(B, S, H, hd).float()
-    v = _project(x, xprev, p["mu_v"], p["w_v"]).reshape(B, S, H, hd).float()
+    heads = (B, S, H, hd)
+    r = reshape(_project(x, xprev, p["mu_r"], p["w_r"]), heads).float()
+    k = reshape(_project(x, xprev, p["mu_k"], p["w_k"]), heads).float()
+    v = reshape(_project(x, xprev, p["mu_v"], p["w_v"]), heads).float()
     g = torch.nn.functional.silu(_project(x, xprev, p["mu_g"], p["w_g"]))
-    w = _decay(x, xprev, p).reshape(B, S, H, hd)
+    w = reshape(_decay(x, xprev, p), heads)
     u = p["bonus"].float()[None, :, :, None]                    # (1,H,hd,1)
 
     scan = _local_wkv if is_dtensor(r) else _wkv
     y, s = scan(r, k, v, w, u, wkv0.float())                    # (B,S,H,hd)
     y = nn.group_norm_heads(y, p["ln_x"]).to(x.dtype)
-    y = (y.reshape(B, S, D) * g) @ p["w_o"]
+    y = (reshape(y, (B, S, D)) * g) @ p["w_o"]
     return y, (s.to(wkv0.dtype), x[:, -1, :])
 
 

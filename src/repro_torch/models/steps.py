@@ -106,11 +106,12 @@ def build_serve_step(cfg: ModelConfig, run: RunConfig = RunConfig(),
                      rules: ShardingRules = NULL_RULES):
     """serve_step(params, cache, tokens (B, 1)) -> (next (B,), cache): one
     batched decode step and its greedy token, in ``tokens.dtype``; the
-    cache is updated in place (`decode.decode_step`)."""
+    cache is updated in place (`decode.decode_step`).  Under a mesh each
+    rank picks from the logits gathered over the vocab."""
 
     def serve_step(params: Dict, cache: Dict, tokens):
         logits, cache = dec.decode_step(cfg, params, cache, tokens, run,
                                         rules=rules)
-        return logits.argmax(-1).to(tokens.dtype), cache
+        return sharding.unshard(logits, -1).argmax(-1).to(tokens.dtype), cache
 
     return serve_step

@@ -5,9 +5,9 @@ same name (or a named one: `MOVED_MODULES`) or is listed in
 `MODULE_GAPS` with the reason; for every pair, each public name of the
 reference (its `__all__`, else what the module defines) is an attribute
 of the port's module, or is listed in `NAME_GAPS`: "not ported, by
-design" and "moved" as ROADMAP.md queue 1 lists them one by one, and the
-item-11 names still to come.  A new gap fails, and so does a listed gap
-that was closed (the list must be pruned).
+design" and "moved" as ROADMAP.md queue 1 lists them one by one.  A new
+gap fails, and so does a listed gap that was closed (the list must be
+pruned).
 
 The halo functional forms (`dist_cheb_apply`, `dist_cheb_apply_adjoint`,
 `dist_cheb_apply_gram`, `dist_lasso`) are held equal to the `halo` plan's
@@ -30,7 +30,6 @@ ROOT = Path(__file__).resolve().parents[1]
 REF = ROOT / "src" / "repro"
 
 BY_DESIGN = "not ported, by design"
-ITEM_11 = "ROADMAP queue 1 item 11, still to come"
 
 #: Reference modules whose counterpart has another name.
 MOVED_MODULES = {
@@ -47,9 +46,6 @@ MODULE_GAPS = {
                          "kernel plays its role",
     "repro.analysis.jaxpr_walk": BY_DESIGN + ": no jaxpr; comm.counting() "
                                  "is the recorder",
-    "repro.launch.dryrun": ITEM_11 + " (the dry-run)",
-    "repro.launch.roofline": ITEM_11 + " (the dry-run)",
-    "repro.launch.inputs": ITEM_11 + " (the dry-run)",
 }
 
 _JAXPR = BY_DESIGN + ": jaxpr machinery (analysis/jaxpr_walk.py)"
@@ -108,8 +104,9 @@ NAME_GAPS = {
                                  "(cheb_sweep_l2_bytes)",
         "jacobi_sweep_vmem_bytes": BY_DESIGN + ": a TPU name "
                                    "(jacobi_sweep_l2_bytes)"},
-    "repro.launch.mesh": {
-        "make_production_mesh": ITEM_11 + " (the dry-run)",
+    "repro.launch.roofline": {
+        "ICI_BW": "moved: LINK_BW (NVLink 4, one direction, in place of "
+                  "the TPU's ICI link)",
     },
 }
 
