@@ -10,8 +10,11 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    the shapes of the paths below, and times both (plus one PyTorch library
    call computing the same product, where there is one): the sliced-ELL
    SpMV at B = 1, 64 and 448 (also against the Block-ELL plain version on
-   the same P), the Chebyshev and Jacobi steps, both sweeps (which read
-   the same sliced-ELL layout as the SpMV), the ISTA shrink and both
+   the same P), the Chebyshev and Jacobi steps in both instances (the
+   stand-alone ones, the Chebyshev one also in the per-order loop's
+   prepared in-place form, and the fused `cheb_order` / `jacobi_round`,
+   which run the sliced-ELL product inside), both sweeps (which read the
+   same sliced-ELL layout as the SpMV), the ISTA shrink and both
    flash-attention kernels;
 3. drives the main path — ``GraphOperator(...).plan("cuda")`` `apply`,
    `apply_adjoint`, `apply_gram` and the ``sweep=False`` apply — on the
@@ -19,10 +22,14 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    with J = 6 (eta = 7), K = 20, on a batch of 64 signals, and holds every
    output against the port's float64 ``plan("dense")`` on the card;
 4. times the whole-recurrence sweep against the per-order path on both
-   sides of the sweep's L2 budget;
+   sides of the sweep's L2 budget, drives the plan's apply at B = 256
+   (the guard's fallback: K `cheb_order` launches) and the per-order path
+   at n = 2**18 sensors (its sliced-ELL layout packed on the card from
+   COO; past the budget at B = 64), each held against float64;
 5. drives the Section-V solvers (`plan.solve`, all four methods, in the
    Fig. 2 settings (a) P = L_norm, r = 1, 20 rounds and (b) P = L, r = 2,
-   10 rounds of Jacobi), the per-round path (``history=True``) and the
+   10 rounds of Jacobi), the per-round path (``history=True``: one
+   `jacobi_round` launch per round) and the
    divergence guard (``check_every=7``), the wavelet lasso
    (`plan.solve_lasso`, 20 ISTA iterations, mu 0.01 / 0.75) and the
    Section III-D classifier (`semi_supervised_classify` with 4 quadrant
@@ -418,6 +425,13 @@ FAMILY_FLASH_CASES = {
     "qwen3_moe_layer": (1, 32, 4, 2048, 2048, 128, True),
 }
 
+# The per-order path past the sweep's L2 budget in n: the sensor network
+# at LARGE_N sensors (2**18; the paper's scale is 1e6), B = BATCH, K and
+# J as above, its layout packed on the card from COO in chunks of
+# LARGE_CHUNK strip-sorted vertices, held against float64 on
+# LARGE_REF_SIGNALS signals.
+LARGE_N, LARGE_CHUNK, LARGE_REF_SIGNALS = 2**18, 4096, 4
+
 # Per-round final iterate vs the sweep's (the same f32 arithmetic, P h
 # products in another grouping); the guarded solve vs the unguarded one
 # (the same kernel launches in chunks); SSL predictions are compared where
@@ -435,6 +449,28 @@ EARLIER_SWEEPS = ("quoted from PERF.md, not measured in this run: the "
                   "cheb_sweep 8.5809, cheb_sweep bf16 8.6630, jacobi_sweep "
                   "8.0820 in setting (a) and 8.0662 in (b), jacobi_sweep "
                   "bf16 7.9574 (H100 80GB HBM3, 700 W)")
+
+# The step kernels before their redesign (PERF.md's kernel table: NVIDIA
+# H100 80GB HBM3, 700 W): CUDA-event ms and device ms per
+# call of what each row's kernel replaces.  Printed beside this run's
+# times as quoted text, never in the kernels line: this run does not
+# measure them.
+EARLIER_STEPS = {
+    "cheb_step": "the stand-alone step ms 0.0564, device_ms 0.0308",
+    "cheb_step_gossip_leaf": "ms 0.3392, device_ms 0.3238",
+    "cheb_order": ("a SpMV launch and a step launch: ms 0.0594 + 0.0564, "
+                   "device_ms 0.01997 + 0.0308 = 0.05077"),
+    "jacobi_step": "the 'path' form ms 0.0671, device_ms 0.00812",
+    "jacobi_round": ("a SpMV launch (device_ms 0.01997), three eager "
+                     "Horner ops (not measured) and a step launch "
+                     "(ms 0.0671, device_ms 0.00812)"),
+}
+
+
+def _earlier(name: str) -> str:
+    return (f"earlier, quoted from PERF.md, not measured in this run: "
+            f"{EARLIER_STEPS[name]} (H100 80GB HBM3, 700 W)")
+
 
 # The sharded phase: ranks on the one card, gloo with host-staged tiles;
 # every line it prints carries this label (these are not NCCL numbers).
@@ -1915,13 +1951,14 @@ def _graph_counters():
     """The launch counters of the graph kernels' wrappers."""
     from repro_torch.kernels.bcsr_spmv import (sliced_ell_spmv,
                                                sliced_ell_spmv_accumulate)
-    from repro_torch.kernels.cheb_step import cheb_step
+    from repro_torch.kernels.cheb_step import cheb_order, cheb_step
     from repro_torch.kernels.cheb_sweep import cheb_sweep, jacobi_sweep
-    from repro_torch.kernels.jacobi_step import jacobi_step
+    from repro_torch.kernels.jacobi_step import jacobi_round, jacobi_step
     from repro_torch.kernels.soft_threshold import ista_shrink
 
     return (sliced_ell_spmv, sliced_ell_spmv_accumulate, cheb_step,
-            cheb_sweep, jacobi_step, jacobi_sweep, ista_shrink)
+            cheb_order, cheb_sweep, jacobi_step, jacobi_round, jacobi_sweep,
+            ista_shrink)
 
 
 def _times(per_round: dict, rounds: int, **extra) -> dict:
@@ -2176,6 +2213,98 @@ def _sensor500_phase(dev, counters, path_launches) -> dict:
     return row
 
 
+def _large_sensor_layout(graph, n: int, dev):
+    """The Section IV-D sensor network at n sensors (seed SEED, kappa =
+    sqrt(20 / (pi n)) and theta in the paper's ratio, as at N), its
+    vertices in strip order, as the sliced-ELL layout of its combinatorial
+    Laplacian, packed on the card from COO by `graph.sliced_ell_from_coo`:
+    a dense n x n P does not fit the host at n = 2**18.  The neighbours of
+    each chunk of strip-sorted vertices lie within kappa in y, so each
+    chunk is held against that window alone.  Returns (layout, lmax (the
+    Anderson-Morley bound), |E|)."""
+    kappa = math.sqrt(20.0 / (math.pi * n))
+    theta = kappa * 0.074 / 0.075
+    coords = torch.from_numpy(
+        np.random.RandomState(SEED).uniform(size=(n, 2))).to(dev)
+    coords = coords[torch.argsort(coords[:, 1], stable=True)]
+    y = coords[:, 1].contiguous()
+    rows, cols, ws = [], [], []
+    for r0 in range(0, n, LARGE_CHUNK):
+        r1 = min(r0 + LARGE_CHUNK, n)
+        lo = int(torch.searchsorted(y, y[r0] - kappa))
+        hi = int(torch.searchsorted(y, y[r1 - 1] + kappa, right=True))
+        d2 = ((coords[r0:r1, None, :] - coords[None, lo:hi, :]) ** 2).sum(-1)
+        near = d2 <= kappa * kappa
+        own = torch.arange(r0, r1, device=dev)
+        near[own - r0, own - lo] = False
+        i, j = near.nonzero(as_tuple=True)
+        rows.append(i + r0)
+        cols.append(j + lo)
+        ws.append(torch.exp(-d2[i, j] / (2.0 * theta * theta)))
+    rows, cols, w = torch.cat(rows), torch.cat(cols), torch.cat(ws)
+    deg = torch.zeros(n, dtype=w.dtype, device=dev).index_add_(0, rows, w)
+    lmax = float((deg[rows] + deg[cols]).max())
+    own = torch.arange(n, device=dev)
+    r, c = torch.cat([rows, own]), torch.cat([cols, own])
+    order = torch.argsort(r * n + c)
+    v = torch.cat([-w, deg])[order]
+    S = graph.sliced_ell_from_coo(r[order], c[order], v, n, n)
+    return S, lmax, rows.numel() // 2
+
+
+def _large_per_order(ops, graph, randn, run_path, path_rows) -> None:
+    """The per-order path at n = LARGE_N (past the sweep's L2 budget at
+    B = BATCH, where the guard sends a plan's apply): the SGWT union at J
+    and K on BATCH signals, K fused order launches; held against float64
+    (the same recurrence on the same f32 layout, in float64, by the plain
+    SpMV) on LARGE_REF_SIGNALS of them.  Adds its figures to the path's
+    row."""
+    from repro_torch.core import chebyshev, wavelets
+    from repro_torch.kernels.bcsr_spmv import sliced_ell_spmv_plain
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    S, lmax, n_edges = _large_sensor_layout(graph, LARGE_N, dev)
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    need = ops.cheb_sweep_l2_bytes(LARGE_N, BATCH, stored=S.stored)
+    check(need > ops.DEFAULT_SWEEP_L2_BUDGET,
+          "n = 2**18 must be past the sweep's L2 budget")
+    coeffs = torch.as_tensor(chebyshev.cheb_coeffs_stack(
+        wavelets.sgwt_multipliers(lmax, J), K, lmax), dtype=torch.float32,
+        device=dev)
+    eta = coeffs.shape[0]
+    print(f"large graph: n={LARGE_N} |E|={n_edges} mean degree "
+          f"{2 * n_edges / LARGE_N:.2f} lmax_bound={lmax:.4f}, stored "
+          f"{S.stored} ({S.stored_per_nnz:.4f} per non-zero), L2 working "
+          f"set {need} B over the {ops.DEFAULT_SWEEP_L2_BUDGET} B budget; "
+          f"built on the card from COO in {built:.1f} s")
+    x = randn(BATCH, LARGE_N)
+    name = f"apply[per-order, n={LARGE_N}, B={BATCH}]"
+    out, counts = run_path(name, lambda: ops._per_order_cheb(S, x, coeffs,
+                                                               lmax))
+    check({k: v for k, v in counts.items() if v} == {"cheb_order": K},
+          f"the per-order path at n = {LARGE_N} must be K fused order "
+          f"launches, got {counts}")
+    x64 = x[:LARGE_REF_SIGNALS].double()
+    ref = chebyshev.cheb_apply(
+        lambda t: sliced_ell_spmv_plain(S, t), x64, coeffs.double(), lmax)
+    _, rel = rel_check(out[:LARGE_REF_SIGNALS], ref, TOL_PATH,
+                       f"{name} vs float64 on {LARGE_REF_SIGNALS} signals")
+    dev_ms = device_ms(lambda: ops._per_order_cheb(S, x, coeffs, lmax), 1,
+                       "cheb_order_kernel")
+    b_ms, b_by = bound(S.nnz * 8 + 4 * (3 + 2 * eta) * BATCH * LARGE_N,
+                       2 * S.nnz * BATCH + BATCH * LARGE_N * (4 + 2 * eta))
+    path_rows[-1].update(n=LARGE_N, n_edges=n_edges, stored=S.stored,
+                         rel_err=rel, order_device_ms=dev_ms,
+                         order_bound_ms=b_ms, order_bound_by=b_by,
+                         build_s=built)
+    print(f"  per order: cheb_order device_ms={dev_ms} against "
+          f"bound_ms={b_ms:.5f} ({b_by})")
+    del S, x, out, ref
+    torch.cuda.empty_cache()
+
+
 def _report_invariants(ranks, findings, report, seconds) -> dict:
     """The invariants line: the findings per rule of the one-card checks,
     the 4 ranks' checks and the AST layer, every one allowlisted, and the
@@ -2311,7 +2440,8 @@ def _report_exchange_phases(ranks, smi: str, path_rows: list, names):
           f"{gossip_step['rel_err']:.3e} (tol {TOL_STEP}) ms="
           f"{gossip_step['ms']:.4f} device_ms={gossip_step['device_ms']} "
           f"plain_ms={gossip_step['plain_ms']:.4f} bound_ms="
-          f"{gossip_step['bound_ms']:.5f} ({gossip_step['bound_by']})")
+          f"{gossip_step['bound_ms']:.5f} ({gossip_step['bound_by']}); "
+          f"{_earlier('cheb_step_gossip_leaf')}")
     print(f"launches of the exchange phases (compressed wires, faults, "
           f"gossip; summed over ranks): "
           f"{ {k: v for k, v in exchange_launches.items() if v} }")
@@ -3845,13 +3975,18 @@ def main(argv=None) -> int:
                                                sliced_ell_spmv_accumulate,
                                                sliced_ell_spmv_plain)
     from repro_torch.configs import get_config
-    from repro_torch.kernels.cheb_step import cheb_step, cheb_step_plain
+    from repro_torch.kernels.cheb_step import (cheb_order, cheb_order_plain,
+                                               cheb_step, cheb_step_plain,
+                                               step_launcher)
     from repro_torch.kernels.cheb_sweep import (cheb_sweep, cheb_sweep_plain,
                                                 jacobi_sweep,
                                                 jacobi_sweep_plain)
     from repro_torch.kernels.flash_attention import (
         flash_attention_ffma, flash_attention_plain, flash_attention_wgmma)
-    from repro_torch.kernels.jacobi_step import jacobi_step, jacobi_step_plain
+    from repro_torch.kernels.jacobi_step import (jacobi_round,
+                                                 jacobi_round_plain,
+                                                 jacobi_step,
+                                                 jacobi_step_plain)
     from repro_torch.kernels.soft_threshold import (ista_shrink,
                                                     ista_shrink_plain)
     from repro_torch.models import (RunConfig, count_params, forward,
@@ -3989,11 +4124,64 @@ def main(argv=None) -> int:
                          "cheb_step_kernel")
     step_b = bound(4 * (4 * BATCH * N + 2 * BATCH * eta * N + eta),
                    4 * BATCH * N + 2 * BATCH * eta * N)
+    # the loop's form: launches prepared once, t_k over t_{k-2}, acc in
+    # place (held too: the in-place outputs against the plain version)
+    t2_in, acc_in = t2.clone(), acc.clone()
+    launch = step_launcher(t1, acc_in, alpha=alpha)
+    launch(pt, t1, t2_in, coef, t2_in, acc_in, acc_in)
+    torch.cuda.synchronize()
+    check(max(rel_err(t2_in, want[0])[1], rel_err(acc_in, want[1])[1])
+          <= TOL_STEP, "cheb_step in place (the loop's form)")
+    loop_ms = time_ms(lambda: launch(pt, t1, t2_in, coef, t2_in, acc_in,
+                                     acc_in), 20)
+    loop_dev = device_ms(lambda: launch(pt, t1, t2_in, coef, t2_in, acc_in,
+                                        acc_in), 20, "cheb_step_kernel")
     print(f"kernel cheb_step B={BATCH} eta={eta}: max_abs_err="
           f"{max(err_tk, err_acc):.3e} rel={max(rel_tk, rel_acc):.3e} "
           f"(tol {TOL_STEP}) ms={step_ms:.4f} device_ms={step_dev} "
           f"plain_ms={step_plain:.4f} bound_ms={step_b[0]:.5f} "
-          f"({step_b[1]})")
+          f"({step_b[1]}); the loop's prepared in-place launch ms="
+          f"{loop_ms:.4f} device_ms={loop_dev}; "
+          f"{_earlier('cheb_step')}")
+    del t2_in, acc_in
+
+    # the order instance: the sliced-ELL product of t_{k-1} fused with the
+    # step (an order k >= 2, and order 1 from x), on the smoke graph
+    coef2 = randn(2, eta)
+    order_want = cheb_order_plain(SL, t1, t2, acc, coef, alpha=alpha)
+    first_want = cheb_order_plain(SL, t1, None, None, coef2, alpha=alpha)
+    order_got = cheb_order(SL, t1, t2, acc, coef, alpha=alpha)
+    first_got = cheb_order(SL, t1, None, None, coef2, alpha=alpha)
+    torch.cuda.synchronize()
+    order_err = max(rel_err(g, w_)[0] for g, w_ in
+                    zip(order_got + first_got, order_want + first_want))
+    order_rel = max(rel_err(g, w_)[1] for g, w_ in
+                    zip(order_got + first_got, order_want + first_want))
+    check(order_rel <= TOL_SPMV, f"cheb_order: rel err {order_rel:.3e}")
+    del order_want, first_want, order_got, first_got
+    tk_buf, acc_in = t2.clone(), acc.clone()
+
+    def order_call():
+        return cheb_order(SL, t1, tk_buf, acc_in, coef, alpha=alpha,
+                          out=(tk_buf, acc_in))
+
+    order_ms = time_ms(order_call, 20)
+    order_dev = device_ms(order_call, 20, "cheb_order_kernel")
+    order_plain = time_ms(
+        lambda: cheb_order_plain(SL, t1, t2, acc, coef, alpha=alpha), 5)
+    order_b = bound(nnz * 8 + 4 * (3 * BATCH * N + 2 * BATCH * eta * N
+                                   + eta),
+                    2 * nnz * BATCH + BATCH * N * (4 + 2 * eta))
+    order_row = dict(max_abs_err=order_err, rel_err=order_rel, ms=order_ms,
+                     plain_ms=order_plain, bound_ms=order_b[0],
+                     bound_by=order_b[1], device_ms=order_dev)
+    print(f"kernel cheb_order B={BATCH} eta={eta} (SpMV + step fused; "
+          f"orders k >= 2 and 1): max_abs_err={order_err:.3e} "
+          f"rel={order_rel:.3e} (tol {TOL_SPMV}) ms={order_ms:.4f} "
+          f"device_ms={order_dev} plain_ms={order_plain:.4f} "
+          f"bound_ms={order_b[0]:.5f} ({order_b[1]}); "
+          f"{_earlier('cheb_order')}")
+    del tk_buf, acc_in
 
     x = randn(BATCH, N)
     c = op.coeffs
@@ -4048,8 +4236,43 @@ def main(argv=None) -> int:
         print(f"kernel jacobi_step B={BATCH} y/inv_d={form}: max_abs_err="
               f"{err:.3e} rel={rel:.3e} (tol {TOL_STEP}) ms={ms:.4f} "
               f"device_ms={dev_ms} plain_ms={plain_ms:.4f} "
-              f"bound_ms={b_ms:.5f} ({b_by})")
-    del qx, xj, xp, rows, got, want
+              f"bound_ms={b_ms:.5f} ({b_by})"
+              + (f"; {_earlier('jacobi_step')}" if form == "path" else ""))
+
+    # the round instance on L_norm (setting (a), deg(den) = 1): q = P x +
+    # tau x fused with the update, b batched and inv_d shared as the
+    # per-round path passes them, the output over x_prev
+    SLn = A_n.sliced_ell()
+    yb, dshared = rows["path"]
+    round_want = jacobi_round_plain(SLn, xj, xj, xp, yb, dshared, a=1.0,
+                                    c0=TAU, w=1.7, s=0.3)
+    round_got = jacobi_round(SLn, xj, xj, xp, yb, dshared, a=1.0, c0=TAU,
+                             w=1.7, s=0.3)
+    torch.cuda.synchronize()
+    round_err, round_rel = rel_err(round_got, round_want)
+    check(round_rel <= TOL_SPMV, f"jacobi_round: rel err {round_rel:.3e}")
+    out_buf = xp.clone()
+
+    def round_call():
+        return jacobi_round(SLn, xj, xj, xp, yb, dshared, a=1.0, c0=TAU,
+                            w=1.7, s=0.3, out=out_buf)
+
+    round_ms = time_ms(round_call, 20)
+    round_dev = device_ms(round_call, 20, "jacobi_round_kernel")
+    round_plain = time_ms(lambda: jacobi_round_plain(
+        SLn, xj, xj, xp, yb, dshared, a=1.0, c0=TAU, w=1.7, s=0.3), 5)
+    round_b = bound(nnz_n * 8 + 4 * (4 * BATCH * N + N),
+                    2 * nnz_n * BATCH + 7 * BATCH * N)
+    round_row = dict(max_abs_err=round_err, rel_err=round_rel, ms=round_ms,
+                     plain_ms=round_plain, bound_ms=round_b[0],
+                     bound_by=round_b[1], device_ms=round_dev)
+    print(f"kernel jacobi_round B={BATCH} (L_norm, q = P x + tau x fused "
+          f"with the update): max_abs_err={round_err:.3e} "
+          f"rel={round_rel:.3e} (tol {TOL_SPMV}) ms={round_ms:.4f} "
+          f"device_ms={round_dev} plain_ms={round_plain:.4f} "
+          f"bound_ms={round_b[0]:.5f} ({round_b[1]}); "
+          f"{_earlier('jacobi_round')}")
+    del qx, xj, xp, rows, got, want, round_want, round_got, out_buf
 
     # ista_shrink: a threshold per scale (the lasso's (eta, 1)), per signal
     # and scale, and per vertex
@@ -4294,8 +4517,9 @@ def main(argv=None) -> int:
 
     # -- counted paths ----------------------------------------------------------
     counters = (sliced_ell_spmv, sliced_ell_spmv_accumulate, cheb_step,
-                cheb_sweep, jacobi_step, jacobi_sweep, ista_shrink,
-                flash_attention_wgmma, flash_attention_ffma)
+                cheb_order, cheb_sweep, jacobi_step, jacobi_round,
+                jacobi_sweep, ista_shrink, flash_attention_wgmma,
+                flash_attention_ffma)
     names = [k.__name__ for k in counters]
     path_launches = dict.fromkeys(names, 0)
     bf16_launches = dict.fromkeys(names, 0)   # the bf16 sweep paths
@@ -4356,9 +4580,10 @@ def main(argv=None) -> int:
     check(calls["apply_adjoint"]["sliced_ell_spmv"] == K
           and sum(calls["apply_adjoint"].values()) == K,
           "apply_adjoint must be K SpMV launches")
-    check(calls["apply[sweep=False]"]["sliced_ell_spmv"] == K
-          and calls["apply[sweep=False]"]["cheb_step"] == K - 1,
-          "the per-order apply must be K SpMV and K-1 step launches")
+    check({k: v for k, v in calls["apply[sweep=False]"].items() if v}
+          == {"cheb_order": K},
+          f"the per-order apply must be K fused order launches and no "
+          f"SpMV, got {calls['apply[sweep=False]']}")
 
     op64 = GraphOperator(P=L.double(), multipliers=op.multipliers, lmax=lmax,
                          K=K)
@@ -4385,7 +4610,20 @@ def main(argv=None) -> int:
         print(f"guard B={B}: L2 working set {need} B {side} budget "
               f"{ops.DEFAULT_SWEEP_L2_BUDGET} B; sweep_ms={sw:.3f} "
               f"per_order_ms={po:.3f}")
-    del xg
+    # above the budget the plan's apply falls back to the per-order path:
+    # K fused order launches, held against float64 dense
+    check(need > ops.DEFAULT_SWEEP_L2_BUDGET, "B = 256 must be over budget")
+    out, counts = run_path(f"apply[B={4 * BATCH}, guard fallback]",
+                           lambda: plan.apply(xg))
+    check({k: v for k, v in counts.items() if v} == {"cheb_order": K},
+          f"the guard's fallback must be K fused order launches, got "
+          f"{counts}")
+    rel_check(out, dense.apply(xg.double()), TOL_PATH,
+              f"apply[B={4 * BATCH}, guard fallback] vs f64 dense")
+    del xg, out
+
+    # -- the per-order path at n = 2**18, past the sweep's L2 budget ------
+    _large_per_order(ops, graph, randn, run_path, path_rows)
 
     # -- Section-V solvers, Fig. 2 setting (a): P = L_norm, r = 1 ----------
     Y = randn(BATCH, N)
@@ -4416,14 +4654,14 @@ def main(argv=None) -> int:
     res, counts = run_path(
         "solve[jacobi, history=True] (a)",
         lambda: plan_n.solve(Y, "jacobi", history=True, **kw_a))
-    check(counts["jacobi_step"] == ROUNDS_A
-          and counts["sliced_ell_spmv"] == ROUNDS_A
-          and counts["jacobi_sweep"] == 0,
-          f"the per-round path must be {ROUNDS_A} jacobi_step and SpMV "
-          f"launches, got {counts}")
+    check({k: v for k, v in counts.items() if v} == {"jacobi_round": ROUNDS_A},
+          f"the per-round path must be {ROUNDS_A} fused round launches, got "
+          f"{counts}")
     check(tuple(res.history.shape) == (ROUNDS_A, BATCH, N), "history shape")
     rel_check(res.x, solved["jacobi"], TOL_ROUNDS,
               "per-round final iterate vs the sweep")
+    rel_check(res.x, dense_n.solve(Y.double(), "jacobi", **kw_a).x, TOL_PATH,
+              "solve[jacobi, history=True] (a) vs f64 dense")
     rel_check(res.history[-1], res.x, 0.0, "history[-1] vs x")
     res, counts = run_path(
         "solve[jacobi, check_every=7] (a)",
@@ -4923,13 +5161,22 @@ def main(argv=None) -> int:
             label=SHARD_LABEL),
         row("cheb_step", "cheb_step.cu", "src/repro/kernels/cheb_step.py:66",
             step_row, gossip_leaf=gossip_step,
-            gossip_train_launches=gossip_train),
+            gossip_train_launches=gossip_train, loop_ms=loop_ms,
+            loop_device_ms=loop_dev),
+        # the order instance: the sliced-ELL product fused with the step
+        row("cheb_order", "cheb_step.cu", "src/repro/kernels/cheb_step.py:66",
+            order_row, fuses="src/repro/kernels/bcsr_spmv.py:106",
+            batch=BATCH, eta=eta),
         row("cheb_sweep", "cheb_sweep.cu",
             "src/repro/kernels/cheb_sweep.py:121", sweep_row,
             stored_per_nnz=SL.stored_per_nnz),
         row("jacobi_step", "jacobi_step.cu",
             "src/repro/kernels/jacobi_step.py:50", js_rows["path"],
             forms=js_rows),
+        # the round instance: Horner's last step fused with the update
+        row("jacobi_round", "jacobi_step.cu",
+            "src/repro/kernels/jacobi_step.py:50", round_row,
+            fuses="src/repro/kernels/bcsr_spmv.py:106", batch=BATCH),
         row("jacobi_sweep", "jacobi_sweep.cu",
             "src/repro/kernels/cheb_sweep.py:222", jsw_rows["a"],
             settings=jsw_rows,

@@ -208,13 +208,14 @@ def kernel_launches() -> Dict[str, int]:
     them (they move on a card only)."""
     from ..kernels.bcsr_spmv import (sliced_ell_spmv,
                                      sliced_ell_spmv_accumulate)
-    from ..kernels.cheb_step import cheb_step
+    from ..kernels.cheb_step import cheb_order, cheb_step
     from ..kernels.cheb_sweep import cheb_sweep, jacobi_sweep
-    from ..kernels.jacobi_step import jacobi_step
+    from ..kernels.jacobi_step import jacobi_round, jacobi_step
     from ..kernels.soft_threshold import ista_shrink
 
     fns = (sliced_ell_spmv, sliced_ell_spmv_accumulate, cheb_step,
-           cheb_sweep, jacobi_sweep, jacobi_step, ista_shrink)
+           cheb_order, cheb_sweep, jacobi_sweep, jacobi_step, jacobi_round,
+           ista_shrink)
     return {f.__name__: f.launches for f in fns}
 
 

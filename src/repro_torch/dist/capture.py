@@ -74,16 +74,16 @@ def kernel_counters() -> Tuple[Callable, ...]:
     """Every kernel wrapper of the port that counts its launches."""
     from ..kernels.bcsr_spmv import (sliced_ell_spmv,
                                      sliced_ell_spmv_accumulate)
-    from ..kernels.cheb_step import cheb_step
+    from ..kernels.cheb_step import cheb_order, cheb_step
     from ..kernels.cheb_sweep import cheb_sweep, jacobi_sweep
     from ..kernels.flash_attention import (flash_attention_ffma,
                                            flash_attention_wgmma)
-    from ..kernels.jacobi_step import jacobi_step
+    from ..kernels.jacobi_step import jacobi_round, jacobi_step
     from ..kernels.soft_threshold import ista_shrink
 
     return (sliced_ell_spmv, sliced_ell_spmv_accumulate, cheb_step,
-            cheb_sweep, jacobi_step, jacobi_sweep, ista_shrink,
-            flash_attention_wgmma, flash_attention_ffma)
+            cheb_order, cheb_sweep, jacobi_step, jacobi_round, jacobi_sweep,
+            ista_shrink, flash_attention_wgmma, flash_attention_ffma)
 
 
 def _snapshot() -> Dict[str, int]:

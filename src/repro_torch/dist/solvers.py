@@ -38,7 +38,9 @@ Single-launch fast path: a runner matvec tagged with ``mv.block_ell`` (the
 `cuda` backend's Block-ELL product) collapses a whole Jacobi /
 accelerated-Jacobi solve into ONE `jacobi_sweep` kernel launch (the
 Chebyshev method rides the same upgrade inside `ops.fused_cheb_recurrence`),
-guarded by the L2 footprint model with a logged per-round fallback; a
+guarded by the L2 footprint model with a logged per-round fallback (one
+fused `jacobi_round` launch per round at deg(den) = 1), which a solve
+with ``history=True`` takes too; a
 plan built with ``sweep_dtype="bf16"`` runs it in the sweep's bf16 mode,
 as the JAX package's `solve` passes its matvec's ``sweep_dtype``.  The
 JAX package also fell back when rounds x deg(den) exceeded 256 SpMVs,
@@ -591,12 +593,16 @@ def _solve_jacobi(plan, runner, y, num, den, K, method, rho, den_diag, x0,
         # structure runs the whole Eq. (24)/(25) iteration — deg(den)
         # in-kernel SpMVs + the fused update per round — in ONE
         # jacobi_sweep launch, the weight schedule computed on the host.
-        # History recording needs every round's iterate, so it stays on
-        # the per-round path.
+        # History recording needs every round's iterate, so it takes the
+        # per-round path on the same layout: one fused round launch per
+        # round at deg(den) = 1, each iterate written into the stack.
         A_local = getattr(mv, "block_ell", None)
-        if A_local is not None and not history:
+        if A_local is not None:
             ws = (_jacobi.cheb_jacobi_weights(rho, K)
                   if method == "cheb_jacobi" else _jacobi.jacobi_weights(K))
+            if history:
+                return kops.fused_jacobi_history(A_local, b, inv_dl, den, ws,
+                                                 x0=x0l)
             table = _device_table(
                 op, ("jacobi_table", den, ws.tobytes()),
                 lambda: jacobi_table(den, ws, "cpu"), b.device,

@@ -16,6 +16,7 @@ source is rebuilt and a current one is reused.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -24,6 +25,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -98,3 +101,21 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         lib.error_string.argtypes = [ctypes.c_int]
         raise RuntimeError(f"{what}: CUDA error {err} at launch: "
                            f"{lib.error_string(err).decode()}")
+
+
+def current_stream(device: torch.device) -> int:
+    """The raw handle of `device`'s current CUDA stream, which a launch
+    takes (the value of ``torch.cuda.current_stream(device).cuda_stream``,
+    without building the Stream object on every launch)."""
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def device_scope(device: torch.device):
+    """The context a launch on `device` runs in: nothing when `device` is
+    the current CUDA device (the usual case), else ``torch.cuda.device``.
+    Reusable: a loop resolves it once."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)

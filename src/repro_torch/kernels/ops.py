@@ -9,8 +9,8 @@ kernel wrappers (`bcsr_spmv.sliced_ell_spmv`, `cheb_step.cheb_step`,
 and their plain PyTorch version for a CPU tensor.
 
 Every SpMV this module serves (:func:`spmv`: the plan's matvec for the
-adjoint, the Gram's and ARMA's runners and the lasso, the per-order and
-per-round paths) and both sweeps read the sliced-ELL layout that the
+adjoint, the Gram's and ARMA's runners and the lasso), both sweeps and
+the fused order and round instances read the sliced-ELL layout that the
 Block-ELL matrix carries (`BlockELL.sliced_ell`, packed on its device
 once); no kernel reads the Block-ELL blocks.
 
@@ -19,11 +19,18 @@ Single-launch sweep dispatch: a matvec tagged with ``mv.block_ell = A``
 :func:`fused_cheb_recurrence` to :func:`fused_cheb_sweep`: one
 cooperative kernel launch for all orders.  The upgrade is guarded by the
 L2 footprint model :func:`cheb_sweep_l2_bytes`; a problem over the budget
-takes the per-order path (one SpMV launch and one `cheb_step` launch per
-order), logged at INFO.  `plan.solve`'s Jacobi methods take the same
-route to :func:`fused_jacobi_sweep` (one `jacobi_sweep` launch per solve,
-guarded by :func:`jacobi_sweep_l2_bytes`, with a logged per-round
-fallback).  Both sweeps take the JAX package's ``scratch_dtype="bf16"``
+takes the per-order path (one `cheb_order` launch per order: the
+sliced-ELL product fused with the Chebyshev step), logged at INFO.
+`plan.solve`'s Jacobi methods take the same route to
+:func:`fused_jacobi_sweep` (one `jacobi_sweep` launch per solve, guarded
+by :func:`jacobi_sweep_l2_bytes`, with a logged per-round fallback of one
+`jacobi_round` launch per round at deg(den) = 1); a solve that records
+its history takes that per-round path (:func:`fused_jacobi_history`).
+A matvec without its layout (the sharded exchange, gossip) runs
+:func:`_cheb_recurrence_loop`: the matvec and one stand-alone `cheb_step`
+launch per order.  The per-order and per-round loops check and allocate
+once (two rotating iterate buffers and one accumulator, or the history
+stack) and never write into a tensor the caller passed.  Both sweeps take the JAX package's ``scratch_dtype="bf16"``
 mode (a matvec tagged ``mv.sweep_dtype = "bf16"``); the guards count its
 bf16 buffers at 2 bytes, and over budget the fallback is the f32
 per-order (per-round) path, as in the JAX package.
@@ -37,13 +44,13 @@ import numpy as np
 import torch
 
 from ..core.chebyshev import _coeff_tensor, _stateful_matvec
-from ..core.graph import BlockELL
+from ..core.graph import BlockELL, SlicedELL
 from .bcsr_spmv import sliced_ell_spmv
-from .cheb_step import cheb_step
+from .cheb_step import order_launcher, step_launcher
 from .cheb_sweep import check_scratch_dtype, cheb_sweep, jacobi_sweep
 # the LM's attn_impl="flash" (models.layers.attention) calls it from here
 from .flash_attention import flash_attention  # noqa: F401
-from .jacobi_step import jacobi_step
+from .jacobi_step import jacobi_step, round_launcher
 from .soft_threshold import ista_shrink
 
 Tensor = torch.Tensor
@@ -107,9 +114,33 @@ def cheb_sweep_l2_bytes(n: int, batch: int = 1, itemsize: int = 4,
     return 3 * batch * n * sb + _structure_bytes(stored, scratch_dtype)
 
 
-def _per_order_cheb(A: BlockELL, x: Tensor, coeffs, lmax: float) -> Tensor:
-    """Per-order path: one SpMV + one `cheb_step` launch per order."""
-    return _cheb_recurrence_loop(lambda t: spmv(A, t), x, coeffs, lmax)
+def _per_order_cheb(S: SlicedELL, x: Tensor, coeffs, lmax: float) -> Tensor:
+    """Per-order path on the sliced-ELL P `S`: one `cheb_order` launch per
+    order (the row product and the Chebyshev step fused; order 1 in its
+    first mode), K launches and no other op.  x: (..., padded_n), left
+    untouched; coeffs: (eta, K+1) or (K+1,).  Returns (..., eta,
+    padded_n).  t_k is written over t_{k-2} in two buffers allocated once
+    (t_2 into the second, since t_0 is the caller's x), and the
+    accumulator is updated in place."""
+    c = torch.atleast_2d(_coeff_tensor(coeffs, x))
+    eta, K = c.shape[0], c.shape[1] - 1
+    if K == 0:
+        return 0.5 * c[:, 0:1] * x[..., None, :]
+    x = x.contiguous()
+    acc = x.new_empty(x.shape[:-1] + (eta, x.shape[-1]))
+    if x.numel() == 0:
+        return acc
+    launch = order_launcher(S, x, eta, alpha=float(lmax) / 2.0)
+    cT = c.T.contiguous()                       # order-major rows c_k
+    rows = cT.unbind(0)
+    t_km1, t_km2 = torch.empty_like(x), x
+    launch(x, None, cT[:2], t_km1, acc, acc)
+    spare = torch.empty_like(x) if K >= 2 else None
+    for k in range(2, K + 1):
+        out = spare if t_km2 is x else t_km2
+        launch(t_km1, t_km2, rows[k], out, acc, acc)
+        t_km1, t_km2 = out, t_km1
+    return acc
 
 
 def fused_cheb_sweep(
@@ -139,10 +170,10 @@ def fused_cheb_sweep(
          else np.atleast_2d(np.asarray(coeffs)))
     eta, K1 = c.shape
     K = K1 - 1
-    if K < 2:
-        return _per_order_cheb(A, x, c, lmax)
-    budget = DEFAULT_SWEEP_L2_BUDGET if l2_budget is None else int(l2_budget)
     S = A.sliced_ell()
+    if K < 2:
+        return _per_order_cheb(S, x, c, lmax)
+    budget = DEFAULT_SWEEP_L2_BUDGET if l2_budget is None else int(l2_budget)
     n = x.shape[-1]
     batch = max(1, x.numel() // n)
     need = cheb_sweep_l2_bytes(n, batch, x.element_size(),
@@ -151,8 +182,9 @@ def fused_cheb_sweep(
         logger.info(
             "cheb_sweep: L2 working set %d B exceeds budget %d B "
             "(n=%d, eta=%d, K=%d, B=%d) — falling back to the per-order "
-            "cheb_step path", need, budget, n, eta, K, batch)
-        return _per_order_cheb(A, x, c, lmax)
+            "cheb_step path (one fused order launch per order)", need,
+            budget, n, eta, K, batch)
+        return _per_order_cheb(S, x, c, lmax)
     return cheb_sweep(S, x.contiguous(), c, alpha=float(lmax) / 2.0,
                       scratch_dtype=sdt)
 
@@ -182,9 +214,12 @@ def fused_cheb_recurrence(matvec, x: Tensor, coeffs, lmax: float) -> Tensor:
 
 
 def _cheb_recurrence_loop(matvec, x: Tensor, coeffs, lmax: float) -> Tensor:
-    """The per-order recurrence loop (one matvec + one fused step per
-    order), with the stateful-matvec protocol of
-    `core.chebyshev._stateful_matvec`."""
+    """The per-order recurrence loop over an opaque matvec (one matvec and
+    one stand-alone `cheb_step` launch per order), with the stateful-
+    matvec protocol of `core.chebyshev._stateful_matvec`.  The step's
+    launches are prepared once; t_k is written over t_{k-2} in two
+    buffers (t_2 into a spare one: t_0 is the caller's x) and the
+    accumulator is updated in place."""
     c = torch.atleast_2d(_coeff_tensor(coeffs, x))
     K = c.shape[1] - 1
     alpha = float(lmax) / 2.0
@@ -194,15 +229,23 @@ def _cheb_recurrence_loop(matvec, x: Tensor, coeffs, lmax: float) -> Tensor:
         return acc
     mv2, st = _stateful_matvec(matvec, x)
     px, st = mv2(x, st)
-    t1 = px / alpha - x
-    acc = acc + c[:, 1:2] * t1[..., None, :]
-    t_km1, t_km2 = t1, x.contiguous()
-    cT = c.T.contiguous()                       # order-major rows c_k
+    t_km1 = px / alpha - x
+    acc = acc + c[:, 1:2] * t_km1[..., None, :]
+    if K == 1 or x.numel() == 0:
+        return acc
+    launch = step_launcher(t_km1, acc, alpha=alpha)
+    rows = c.T.contiguous().unbind(0)           # order-major rows c_k
+    x = t_km2 = x.contiguous()
+    spare = torch.empty_like(t_km1)
     for k in range(2, K + 1):
         pt, st = mv2(t_km1, st)
-        t_k, acc = cheb_step(pt.contiguous(), t_km1, t_km2, acc, cT[k],
-                             alpha=alpha)
-        t_km1, t_km2 = t_k, t_km1
+        if pt.shape != t_km1.shape or pt.dtype != t_km1.dtype:
+            raise ValueError(f"the matvec returned {tuple(pt.shape)} "
+                             f"{pt.dtype} for {tuple(t_km1.shape)} "
+                             f"{t_km1.dtype}")
+        out = spare if t_km2 is x else t_km2
+        launch(pt.contiguous(), t_km1, t_km2, rows[k], out, acc, acc)
+        t_km1, t_km2 = out, t_km1
     return acc
 
 
@@ -224,14 +267,14 @@ def fused_cheb_apply(
 
     sweep: None (default) routes through the single-launch
     :func:`fused_cheb_sweep` (which guards on the L2 budget and falls
-    back to the per-order path); False forces the per-order SpMV +
-    `cheb_step` loop.  scratch_dtype: the sweep's mixed-precision mode
+    back to the per-order path); False forces the per-order loop of
+    `cheb_order` launches.  scratch_dtype: the sweep's mixed-precision mode
     ("bf16"), ignored on the per-order path.
     """
     if sweep is None or sweep:
         return fused_cheb_sweep(A, x, coeffs, lmax, l2_budget=l2_budget,
                                 scratch_dtype=scratch_dtype)
-    return _per_order_cheb(A, x, coeffs, lmax)
+    return _per_order_cheb(A.sliced_ell(), x, coeffs, lmax)
 
 
 def jacobi_update(qx: Tensor, x: Tensor, x_prev: Tensor, y: Tensor,
@@ -273,18 +316,45 @@ def jacobi_sweep_l2_bytes(n: int, batch: int = 1, itemsize: int = 4,
             + _structure_bytes(stored, scratch_dtype))
 
 
-def _per_round_jacobi(A: BlockELL, b: Tensor, inv_d: Tensor, den, ws,
-                      x0: Tensor) -> Tensor:
-    """Per-round path: deg(den) SpMV launches (Horner) and one
-    `jacobi_step` launch per round."""
+def _per_round_jacobi(S: SlicedELL, b: Tensor, inv_d: Tensor, den, ws,
+                      x0: Tensor, history: bool = False):
+    """Per-round path on the sliced-ELL P `S`: Horner's deg(den) - 1
+    earlier steps by SpMV launches, then one `jacobi_round` launch that
+    fuses the last step, q = a (P h) + den[0] x, with the update (at
+    deg(den) = 1, h = x and a = den[1]: one launch a round).  b, x0:
+    (..., padded_n), left untouched; inv_d: a batch or a shared row.
+    The iterates rotate through two buffers allocated once (x_next over
+    x_prev), or with `history` are written into the (rounds, ...,
+    padded_n) stack allocated once.  Returns x, or (x, history)."""
+    shape = torch.broadcast_shapes(b.shape, x0.shape)
+    x0 = x0.expand(shape).contiguous()
+    if b.shape != shape and b.numel() != shape[-1]:
+        b = b.expand(shape).contiguous()
+    hist = x0.new_empty((len(ws),) + tuple(shape)) if history else None
+    outs = hist.unbind(0) if history else None
+    spare = () if history else (torch.empty_like(x0), torch.empty_like(x0))
+    D = len(den) - 1
+    launch = round_launcher(S, x0, b, inv_d) if D >= 1 else None
     x, x_prev = x0, x0
-    for w, s in ws:
-        h = den[-1] * x
-        for c in den[-2::-1]:
-            h = spmv(A, h.contiguous()) + c * x
-        x, x_prev = jacobi_update(h, x, x_prev, b, inv_d, w=float(w),
-                                  s=float(s)), x
-    return x
+    for t, (w, s) in enumerate(ws):
+        if history:
+            out = outs[t]
+        elif x_prev is not x0:
+            out = x_prev
+        else:
+            out = spare[1] if x is spare[0] else spare[0]
+        w, s = float(w), float(s)
+        if D == 0:
+            jacobi_step(den[0] * x, x, x_prev, b, inv_d, w=w, s=s, out=out)
+        elif D == 1:
+            launch(x, x, x_prev, out, den[1], den[0], w, s)
+        else:
+            h = x if den[-1] == 1.0 else den[-1] * x
+            for c in den[-2:0:-1]:
+                h = sliced_ell_spmv(S, h) + c * x
+            launch(h, x, x_prev, out, 1.0, den[0], w, s)
+        x, x_prev = out, x
+    return (x, hist) if history else x
 
 
 def fused_jacobi_sweep(
@@ -311,7 +381,7 @@ def fused_jacobi_sweep(
     `cheb_jacobi_weights`).  Guarded by :func:`jacobi_sweep_l2_bytes`
     against `l2_budget` (default :data:`DEFAULT_SWEEP_L2_BUDGET`): a
     working set over the budget takes the per-round path (SpMV and
-    `jacobi_step` launches, f32), logged at INFO.  scratch_dtype: None /
+    `jacobi_round` launches, f32), logged at INFO.  scratch_dtype: None /
     "f32" or "bf16", the sweep's mixed-precision mode.  table: the
     launch's `cheb_sweep.jacobi_table` of (den, weights), already on b's
     device (the solvers keep one per operator); None builds it here.
@@ -335,11 +405,30 @@ def fused_jacobi_sweep(
             "jacobi_sweep: L2 working set %d B exceeds budget %d B "
             "(n=%d, B=%d) — falling back to the per-round jacobi_step "
             "path", need, budget, total, batch)
-        out = _per_round_jacobi(A, bp, invdp, den, ws, x0p)
+        out = _per_round_jacobi(S, bp, invdp, den, ws, x0p)
     else:
         out = jacobi_sweep(S, bp, invdp, ws, x0p, den=den,
                            scratch_dtype=sdt, table=table)
     return out[..., :n_logical]
+
+
+def fused_jacobi_history(A: BlockELL, b: Tensor, inv_d: Tensor, den,
+                         weights, *, x0: Optional[Tensor] = None):
+    """A whole (accelerated-)Jacobi solve of den(P) x = b that keeps every
+    round's iterate: the per-round path of :func:`fused_jacobi_sweep`
+    (one `jacobi_round` launch per round at deg(den) = 1), writing each
+    iterate into one (n_iters, ..., n) stack.  b / x0 / inv_d and weights
+    as there.  Returns (x, history), cropped to b's n; x is history[-1]
+    (x0, or zeros, when there is no round)."""
+    n_logical = b.shape[-1]
+    total = A.padded_n
+    bp = pad_trailing(b, total)
+    x0p = torch.zeros_like(bp) if x0 is None else pad_trailing(x0, total)
+    x, hist = _per_round_jacobi(
+        A.sliced_ell(), bp, pad_trailing(inv_d, total),
+        tuple(float(c) for c in den), np.asarray(weights, dtype=np.float64),
+        x0p, history=True)
+    return x[..., :n_logical], hist[..., :n_logical]
 
 
 def ista_update(a: Tensor, phi_y: Tensor, gram_a: Tensor, thresh,

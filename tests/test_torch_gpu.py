@@ -1,6 +1,9 @@
 """Card-only tests: each Hopper kernel against its plain PyTorch version on
-a CUDA device, and the main path, the Section-V solvers, the lasso and SSL
-against float64 dense; both flash-attention kernels (tensor cores for
+a CUDA device (the Chebyshev and Jacobi steps in both instances: the
+stand-alone ones in place, on unaligned views and in f64, the fused order
+and round instances on full and partly filled slices), and the main path,
+the per-order and per-round paths (their launch counts), the Section-V
+solvers, the lasso and SSL against float64 dense; both flash-attention kernels (tensor cores for
 bf16 at D = 64 and 128, FFMA otherwise, at every head dim to 256, on
 strided and unaligned views) and the reduced dense LM forward
 through them; one KV-cache decode step with no host read (f32 and f8
@@ -26,7 +29,8 @@ version) and runs without the JAX-side tests/conftest.py:
 
 Tolerances: the kernels redo the plain versions' f32 arithmetic in another
 summation order — 1e-5 relative for the SpMV, 1e-6 for the elementwise
-kernels (Chebyshev step, Jacobi step, ISTA shrink), 1e-4 for the sweeps
+kernels (Chebyshev step, Jacobi step, ISTA shrink), 1e-5 for their fused
+order and round instances (a sliced-ELL product inside), 1e-4 for the sweeps
 (9 orders, or up to 20 Jacobi rounds) and for every path against float64.
 Flash attention against its plain version: 2e-5 in f32 and 2e-2 in bf16
 (the JAX package's kernel tolerances, tests/test_kernels.py:69).  The
@@ -55,7 +59,8 @@ from repro_torch.kernels.bcsr_spmv import (block_ell_spmv_plain,
                                            sliced_ell_spmv,
                                            sliced_ell_spmv_accumulate,
                                            sliced_ell_spmv_plain)
-from repro_torch.kernels.cheb_step import cheb_step, cheb_step_plain
+from repro_torch.kernels.cheb_step import (cheb_order, cheb_order_plain,
+                                           cheb_step, cheb_step_plain)
 from repro_torch.kernels.cheb_sweep import (cheb_sweep, cheb_sweep_plain,
                                             jacobi_sweep, jacobi_sweep_plain)
 from repro_torch.kernels.flash_attention import (flash_attention,
@@ -63,7 +68,9 @@ from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain,
                                                  flash_attention_wgmma,
                                                  _tma_ready)
-from repro_torch.kernels.jacobi_step import jacobi_step, jacobi_step_plain
+from repro_torch.kernels.jacobi_step import (jacobi_round,
+                                             jacobi_round_plain, jacobi_step,
+                                             jacobi_step_plain)
 from repro_torch.kernels.soft_threshold import (ista_shrink,
                                                 ista_shrink_plain)
 from repro_torch.models import RunConfig, forward, init_params, lm_loss
@@ -140,6 +147,66 @@ def test_cheb_step_kernel_matches_plain(cuda, n):
     torch.cuda.synchronize()
     assert cheb_step.launches == before + 1
     assert _rel(got[0], want[0]) < 1e-6 and _rel(got[1], want[1]) < 1e-6
+
+
+def _unaligned(t):
+    """A contiguous copy of t that starts 4 bytes past a 16-byte boundary:
+    the stand-alone instances take one element a thread there."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape).copy_(t)
+    assert out.data_ptr() % 16 != 0
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [500, 203])
+def test_cheb_step_kernel_in_place_and_unaligned(cuda, n, dtype):
+    """out= over t_{k-2} and acc (the loops' rotation), 16-byte packs and
+    the one-element fallback (ragged n, an unaligned view), f32 and f64."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    pt, t1, t2 = (torch.randn(8, n, generator=gen, device=cuda, dtype=dtype)
+                  for _ in range(3))
+    acc = torch.randn(8, 7, n, generator=gen, device=cuda, dtype=dtype)
+    coef = torch.randn(7, generator=gen, device=cuda, dtype=dtype)
+    want = cheb_step_plain(pt, t1, t2, acc, coef, alpha=2.5)
+    for args in ((pt, t1, t2), (_unaligned(pt), t1, _unaligned(t2))):
+        tk, acc2 = args[2].clone(), acc.clone()
+        got = cheb_step(*args[:2], tk, acc2, coef, alpha=2.5,
+                        out=(tk, acc2))
+        torch.cuda.synchronize()
+        assert got[0] is tk and got[1] is acc2
+        assert _rel(tk, want[0]) < 1e-6 and _rel(acc2, want[1]) < 1e-6
+
+
+@pytest.mark.parametrize("first", [False, True])
+@pytest.mark.parametrize("batch_shape", [(1,), (5,), (64,), (2, 3)])
+def test_cheb_order_kernel_matches_plain(structure, ragged, batch_shape,
+                                         first):
+    """The order instance (the sliced-ELL product fused with the step; order
+    1 from x) on a full and a partly filled last slice, each signal tile,
+    fresh outputs and t_k written over t_{k-2} with acc in place."""
+    for At, lmax in (structure, ragged):
+        S = At.sliced_ell()
+        gen = torch.Generator(device=At.device).manual_seed(7)
+        shape = batch_shape + (At.padded_n,)
+        t1, t2 = (torch.randn(shape, generator=gen, device=At.device)
+                  for _ in range(2))
+        acc = torch.randn(batch_shape + (7, At.padded_n), generator=gen,
+                          device=At.device)
+        coef = torch.randn((2, 7) if first else (7,), generator=gen,
+                           device=At.device)
+        t2_arg = None if first else t2
+        want = cheb_order_plain(S, t1, t2_arg, acc, coef, alpha=lmax / 2)
+        before = cheb_order.launches
+        got = cheb_order(S, t1, t2_arg, acc, coef, alpha=lmax / 2)
+        out = (t2.clone(), acc.clone())
+        cheb_order(S, t1, None if first else out[0], out[1], coef,
+                   alpha=lmax / 2, out=out)
+        torch.cuda.synchronize()
+        assert cheb_order.launches == before + 2
+        for res in (got, out):
+            assert _rel(res[0], want[0]) < 1e-5
+            assert _rel(res[1], want[1]) < 1e-5
 
 
 # the sweeps: batches 1 to 128 (ragged last signal tiles included),
@@ -227,6 +294,87 @@ def test_jacobi_step_kernel_matches_plain(cuda, n, shared):
     torch.cuda.synchronize()
     assert jacobi_step.launches == before + 1
     assert _rel(got, want) < 1e-6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_jacobi_step_kernel_over_x_prev_and_unaligned(cuda, dtype):
+    """out= over x_prev (the loops' rotation), a shared row, an unaligned
+    view and a ragged n, f32 and f64."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    for n in (512, 203):
+        qx, x, xp = (torch.randn(6, n, generator=gen, device=cuda,
+                                 dtype=dtype) for _ in range(3))
+        y, invd = (torch.randn(n, generator=gen, device=cuda, dtype=dtype)
+                   for _ in range(2))
+        want = jacobi_step_plain(qx, x, xp, y, invd, w=1.3, s=0.2)
+        for args in ((qx, x), (_unaligned(qx), _unaligned(x))):
+            out = xp.clone()
+            got = jacobi_step(*args, out, y, invd, w=1.3, s=0.2, out=out)
+            torch.cuda.synchronize()
+            assert got is out and _rel(out, want) < 1e-6
+
+
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("batch_shape", [(1,), (5,), (64,)])
+def test_jacobi_round_kernel_matches_plain(structure, ragged, batch_shape,
+                                          shared):
+    """The round instance: q = a P h + c0 x fused with the update, h = x
+    (deg(den) = 1) and h apart from x, y / inv_d shared or batched, the
+    output over x_prev."""
+    for At, _ in (structure, ragged):
+        S = At.sliced_ell()
+        gen = torch.Generator(device=At.device).manual_seed(9)
+        shape = batch_shape + (At.padded_n,)
+        h, x, xp = (torch.randn(shape, generator=gen, device=At.device)
+                    for _ in range(3))
+        rows = (At.padded_n,) if shared else shape
+        y, invd = (torch.randn(rows, generator=gen, device=At.device)
+                   for _ in range(2))
+        for hh, a in ((x, 1.0), (h, 0.7)):
+            want = jacobi_round_plain(S, hh, x, xp, y, invd, a=a, c0=0.5,
+                                      w=1.4, s=0.3)
+            before = jacobi_round.launches
+            got = jacobi_round(S, hh, x, xp, y, invd, a=a, c0=0.5, w=1.4,
+                               s=0.3)
+            out = xp.clone()
+            jacobi_round(S, hh, x, out, y, invd, a=a, c0=0.5, w=1.4, s=0.3,
+                         out=out)
+            torch.cuda.synchronize()
+            assert jacobi_round.launches == before + 2
+            assert _rel(got, want) < 1e-5 and _rel(out, want) < 1e-5
+
+
+def test_per_order_and_per_round_paths_launch_the_fused_instances(
+        solver_graph):
+    """The per-order apply is K order launches and no SpMV, the history
+    solve one round launch per round; both hold float64 and leave the
+    caller's signals as they were."""
+    Ln = solver_graph.laplacian("normalized")
+    L, lmax = solver_graph.laplacian(), solver_graph.lambda_max_bound()
+    op = twav.sgwt_operator(L, lmax, J=6, K=20)
+    F = torch.randn(64, 1000, device="cuda")
+    F0 = F.clone()
+    counters = (sliced_ell_spmv, cheb_step, cheb_order)
+    before = [k.launches for k in counters]
+    got = op.plan("cuda", sweep=False).apply(F)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(counters, before)] == [0, 0, 20]
+    want = GraphOperator(P=L.double(), multipliers=op.multipliers, lmax=lmax,
+                         K=20).plan("dense").apply(F.double())
+    assert _rel(got.double(), want) < 1e-4 and torch.equal(F, F0)
+    mult = [tfilters.ssl_multiplier(tfilters.power_kernel(1), 0.5)]
+    plan = GraphOperator(P=Ln, multipliers=mult, lmax=2.0, K=20).plan("cuda")
+    x0 = torch.randn(64, 1000, device="cuda")
+    x00 = x0.clone()
+    counters = (sliced_ell_spmv, jacobi_step, jacobi_round, jacobi_sweep)
+    before = [k.launches for k in counters]
+    hist = plan.solve(F, "jacobi", tau=0.5, n_iters=20, x0=x0, history=True)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(counters, before)] == [0, 0, 20, 0]
+    sweep = plan.solve(F, "jacobi", tau=0.5, n_iters=20, x0=x0)
+    assert _rel(hist.x, sweep.x) < 1e-5 and torch.equal(hist.history[-1],
+                                                        hist.x)
+    assert torch.equal(F, F0) and torch.equal(x0, x00)
 
 
 @pytest.mark.parametrize("form", ["scale", "signal_scale", "vertex"])

@@ -99,7 +99,7 @@ def test_float64_signal_cast_to_plan_dtype(ops120, ref_plans, backend, kind):
 @pytest.mark.parametrize("batch", [(64,), ()])
 @pytest.mark.parametrize("kind", ["apply", "apply_gram"])
 def test_per_order_plan_matches_reference(ops120, ref_plans, kind, batch):
-    """plan("cuda", sweep=False): one SpMV + one cheb_step per order."""
+    """plan("cuda", sweep=False): one fused order launch per order."""
     jop, top = ops120
     x = _signal(kind, batch, jop.eta, 120, seed=9)
     got = getattr(top.plan("cuda", device="cpu", sweep=False), kind)(x)

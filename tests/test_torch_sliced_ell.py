@@ -239,9 +239,11 @@ def test_plan_packs_the_sliced_layout(ops120):
 
 @pytest.mark.parametrize("batch", [(64,), ()])
 def test_adjoint_and_per_order_apply_take_the_sliced_spmv(ops120, counted,
-                                                          batch):
+                                                          batch, monkeypatch):
     """apply_adjoint (K SpMVs over batch x eta streams) and the per-order
-    apply (K SpMVs) against the reference's dense plan."""
+    apply (K launches of the order instance, whose product reads the same
+    sliced layout: no stand-alone SpMV) against the reference's dense
+    plan."""
     jop, top = ops120
     dense = jop.plan("dense")
     a = _randn(3, batch + (jop.eta, 120))
@@ -251,11 +253,26 @@ def test_adjoint_and_per_order_apply_take_the_sliced_spmv(ops120, counted,
         atol=1e-4)
     assert counted == [batch + (jop.eta, 128)] * jop.K
     counted.clear()
+    plan = top.plan("cuda", device="cpu", sweep=False)
+    orders = []
+    real = ops.order_launcher
+
+    def launcher(S, x, eta, *, alpha):
+        assert S is plan.info["block_ell"].sliced_ell()
+        launch = real(S, x, eta, alpha=alpha)
+
+        def spy(t_km1, *rest):
+            orders.append(tuple(t_km1.shape))
+            return launch(t_km1, *rest)
+
+        return spy
+
+    monkeypatch.setattr(ops, "order_launcher", launcher)
     f = _randn(4, batch + (120,))
-    got = top.plan("cuda", device="cpu", sweep=False).apply(f)
+    got = plan.apply(f)
     np.testing.assert_allclose(
         got.numpy(), np.asarray(dense.apply(jnp.asarray(f))), atol=1e-4)
-    assert counted == [batch + (128,)] * jop.K
+    assert counted == [] and orders == [batch + (128,)] * jop.K
 
 
 def test_arma_solve_takes_the_sliced_spmv(counted):

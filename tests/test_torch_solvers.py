@@ -367,10 +367,12 @@ def test_inverse_filter_solved(solver_setup):
 def test_cuda_plan_routes_solves_through_the_kernels(solver_setup,
                                                      monkeypatch):
     """On the cuda plan a Jacobi solve is one jacobi_sweep call, a history
-    solve one jacobi_step per round, an ARMA solve one SpMV per round."""
+    solve one fused jacobi_round launch per round (after deg(den) - 1
+    SpMVs), an ARMA solve one SpMV per round."""
     _, _, top, y, _, rho = solver_setup
-    calls = {"jacobi_sweep": 0, "jacobi_step": 0, "sliced_ell_spmv": 0}
-    for name in calls:
+    calls = {"jacobi_sweep": 0, "jacobi_step": 0, "sliced_ell_spmv": 0,
+             "jacobi_round": 0}
+    for name in ("jacobi_sweep", "jacobi_step", "sliced_ell_spmv"):
         real = getattr(ops, name)
 
         def counted(*a, _real=real, _name=name, **k):
@@ -378,17 +380,29 @@ def test_cuda_plan_routes_solves_through_the_kernels(solver_setup,
             return _real(*a, **k)
 
         monkeypatch.setattr(ops, name, counted)
+    real_launcher = ops.round_launcher
+
+    def launcher(*a, **k):
+        launch = real_launcher(*a, **k)
+
+        def counted_launch(*la):
+            calls["jacobi_round"] += 1
+            return launch(*la)
+
+        return counted_launch
+
+    monkeypatch.setattr(ops, "round_launcher", launcher)
     plan = top.plan("cuda", device="cpu")
     y32 = y.astype(np.float32)
     plan.solve(y32, "jacobi", tau=TAU, n_iters=9)
     plan.solve(y32, "cheb_jacobi", tau=TAU, n_iters=9, rho=rho * 1.0001)
     assert calls == {"jacobi_sweep": 2, "jacobi_step": 0,
-                     "sliced_ell_spmv": 0}
+                     "sliced_ell_spmv": 0, "jacobi_round": 0}
     plan.solve(y32, "jacobi", tau=TAU, r=2, n_iters=9, history=True)
-    assert calls == {"jacobi_sweep": 2, "jacobi_step": 9,
-                     "sliced_ell_spmv": 18}
+    assert calls == {"jacobi_sweep": 2, "jacobi_step": 0,
+                     "sliced_ell_spmv": 9, "jacobi_round": 9}
     plan.solve(y32, "arma", tau=TAU, n_iters=9)
-    assert calls["sliced_ell_spmv"] == 27
+    assert calls["sliced_ell_spmv"] == 9 + 9
 
 
 def test_solve_l2_budget_forces_logged_fallback(solver_setup, caplog):
