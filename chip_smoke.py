@@ -14,7 +14,8 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    stand-alone ones, the Chebyshev one also in the per-order loop's
    prepared in-place form, and the fused `cheb_order` / `jacobi_round`,
    which run the sliced-ELL product inside), both sweeps (which read the
-   same sliced-ELL layout as the SpMV), the ISTA shrink and both
+   same sliced-ELL layout as the SpMV), the ISTA shrink (also written over
+   its input, one-shot and in the ISTA loops' prepared form) and both
    flash-attention kernels;
 3. drives the main path — ``GraphOperator(...).plan("cuda")`` `apply`,
    `apply_adjoint`, `apply_gram` and the ``sweep=False`` apply — on the
@@ -70,7 +71,8 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    ``_per_adjoint``, ``gather_bytes_per_apply``);
 9. drives the general partitions (edge-cut sharding of an arbitrary sparse
    graph, one tile per ring offset per order, the couplings added by the
-   SpMV kernel's rectangular, accumulating launch): (a) on one shard in
+   couplings' kernel, which reads the received tiles in place over the
+   rows that hold an entry): (a) on one shard in
    this process, ``plan("cuda_halo", partition=partition_general(L, 1))``
    `apply` (one sweep launch) and a Jacobi solve (one `jacobi_sweep`
    launch); (b) in the 4-rank group, ``partition="general"`` (BFS order)
@@ -1757,12 +1759,11 @@ def _community_checks(rank: int, world: int, tmp: str) -> dict:
     # the exchange alone: K rounds of one (B, h_k) f32 tile per offset
     tiles = [F[:, :h].contiguous() for h in info["partition_tile_widths"]]
     exchange_ms = _exchange_only_ms(tiles, offsets)
-    # where the time of an apply goes, on rank 0 (the others run beside);
-    # the coupling launch is the kernel's accumulating instance
+    # where the time of an apply goes, on rank 0 (the others run beside)
     profile = None
     if rank == 0:
         profile = _profile_call(plan.apply, F, {
-            "coupling": ("sliced_ell_spmv_kernel<8, true>",),
+            "coupling": ("coupling_spmv_kernel",),
             "sliced_ell_spmv": ("sliced_ell_spmv",),
             "cheb_step": ("cheb_step",), "memcpy": ("memcpy",),
             "index_and_cat": ("index", "cat")})
@@ -1856,34 +1857,62 @@ def _exchange_codec_ms(tiles, offsets, dt: str, rounds: int = K) -> float:
     return time_ms(round_trip, 3, warmup=1) / rounds
 
 
+# The couplings' launch before its redesign (PERF.md's kernel table, the
+# SpMV's accumulating instance on the same shape; NVIDIA H100 80GB HBM3,
+# 700 W).  Printed as quoted text beside this run's times, never in the
+# kernels line: this run does not measure it.
+EARLIER_COUPLING = ("the SpMV's accumulating instance over every row, after "
+                    "a torch.cat of the tiles: ms 0.0187, device_ms 0.01633 "
+                    "(PR 18)")
+EARLIER_SHRINK = "ms 0.0770, device_ms 0.0654 (per-scale threshold, PR 15)"
+
+
 def _coupling_kernel_row(parts, rank: int, dev) -> dict:
-    """The coupling launch (the SpMV kernel, rectangular and accumulating)
-    against its plain version on this rank's couplings at the community
-    shape, its times, bound and the library call computing y + C r."""
+    """The couplings' kernel on this rank's compacted couplings at the
+    community shape against its plain version: its times with r joined,
+    with the tiles as a round passes them (read in place) and after a
+    torch.cat of those tiles (what a round ran before the redesign), the
+    compacted rows and slices, its bound and the library call computing
+    y + C r."""
     from repro_torch.dist.sharded import coupling_layout
-    from repro_torch.kernels.bcsr_spmv import (sliced_ell_spmv_accumulate,
+    from repro_torch.kernels.bcsr_spmv import (compact_coupling,
+                                               sliced_ell_spmv_accumulate,
                                                sliced_ell_spmv_plain)
 
     C = coupling_layout(parts, rank, parts.n_local_padded, dev)
+    L = compact_coupling(C, parts.tile_widths)
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     r = torch.randn(COMMUNITY_B, C.x_len, generator=gen, device=dev)
     y0 = torch.randn(COMMUNITY_B, C.padded_n, generator=gen, device=dev)
-    got = sliced_ell_spmv_accumulate(C, r, y0.clone())
+    tiles = tuple(t.contiguous() for t in r.split(list(parts.tile_widths),
+                                                 -1))
+    got = sliced_ell_spmv_accumulate(L, r, y0.clone())
     want = sliced_ell_spmv_plain(C, r, out=y0.clone())
     torch.cuda.synchronize()
     err, rel = rel_err(got - y0, want - y0)
     check(rel <= TOL_SPMV, f"coupling spmv: rel err {rel:.3e}")
+    check(bool(torch.equal(
+        sliced_ell_spmv_accumulate(L, tiles, y0.clone()), got)),
+        "coupling spmv: the tiles read in place must give the joined r's "
+        "bits")
     y = y0.clone()
-    ms = time_ms(lambda: sliced_ell_spmv_accumulate(C, r, y), 20)
-    dev_ms = device_ms(lambda: sliced_ell_spmv_accumulate(C, r, y), 20,
-                       "sliced_ell_spmv_kernel")
+    joined = (lambda: sliced_ell_spmv_accumulate(L, r, y))
+    in_place = (lambda: sliced_ell_spmv_accumulate(L, tiles, y))
+    cat_first = (lambda: sliced_ell_spmv_accumulate(
+        L, torch.cat(tiles, -1), y))
+    ms = time_ms(joined, 20)
+    tiles_ms = time_ms(in_place, 20)
+    cat_ms = time_ms(cat_first, 20)
+    tiles_ms2 = time_ms(in_place, 20)
+    dev_ms = device_ms(joined, 20, "coupling_spmv_kernel")
+    tiles_dev = device_ms(in_place, 20, "coupling_spmv_kernel")
+    cat_dev = all_device_ms(cat_first, 20)
     plain_ms = time_ms(lambda: sliced_ell_spmv_plain(C, r, out=y), 5)
     # the library yardstick: one cuSPARSE product y^T + C r^T
     rows = C.entry_rows()[C.values != 0]
-    # y + C r needs only the rows that hold an entry; the kernel reads and
-    # writes every row of a slice that holds one (slice-granular)
     entry_rows = int(rows.unique().numel())
-    touched_rows = int((C.widths > 0).sum()) * (C.padded_n // C.n_slices)
+    check(entry_rows == L.n_entry_rows,
+          f"compacted rows {L.n_entry_rows} != {entry_rows}")
     C_csr = torch.sparse_coo_tensor(
         torch.stack([rows, C.columns[C.values != 0].long()]),
         C.values[C.values != 0], (C.padded_n, C.x_len)).coalesce(
@@ -1897,16 +1926,42 @@ def _coupling_kernel_row(parts, rank: int, dev) -> dict:
         print(f"coupling library call torch.addmm(CSR) refused: {exc}")
     b_ms, b_by = bound(C.nnz * 8 + COMMUNITY_B * (C.x_len + 2 * entry_rows)
                        * 4, 2 * C.nnz * COMMUNITY_B)
-    touched_ms, _ = bound(C.nnz * 8 + COMMUNITY_B
-                          * (C.x_len + 2 * touched_rows) * 4,
-                          2 * C.nnz * COMMUNITY_B)
+    # y moves in 32-byte sectors: the sectors that hold an entry's row,
+    # read and written, in place of 4 bytes per row
+    y_sectors = int((rows // 8).unique().numel())
+    sector_ms, _ = bound(C.nnz * 8 + COMMUNITY_B * (C.x_len * 4
+                                                    + 2 * y_sectors * 32),
+                         2 * C.nnz * COMMUNITY_B)
+    # the same launch in smaller signal tiles than the planner's one tile
+    # of 16 (each row's sum is the same, so the bits are too)
+    from unittest import mock
+
+    from repro_torch.kernels import bcsr_spmv
+    tile_dev = {}
+    for tb in (8, 4):
+        def shape(n_slices, batch, tb=tb):
+            return tb, (-(-n_slices // bcsr_spmv.SPMV_WARPS),
+                        -(-batch // tb))
+
+        with mock.patch.object(bcsr_spmv, "coupling_launch", shape):
+            L_tb = compact_coupling(C, parts.tile_widths)
+            check(bool(torch.equal(
+                sliced_ell_spmv_accumulate(L_tb, r, y0.clone()), got)),
+                f"coupling spmv in tiles of {tb}: other bits")
+            tile_dev[tb] = device_ms(
+                lambda: sliced_ell_spmv_accumulate(L_tb, r, y), 20,
+                "coupling_spmv_kernel")
     return dict(max_abs_err=err, rel_err=rel, ms=ms, device_ms=dev_ms,
+                y_sectors=y_sectors, bound_sectors_ms=sector_ms,
+                device_ms_by_tile=tile_dev,
+                tiles_ms=[tiles_ms, tiles_ms2], tiles_device_ms=tiles_dev,
+                cat_then_launch_ms=cat_ms, cat_then_launch_device_ms=cat_dev,
                 plain_ms=plain_ms, library_ms=lib_ms,
                 library_device_ms=lib_dev, bound_ms=b_ms, bound_by=b_by,
-                entry_rows=entry_rows, touched_rows=touched_rows,
-                bound_touched_ms=touched_ms,
-                rows=C.padded_n, cols=C.x_len, nnz=C.nnz, stored=C.stored,
-                batch=COMMUNITY_B)
+                entry_rows=entry_rows, compact_slices=L.n_slices,
+                slices_before=C.n_slices, launches_per_round=len(L.groups),
+                rows=C.padded_n, cols=C.x_len, nnz=C.nnz, stored=L.stored,
+                stored_before=C.stored, batch=COMMUNITY_B)
 
 
 def _codec_checks(dev) -> list:
@@ -4275,7 +4330,8 @@ def main(argv=None) -> int:
     del qx, xj, xp, rows, got, want, round_want, round_got, out_buf
 
     # ista_shrink: a threshold per scale (the lasso's (eta, 1)), per signal
-    # and scale, and per vertex
+    # and scale, and per vertex; then written over its input (out=a), one-
+    # shot and in the ISTA loops' prepared form, per scale
     av, phv, grv = (randn(BATCH, eta, N) for _ in range(3))
     threshes = {"scale": 0.5 * torch.rand(eta, 1, generator=gen, device=dev),
                 "signal_scale": 0.5 * torch.rand(BATCH, eta, 1, generator=gen,
@@ -4303,7 +4359,39 @@ def main(argv=None) -> int:
         print(f"kernel ista_shrink B={BATCH} eta={eta} thresh={form} "
               f"{tuple(th.shape)}: max_abs_err={err:.3e} rel={rel:.3e} "
               f"(tol {TOL_STEP}) ms={ms:.4f} device_ms={dev_ms} "
-              f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} ({b_by})")
+              f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} ({b_by})"
+              + (f"; earlier, quoted from PERF.md, not measured in this "
+                 f"run: {EARLIER_SHRINK} (H100 80GB HBM3, 700 W)"
+                 if form == "scale" else ""))
+    th = threshes["scale"]
+    want = ista_shrink_plain(av, phv, grv, th, gamma=0.3)
+    a_in = av.clone()
+    got = ista_shrink(a_in, phv, grv, th, gamma=0.3, out=a_in)
+    update = ops.ista_launcher(phv, th, 0.3)
+    a_loop = av.clone()
+    update(a_loop, grv, out=a_loop)
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, want)
+    check(rel <= TOL_STEP and bool(torch.equal(a_loop, got)),
+          f"ista_shrink in place: rel err {rel:.3e}, the loop's launch equal "
+          f"{bool(torch.equal(a_loop, got))}")
+    # timed over the same buffer: each call shrinks the last one's output
+    ms = time_ms(lambda: ista_shrink(a_in, phv, grv, th, gamma=0.3,
+                                     out=a_in), 20)
+    loop_ms = time_ms(lambda: update(a_loop, grv, out=a_loop), 20)
+    dev_ms = device_ms(lambda: update(a_loop, grv, out=a_loop), 20,
+                       "ista_shrink_kernel")
+    b_ms, b_by = ist_rows["scale"]["bound_ms"], ist_rows["scale"]["bound_by"]
+    ist_rows["in_place"] = dict(max_abs_err=err, rel_err=rel, ms=ms,
+                                loop_ms=loop_ms,
+                                plain_ms=ist_rows["scale"]["plain_ms"],
+                                bound_ms=b_ms, bound_by=b_by,
+                                device_ms=dev_ms)
+    print(f"kernel ista_shrink B={BATCH} eta={eta} thresh=scale, out=a: "
+          f"max_abs_err={err:.3e} rel={rel:.3e} (tol {TOL_STEP}) one-shot "
+          f"ms={ms:.4f}, the loop's prepared launch ms={loop_ms:.4f} "
+          f"device_ms={dev_ms} bound_ms={b_ms:.5f} ({b_by})")
+    del a_in, a_loop, update
     del av, phv, grv, threshes, got, want
 
     # jacobi_sweep in the two Fig. 2 settings the solve phases run:
@@ -4958,18 +5046,29 @@ def main(argv=None) -> int:
                           profile_apply=c0["profile"]))
     coupling = c0["coupling"]
     print(f"kernel sliced_ell_spmv_accumulate (the couplings of rank 0, "
-          f"{coupling['rows']} x {coupling['cols']}, nnz {coupling['nnz']}, "
-          f"stored {coupling['stored']}) B={COMMUNITY_B}: max_abs_err="
+          f"{coupling['rows']} x {coupling['cols']}, nnz {coupling['nnz']}; "
+          f"compacted to {coupling['entry_rows']} rows in "
+          f"{coupling['compact_slices']} slices, stored {coupling['stored']}, "
+          f"from {coupling['slices_before']} slices, stored "
+          f"{coupling['stored_before']}; {coupling['launches_per_round']} "
+          f"launch a round) B={COMMUNITY_B}: max_abs_err="
           f"{coupling['max_abs_err']:.3e} rel={coupling['rel_err']:.3e} (tol "
           f"{TOL_SPMV}) ms={coupling['ms']:.4f} device_ms="
-          f"{coupling['device_ms']} plain_ms={coupling['plain_ms']:.4f} "
+          f"{coupling['device_ms']} (r joined); tiles read in place ms="
+          f"{coupling['tiles_ms']} device_ms={coupling['tiles_device_ms']}; "
+          f"torch.cat of the tiles + launch ms="
+          f"{coupling['cat_then_launch_ms']:.4f} device_ms="
+          f"{coupling['cat_then_launch_device_ms']}; plain_ms="
+          f"{coupling['plain_ms']:.4f} "
           f"library_ms(torch.addmm CSR)={coupling['library_ms']} "
           f"library_device_ms={coupling['library_device_ms']} bound_ms="
           f"{coupling['bound_ms']:.5f} ({coupling['bound_by']}, y over the "
-          f"{coupling['entry_rows']} rows that hold an entry) "
-          f"bound_touched_ms={coupling['bound_touched_ms']:.5f} (y over the "
-          f"{coupling['touched_rows']} rows of the slices that hold one) "
-          f"[{SHARD_LABEL}]")
+          f"{coupling['entry_rows']} rows that hold an entry; "
+          f"{coupling['bound_sectors_ms']:.5f} over the "
+          f"{coupling['y_sectors']} 32-byte sectors of y they lie in); "
+          f"device_ms in tiles of 8 / 4 signals "
+          f"{coupling['device_ms_by_tile']} [{SHARD_LABEL}]; earlier, quoted from PERF.md, not measured in "
+          f"this run: {EARLIER_COUPLING} (H100 80GB HBM3, 700 W)")
     # (b) of the serving phase: one engine per rank over cuda_halo
     srv = [r["serving"] for r in ranks]
     for r in srv:
@@ -5148,16 +5247,20 @@ def main(argv=None) -> int:
             also_replaces="src/repro/kernels/bcsr_spmv.py:56",
             batch=BATCH, stored_per_nnz=SL.stored_per_nnz,
             b1=spmv_rows[1], b448=spmv_rows[BATCH * eta]),
-        # the same kernel's rectangular, accumulating launch: a general
-        # partition's couplings (the JAX package scattered them with
-        # y.at[rows].add around its Block-ELL SpMV)
+        # the same source's couplings' kernel: a general partition's
+        # couplings (the JAX package scattered them with y.at[rows].add
+        # around its Block-ELL SpMV)
         row("sliced_ell_spmv_accumulate", "sliced_ell_spmv.cu",
             "src/repro/kernels/bcsr_spmv.py:106", coupling,
             scatters="src/repro/dist/partition.py:784",
             batch=COMMUNITY_B, shape=[coupling["rows"], coupling["cols"]],
             nnz=coupling["nnz"], entry_rows=coupling["entry_rows"],
-            touched_rows=coupling["touched_rows"],
-            bound_touched_ms=coupling["bound_touched_ms"],
+            compact_slices=coupling["compact_slices"],
+            bound_sectors_ms=coupling["bound_sectors_ms"],
+            device_ms_by_tile=coupling["device_ms_by_tile"],
+            tiles_ms=coupling["tiles_ms"],
+            tiles_device_ms=coupling["tiles_device_ms"],
+            cat_then_launch_ms=coupling["cat_then_launch_ms"],
             label=SHARD_LABEL),
         row("cheb_step", "cheb_step.cu", "src/repro/kernels/cheb_step.py:66",
             step_row, gossip_leaf=gossip_step,

@@ -9,8 +9,8 @@ spectral graph wavelet frame Phi_tilde:
 Each iteration needs Phi~ y (computed once, Algorithm 1) and
 Phi~ Phi~* a^{(beta-1)} (Algorithm 2 then Algorithm 1).  The step size must
 satisfy gamma < 2 / ||Phi~||_2^2 for convergence [58].  The update and the
-shrinkage of lines 5-7 are one `kernels.ops.ista_update` — the
-`ista_shrink` kernel on the card.
+shrinkage of lines 5-7 are one fused update per iteration
+(`kernels.ops.ista_launcher`) — the `ista_shrink` kernel on the card.
 """
 from __future__ import annotations
 
@@ -107,10 +107,12 @@ def distributed_lasso(
 
     Lines 5-7 of every iteration — the update with the Gram product
     Phi~ Phi~* a (Algorithms 2 then 1) and the shrinkage — run as one
-    `kernels.ops.ista_update` when `soft_threshold_fn` is the default
-    (the `ista_shrink` kernel on a CUDA tensor); a custom shrinkage runs
-    as given.  Both compute ``soft_threshold(a + gamma (phi_y - gram_a),
-    mu gamma)``, the JAX package's loop.
+    fused update (`kernels.ops.ista_launcher`, checked once per solve:
+    the `ista_shrink` kernel on a CUDA tensor) when `soft_threshold_fn`
+    is the default, written over the loop's own iterate (never over
+    `a0` or phi_y); a custom shrinkage runs as given.  Both compute
+    ``soft_threshold(a + gamma (phi_y - gram_a), mu gamma)``, the JAX
+    package's loop.
     """
     from ..kernels import ops
 
@@ -128,14 +130,19 @@ def distributed_lasso(
                            device=y.device)
 
     phi_y = op.apply(y)  # Algorithm 3 line 3 (stored); (..., eta, N)
-    a = torch.zeros_like(phi_y) if a0 is None else torch.as_tensor(
+    # the loop owns a once it has written it, never the caller's a0
+    owned = a0 is None
+    a = torch.zeros_like(phi_y) if owned else torch.as_tensor(
         a0, device=phi_y.device)
+    update = (ops.ista_launcher(phi_y, thresh, gamma)
+              if soft_threshold_fn is soft_threshold else None)
     objs = []
     for _ in range(n_iters):
         # line 5: Phi~ Phi~* a    (Algorithm 2 then Algorithm 1)
         gram_a = op.apply(op.apply_adjoint(a))
-        if soft_threshold_fn is soft_threshold:
-            a = ops.ista_update(a, phi_y, gram_a, thresh, gamma)
+        if update is not None:
+            a = update(a, gram_a, out=a if owned else None)
+            owned = True
         else:
             a = soft_threshold_fn(a + gamma * (phi_y - gram_a), thresh)
         if record_objective:
@@ -159,7 +166,8 @@ def distributed_lasso_masked(
     """Algorithm 3 with a vertex observation mask M (data term
     ||M(y - Phi~* a)||^2/2): the ISTA gradient picks up M elementwise —
     still fully local, used by the cross-validation below.  The update and
-    shrinkage run as one `kernels.ops.ista_update`."""
+    shrinkage run as one fused update (`kernels.ops.ista_launcher`) over
+    the loop's own iterate."""
     from ..kernels import ops
 
     y = torch.as_tensor(y, device=_signal_device(op))
@@ -168,9 +176,10 @@ def distributed_lasso_masked(
     m = torch.as_tensor(mask, device=y.device).to(y.dtype)
     phi_my = op.apply(m * y)
     a = torch.zeros_like(phi_my)
+    update = ops.ista_launcher(phi_my, thresh, gamma)
     for _ in range(n_iters):
         resid = m * op.apply_adjoint(a)
-        a = ops.ista_update(a, phi_my, op.apply(resid), thresh, gamma)
+        update(a, op.apply(resid), out=a)
     return LassoResult(coeffs=a, signal=op.apply_adjoint(a),
                        objective=torch.tensor(float("nan")),
                        n_iters=n_iters)

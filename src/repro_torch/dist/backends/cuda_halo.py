@@ -33,12 +33,14 @@ rank takes its own shard of the partition's Block-ELL to its device and
 packs the sliced layout there; per order it posts one tile per ring
 offset (`sharded.offset_matvec`), launches the interior SpMV, and on
 arrival adds its couplings — every offset's packed into one row-sorted
-rectangular sliced-ELL matrix at plan build, never densified — with one
-accumulating launch of the same kernel (`sliced_ell_spmv_accumulate`);
-then
-`cheb_step`.  Both kernels sum each row in a fixed order, so two calls
-give the same bits.  A 1-shard general plan is tagged like the banded
-one: one `cheb_sweep` launch per `apply`.
+rectangular sliced-ELL matrix at plan build, never densified, and
+compacted there to the rows that hold an entry
+(`bcsr_spmv.compact_coupling`) — with one launch of the same source's
+coupling kernel (`sliced_ell_spmv_accumulate`), which reads the received
+tiles where they arrived (no join; one launch per 32 offsets past 32);
+then `cheb_step`.  Both kernels sum each row in a fixed order, so two
+calls give the same bits.  A 1-shard general plan is tagged like the
+banded one: one `cheb_sweep` launch per `apply`.
 
 ``exchange_dtype=``, ``error_feedback=``, ``fault_spec=`` and
 ``degradation=`` are the `halo` backend's: the wire codec and the link
@@ -59,7 +61,7 @@ import torch
 
 from ...core import graph as graphmod
 from ...kernels import ops
-from ...kernels.bcsr_spmv import sliced_ell_spmv_accumulate
+from ...kernels.bcsr_spmv import compact_coupling, sliced_ell_spmv_accumulate
 from .. import comm
 from ..partition import (GeneralPartition, OverfullSlotsError,
                          resolve_partition_arg)
@@ -272,12 +274,16 @@ def _general_plan(op, parts: GeneralPartition, group, rank: int,
     layout = local_A.sliced_ell()     # packed on the device, kept on local_A
     sends = general_sends(parts, rank, dev)
     C = coupling_layout(parts, rank, pnl, dev) if sends else None
+    # compacted once for the coupling kernel: the rows with an entry, and
+    # the launches over the tiles' table (one while the offsets fit it)
+    coupling = (compact_coupling(C, parts.tile_widths) if C is not None
+                else None)
 
     def interior(x: Tensor) -> Tensor:
         return ops.spmv(local_A, x.contiguous())
 
     def couple(y: Tensor, received) -> Tensor:
-        return sliced_ell_spmv_accumulate(C, torch.cat(received, -1), y)
+        return sliced_ell_spmv_accumulate(coupling, received, y)
 
     mv = offset_matvec(interior, sends, couple, group, **wire)
     if group is None:
@@ -291,6 +297,9 @@ def _general_plan(op, parts: GeneralPartition, group, rank: int,
         nnz=layout.nnz,
         stored_per_nnz=layout.stored_per_nnz,
         coupling_nnz=0 if C is None else C.nnz,
+        coupling_rows=0 if C is None else coupling.n_entry_rows,
+        coupling_slices=0 if C is None else coupling.n_slices,
+        coupling_launches_per_round=0 if C is None else len(coupling.groups),
         transport=comm.transport(group, dev),
         sweep_l2_bytes=ops.cheb_sweep_l2_bytes(pnl),
         sweep_l2_budget=ops.DEFAULT_SWEEP_L2_BUDGET,

@@ -14,11 +14,14 @@ The Block-ELL plain version (`block_ell_spmv_plain`) stays as the bridge
 the parity tests hold against the JAX kernels.  The whole-iteration
 sweeps (`kernels/cheb_sweep.py`) read the same sliced layout.
 
-`sliced_ell_spmv_accumulate` launches the same kernel on a rectangular
-layout in its accumulating mode, Y += C R: the couplings of a general
-partition's shard (`dist/sharded.py`), which the JAX package scattered
-with ``y.at[rows].add`` around its Block-ELL SpMV.  It counts its own
-launches.
+`sliced_ell_spmv_accumulate` is the couplings' kernel, y += C r, the
+second entry of the same source: a general partition's shard adds the
+cut edges to the tiles it received (`dist/sharded.py`), which the JAX
+package scattered with ``y.at[rows].add`` around its Block-ELL SpMV.  It
+reads a :class:`CouplingLayout`, packed once per plan on the card
+(:func:`compact_coupling`): only the rows that hold an entry, sliced over
+those, and the tiles in place through a table of pointers
+(:func:`tile_groups` plans the launches).  It counts its own launches.
 
 Dispatch: a tensor on the CPU takes the plain PyTorch version
 (`sliced_ell_spmv_plain`); a CUDA tensor launches the kernel or raises.
@@ -26,12 +29,13 @@ Dispatch: a tensor on the CPU takes the plain PyTorch version
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
-from ..core.graph import SLICE_ROWS, SlicedELL
+from ..core.graph import SLICE_ROWS, SlicedELL, sliced_ell_from_coo
 from . import _build
 
 Tensor = torch.Tensor
@@ -102,12 +106,6 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int]
                        + [ctypes.c_longlong] + [ctypes.c_int]
                        + [ctypes.c_void_p])
-    fn = lib.sliced_ell_spmv_acc_f32
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int]
-                       + [ctypes.c_longlong] * 2 + [ctypes.c_int]
-                       + [ctypes.c_void_p])
     return lib
 
 
@@ -152,38 +150,323 @@ def sliced_ell_spmv(S: SlicedELL, x: Tensor) -> Tensor:
 sliced_ell_spmv.launches = 0
 
 
-def sliced_ell_spmv_accumulate(C: SlicedELL, r: Tensor, y: Tensor) -> Tensor:
-    """y += C @ r in place, for a sliced-ELL C of `C.padded_n` rows and
-    `C.x_len` columns (square or rectangular): r (..., x_len), y (...,
-    padded_n) with the same leading dims.  Returns y.
+#: Tiles one coupling launch reads (sliced_ell_spmv.cu: kMaxTiles); a
+#: stored column is (column in its tile << TILE_BITS) | tile.
+TILE_CAPACITY = 32
+TILE_BITS = 5
+#: Slices (warps) per block of the coupling launch (sliced_ell_spmv.cu:
+#: kWarps), and the most signal tiles a grid takes before it strides.
+SPMV_WARPS = 4
+MAX_GRID_Y = 65535
 
-    CPU tensors take the plain version; CUDA tensors launch
-    ``csrc/sliced_ell_spmv.cu`` in its rectangular, accumulating mode
-    (counted in ``sliced_ell_spmv_accumulate.launches``).  Each row is
-    summed by one thread in a fixed order: no atomics, the same bits on
-    every call.
+
+def tile_groups(tile_widths: Sequence[int],
+                capacity: int = TILE_CAPACITY) -> Tuple[Tuple[int, int], ...]:
+    """The coupling launches of a round: ``(first, count)`` runs of
+    consecutive tiles (ring offsets) in offset order, one run of all of
+    them when they fit the kernel's table (`capacity`), else runs of
+    `capacity` and a last, shorter one.  y takes the runs' row sums in
+    turn (``csrc/sliced_ell_spmv.cu``, the note on the couplings)."""
+    n = len(tile_widths)
+    return tuple((k, min(capacity, n - k)) for k in range(0, n, capacity))
+
+
+def coupling_launch(n_slices: int, batch: int) -> Tuple[int, Tuple[int, int]]:
+    """(tb, (gx, gy)) of a coupling launch: tb signals per thread (every
+    signal of a batch of up to 16 in one tile: 1, 4, 8 or 16; tiles of 8
+    beyond), gx groups of SPMV_WARPS compacted slices, gy signal tiles
+    (strided beyond MAX_GRID_Y)."""
+    tb = next((t for t in (1, 4, 8, 16) if batch <= t), 8)
+    return tb, (max(1, -(-n_slices // SPMV_WARPS)),
+                max(1, min(-(-batch // tb), MAX_GRID_Y)))
+
+
+@dataclasses.dataclass(frozen=True)
+class CouplingGroup:
+    """One launch's share of a coupling layout: the tiles ``first`` ..
+    ``first + count - 1``, over the rows that hold an entry to them.
+
+      S:       sliced-ELL over the compacted rows (m = S.padded_n) and the
+               group's tiles joined (S.n_cols columns); the plain version
+               reads it
+      rows:    (m,) int32, sorted: compacted row i is row rows[i] of y
+      columns: (stored,) int32, S's columns as (column in its tile <<
+               TILE_BITS) | (tile - first), which the kernel reads
+      slices:  (n_slices, 2) int32, each slice's (offset, width)
     """
-    if r.device.type == "cpu":
-        return sliced_ell_spmv_plain(C, r, out=y)
-    _check_launch(C, r, "sliced_ell_spmv_accumulate")
-    if (y.shape != r.shape[:-1] + (C.padded_n,) or y.device != r.device
-            or y.dtype != torch.float32 or not y.is_contiguous()):
-        raise ValueError(f"y {tuple(y.shape)} {y.dtype} on {y.device} does "
-                         f"not take C r for r {tuple(r.shape)}: it must be a "
-                         f"contiguous float32 (..., {C.padded_n}) beside r")
-    B = _batch(r)
-    if B == 0 or C.stored == 0:
-        return y
-    lib = _lib()
-    with torch.cuda.device(r.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.sliced_ell_spmv_acc_f32(
-            C.values.data_ptr(), C.columns.data_ptr(), C.offsets.data_ptr(),
-            C.widths.data_ptr(), r.data_ptr(), y.data_ptr(), C.n_slices,
-            C.padded_n, C.x_len, B, stream)
-    _build.check(lib, err, "sliced_ell_spmv_accumulate")
-    sliced_ell_spmv_accumulate.launches += 1
+
+    first: int
+    count: int
+    S: SlicedELL
+    rows: Tensor
+    columns: Tensor
+    slices: Tensor
+
+
+@dataclasses.dataclass
+class CouplingLayout:
+    """A shard's couplings y += C r, compacted for the coupling kernel
+    (:func:`compact_coupling`): C has `n_rows` rows (y's length) and
+    sum(tile_widths) columns, r the received tiles (one per ring offset,
+    in offset order), split into the launches of :func:`tile_groups`."""
+
+    groups: Tuple[CouplingGroup, ...]
+    n_rows: int
+    tile_widths: Tuple[int, ...]
+    nnz: int
+    _launch: Optional[object] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
+
+    @property
+    def n_cols(self) -> int:
+        return sum(self.tile_widths)
+
+    @property
+    def n_entry_rows(self) -> int:
+        """Rows that hold an entry (summed over the groups)."""
+        return sum(g.S.padded_n for g in self.groups)
+
+    @property
+    def n_slices(self) -> int:
+        return sum(g.S.n_slices for g in self.groups)
+
+    @property
+    def stored(self) -> int:
+        return sum(g.S.stored for g in self.groups)
+
+
+def compact_coupling(C: SlicedELL,
+                     tile_widths: Optional[Sequence[int]] = None, *,
+                     capacity: int = TILE_CAPACITY) -> CouplingLayout:
+    """Compact a rectangular sliced-ELL C (`dist.sharded.coupling_layout`)
+    for the coupling kernel, in torch ops on C's device: per launch of
+    :func:`tile_groups`, the rows that hold an entry to its tiles, sliced
+    over those rows alone, each stored column encoded with its tile.
+    `tile_widths` splits C's columns into the received tiles (None: one
+    tile of all of them).  C's stored zeros are its padding (the coupling
+    layout drops the JAX package's zero-valued padding), so they are
+    dropped."""
+    widths = ((C.x_len,) if tile_widths is None
+              else tuple(int(h) for h in tile_widths))
+    if sum(widths) != C.x_len or not widths:
+        raise ValueError(f"tile widths {widths} do not split C's "
+                         f"{C.x_len} columns")
+    if max(widths) >= 2**(31 - TILE_BITS) or capacity > 2**TILE_BITS:
+        raise ValueError(f"a tile of {max(widths)} columns, or a table of "
+                         f"{capacity}, does not fit the kernel's columns")
+    if C.values.dtype != torch.float32 or C.columns.dtype != torch.int32:
+        raise TypeError("the coupling kernel takes float32 values and int32 "
+                        "columns")
+    dev = C.device
+    real = C.values != 0
+    rows, cols, vals = C.entry_rows()[real], C.columns[real].long(), \
+        C.values[real]
+    order = torch.argsort(rows * max(C.x_len, 1) + cols, stable=True)
+    rows, cols, vals = rows[order], cols[order], vals[order]
+    base = [0]
+    for h in widths:
+        base.append(base[-1] + h)
+    groups = []
+    for first, count in tile_groups(widths, capacity):
+        lo, hi = base[first], base[first + count]
+        sel = (cols >= lo) & (cols < hi)
+        if not bool(sel.any()):
+            continue
+        ids, compact = torch.unique(rows[sel], sorted=True,
+                                    return_inverse=True)
+        S = sliced_ell_from_coo(compact, cols[sel] - lo, vals[sel],
+                                ids.numel(), ids.numel(), n_cols=hi - lo)
+        ends = torch.tensor(base[first + 1:first + count + 1], device=dev) - lo
+        stored = S.columns.long()
+        tile = torch.searchsorted(ends, stored, right=True)
+        starts = torch.tensor(base[first:first + count], device=dev) - lo
+        local = stored - starts[tile]
+        groups.append(CouplingGroup(
+            first=first, count=count, S=S, rows=ids.to(torch.int32),
+            columns=((local << TILE_BITS) | tile).to(torch.int32),
+            slices=torch.stack([S.offsets, S.widths], 1).contiguous()))
+    return CouplingLayout(groups=tuple(groups), n_rows=C.padded_n,
+                          tile_widths=widths, nnz=C.nnz)
+
+
+def _split(L: CouplingLayout, r: Tensor) -> Tuple[Tensor, ...]:
+    """The tiles of a joined r (..., n_cols), as views."""
+    if r.shape[-1] != L.n_cols:
+        raise ValueError(f"r has {r.shape[-1]} columns, the couplings "
+                         f"{L.n_cols}")
+    out, lo = [], 0
+    for h in L.tile_widths:
+        out.append(r[..., lo:lo + h])
+        lo += h
+    return tuple(out)
+
+
+def coupling_plain(L: CouplingLayout, tiles: Sequence[Tensor],
+                   y: Tensor) -> Tensor:
+    """y += C r in plain PyTorch, in place, for the tiles of r (one per
+    ring offset, (..., h_k)): per launch group, the compacted rows' sums
+    (`sliced_ell_spmv_plain` over the group's tiles joined) added into y
+    at their rows.  Returns y."""
+    for g in L.groups:
+        r = torch.cat(list(tiles[g.first:g.first + g.count]), -1)
+        y.index_add_(y.ndim - 1, g.rows.long(),
+                     sliced_ell_spmv_plain(g.S, r))
     return y
+
+
+def _row_stride(t: Tensor) -> int:
+    """Elements from one signal's row of `t` (..., h) to the next, which
+    the kernel's table takes; raises unless the rows are evenly strided
+    and each is contiguous."""
+    if t.is_contiguous():
+        return t.shape[-1]
+    if t.shape[-1] > 1 and t.stride(-1) != 1:
+        raise ValueError(f"a coupling tile's rows must be contiguous, got "
+                         f"strides {t.stride()}")
+    stride, span = None, None
+    for size, st in zip(reversed(t.shape[:-1]), reversed(t.stride()[:-1])):
+        if size == 1:
+            continue
+        if span is not None and st != span:
+            raise ValueError(f"a coupling tile's rows must be evenly "
+                             f"strided, got {tuple(t.shape)} strides "
+                             f"{t.stride()}")
+        stride = st if stride is None else stride
+        span = st * size
+    return t.shape[-1] if stride is None else stride
+
+
+class _CouplingArgs(ctypes.Structure):
+    """One coupling launch's arguments (sliced_ell_spmv.cu: CouplingArgs,
+    field for field), kept per launch group and passed by address."""
+
+    _fields_ = ([(f, ctypes.c_void_p) for f in
+                 ("values", "columns", "slices", "rows", "y", "stream")]
+                + [("n", ctypes.c_longlong)]
+                + [(f, ctypes.c_int) for f in
+                   ("n_slices", "m", "B", "tb", "n_tiles")]
+                + [("gx", ctypes.c_uint), ("gy", ctypes.c_uint),
+                   ("tile_ptrs", ctypes.c_void_p * TILE_CAPACITY),
+                   ("tile_strides", ctypes.c_longlong * TILE_CAPACITY)])
+
+
+def _coupling_launcher(L: CouplingLayout):
+    """The layout's round, resolved once: the C entry and, per launch
+    group, its arguments with the layout's pointers filled in.
+    ``launch(r, joined, y)`` checks the round's tiles (shapes, device,
+    dtype, row strides) and y, fills in their pointers, the stream and
+    (when B changes) the launch shape, and launches each group."""
+    lib = _build.library("sliced_ell_spmv")
+    fn = lib.coupling_spmv_f32
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p]
+    dev = L.groups[0].S.device
+    f32 = torch.float32
+    n_rows, widths, n_cols = L.n_rows, L.tile_widths, L.n_cols
+    bases = [0]
+    for h in widths[:-1]:
+        bases.append(bases[-1] + 4 * h)     # byte offsets in a joined r
+    groups = []
+    for g in L.groups:
+        args = _CouplingArgs(
+            values=g.S.values.data_ptr(), columns=g.columns.data_ptr(),
+            slices=g.slices.data_ptr(), rows=g.rows.data_ptr(), n=n_rows,
+            n_slices=g.S.n_slices, m=g.S.padded_n, n_tiles=g.count)
+        groups.append([g.first, g.count, args, ctypes.addressof(args),
+                       args.tile_ptrs, args.tile_strides, 0])
+
+    def launch(r, joined: bool, y: Tensor) -> Tensor:
+        lead = y.shape[:-1]
+        if (y.shape[-1] != n_rows or y.dtype != f32 or y.device != dev
+                or not y.is_contiguous()):
+            raise ValueError(f"y {tuple(y.shape)} {y.dtype} on {y.device} "
+                             f"does not take C r: it must be a contiguous "
+                             f"float32 (..., {n_rows}) on {dev}")
+        if joined:
+            if (r.shape[:-1] != lead or r.shape[-1] != n_cols
+                    or r.dtype != f32 or r.device != dev):
+                raise ValueError(f"r {tuple(r.shape)} {r.dtype} on "
+                                 f"{r.device}: expected a float32 "
+                                 f"{tuple(lead) + (n_cols,)} on {dev}")
+            p0, st = r.data_ptr(), _row_stride(r)
+            ptrs = [p0 + b for b in bases]
+            strides = [st] * len(widths)
+        else:
+            if len(r) != len(widths):
+                raise ValueError(f"{len(r)} tiles for {len(widths)} "
+                                 "offsets")
+            ptrs, strides = [], []
+            for t, h in zip(r, widths):
+                if (t.shape[:-1] != lead or t.shape[-1] != h
+                        or t.dtype != f32 or t.device != dev):
+                    raise ValueError(
+                        f"a coupling tile {tuple(t.shape)} {t.dtype} on "
+                        f"{t.device}: expected a float32 "
+                        f"{tuple(lead) + (h,)} on {dev}")
+                ptrs.append(t.data_ptr())
+                strides.append(_row_stride(t))
+        B = y.numel() // n_rows
+        if B == 0:
+            return y
+        if B >= 2**31 // 16:
+            raise ValueError(f"batch {B} too large for one launch")
+        y_ptr = y.data_ptr()
+        stream = _build.current_stream(dev)
+        with _build.device_scope(dev):
+            for grp in groups:
+                first, count, args, addr, tp, ts, last_B = grp
+                tp[:count] = ptrs[first:first + count]
+                ts[:count] = strides[first:first + count]
+                args.y, args.stream = y_ptr, stream
+                if B != last_B:
+                    tb, (args.gx, args.gy) = coupling_launch(args.n_slices,
+                                                             B)
+                    args.B, args.tb, grp[6] = B, tb, B
+                err = fn(addr)
+                if err:
+                    _build.check(lib, err, "sliced_ell_spmv_accumulate")
+                sliced_ell_spmv_accumulate.launches += 1
+        return y
+
+    return launch
+
+
+def sliced_ell_spmv_accumulate(C: Union[CouplingLayout, SlicedELL],
+                               r: Union[Tensor, Sequence[Tensor]],
+                               y: Tensor) -> Tensor:
+    """y += C @ r in place; returns y.
+
+    C: a :class:`CouplingLayout` (a plan's, compacted once), or a
+    sliced-ELL matrix of `padded_n` rows and `x_len` columns (square or
+    rectangular; on a card it is compacted on every call).  r: the tiles
+    as a round receives them, one (..., h_k) tensor per ring offset in
+    offset order, or joined into one (..., n_cols) tensor; y (...,
+    n_rows) with the same leading dims, contiguous float32.  Each tile's
+    rows must be contiguous and evenly strided (a column slice of a joined
+    r is).
+
+    CPU tensors take the plain version (`coupling_plain`, or
+    `sliced_ell_spmv_plain` for a sliced-ELL C); CUDA tensors launch
+    ``csrc/sliced_ell_spmv.cu``'s coupling entry, once per group of
+    :func:`tile_groups` (counted in ``sliced_ell_spmv_accumulate.
+    launches``): the layout is checked when it is compacted, each call
+    checks the tiles and y.  Each row is summed by one thread in a fixed
+    order: no atomics, the same bits on every call.
+    """
+    joined = isinstance(r, Tensor)
+    if (r if joined else r[0]).device.type == "cpu":
+        if isinstance(C, SlicedELL):
+            return sliced_ell_spmv_plain(
+                C, r if joined else torch.cat(list(r), -1), out=y)
+        return coupling_plain(C, _split(C, r) if joined else r, y)
+    if isinstance(C, SlicedELL):
+        C = compact_coupling(C)
+    if not C.groups:
+        return y
+    if C._launch is None:
+        C._launch = _coupling_launcher(C)
+    return C._launch(r, joined, y)
 
 
 sliced_ell_spmv_accumulate.launches = 0

@@ -51,7 +51,7 @@ from .cheb_sweep import check_scratch_dtype, cheb_sweep, jacobi_sweep
 # the LM's attn_impl="flash" (models.layers.attention) calls it from here
 from .flash_attention import flash_attention  # noqa: F401
 from .jacobi_step import jacobi_step, round_launcher
-from .soft_threshold import ista_shrink
+from .soft_threshold import ista_shrink, shrink_launcher
 
 Tensor = torch.Tensor
 
@@ -439,10 +439,25 @@ def ista_update(a: Tensor, phi_y: Tensor, gram_a: Tensor, thresh,
     (eta, 1), (..., eta, 1) or per vertex (..., eta, N).  A CUDA tensor
     launches the `ista_shrink` kernel (which reads the threshold through
     strides, never expanded), a CPU tensor takes its plain version."""
-    thresh = torch.as_tensor(thresh, dtype=a.dtype, device=a.device)
-    if thresh.ndim == 1:
-        thresh = thresh[:, None]
-    return ista_shrink(a, phi_y, gram_a, thresh, gamma=gamma)
+    return ista_shrink(a, phi_y, gram_a, _thresh_table(thresh, a), gamma=gamma)
+
+
+def ista_launcher(phi_y: Tensor, thresh, gamma: float):
+    """An ISTA loop's fused updates against its fixed phi_y and threshold
+    (the forms of :func:`ista_update`), checked and the threshold table
+    made once per solve: ``update(a, gram_a, out=None)`` returns
+    ``soft_threshold(a + gamma * (phi_y - gram_a), thresh)`` written into
+    `out` (a new tensor when None; it may be `a`, so a loop that owns its
+    iterate updates it in place).  `soft_threshold.shrink_launcher` on
+    phi_y's device."""
+    return shrink_launcher(phi_y, _thresh_table(thresh, phi_y), gamma=gamma)
+
+
+def _thresh_table(thresh, like: Tensor) -> Tensor:
+    """`thresh` as a tensor of like's dtype and device; (eta,) becomes
+    (eta, 1)."""
+    thresh = torch.as_tensor(thresh, dtype=like.dtype, device=like.device)
+    return thresh[:, None] if thresh.ndim == 1 else thresh
 
 
 def pad_trailing(x: Tensor, total: int) -> Tensor:

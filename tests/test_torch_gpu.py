@@ -10,9 +10,10 @@ through them; one KV-cache decode step with no host read (f32 and f8
 caches, the VLM's M-RoPE, and the MoE, MLA, RWKV6, hymba and whisper
 families against their flash forward); the bf16 instances of the two sweeps; float64 signals cast
 at the plans' boundary; the 1-shard `cuda_halo` plan against the `cuda`
-plan; the SpMV's rectangular, accumulating launch on a general
-partition's couplings, and two calls of a 1-shard general plan bit for
-bit; the wire codec on the card byte for byte the CPU's, and the faulted
+plan; the couplings' kernel on a general partition's compacted
+couplings (the tiles read in place, joined, and past the tile table),
+and two calls of a 1-shard general plan bit for bit; the ISTA shrink in
+place; the wire codec on the card byte for byte the CPU's, and the faulted
 sharded apply (2 gloo ranks on the card) equal to the CPU's; the serving
 entries (`plan.compiled`, one CUDA graph per bucket) equal to the eager
 plan calls bit for bit, captured once per bucket, with no host-to-device
@@ -55,7 +56,9 @@ from repro_torch.dist import METHODS, GraphOperator
 from repro_torch.dist import partition as tpm
 from repro_torch.dist import quantize as tq
 from repro_torch.dist.sharded import coupling_layout
+from repro_torch.kernels import ops
 from repro_torch.kernels.bcsr_spmv import (block_ell_spmv_plain,
+                                           compact_coupling, coupling_plain,
                                            sliced_ell_spmv,
                                            sliced_ell_spmv_accumulate,
                                            sliced_ell_spmv_plain)
@@ -392,6 +395,44 @@ def test_ista_shrink_kernel_matches_plain(cuda, n, form):
     torch.cuda.synchronize()
     assert ista_shrink.launches == before + 1
     assert _rel(got, want) < 1e-6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("form", ["scale", "signal_scale", "vertex"])
+@pytest.mark.parametrize("n", [301, 16384])
+def test_ista_shrink_in_place(cuda, n, form, dtype):
+    """The shrink written over a (`out=a`, the ISTA loops' form) and its
+    prepared loop launch against the plain version, the same bits twice;
+    an unaligned view and a ragged n (one element a thread); out may not
+    be phi_y."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    a, phi_y, gram = (torch.randn(8, 7, n, generator=gen, device=cuda,
+                                  dtype=dtype) for _ in range(3))
+    shape = {"scale": (7, 1), "signal_scale": (8, 7, 1),
+             "vertex": (8, 7, n)}[form]
+    thresh = 0.5 * torch.rand(shape, generator=gen, device=cuda,
+                              dtype=dtype)
+    want = ista_shrink_plain(a, phi_y, gram, thresh, gamma=0.3)
+    before = ista_shrink.launches
+    a1 = a.clone()
+    assert ista_shrink(a1, phi_y, gram, thresh, gamma=0.3, out=a1) is a1
+    torch.cuda.synchronize()
+    assert ista_shrink.launches == before + 1
+    assert _rel(a1, want) < 1e-6
+    update = ops.ista_launcher(phi_y, thresh, 0.3)
+    a2 = a.clone()
+    for _ in range(2):      # the loop's launch, over its iterate
+        b = a.clone()
+        assert update(b, gram, out=b) is b
+        assert torch.equal(b, a1)
+    assert torch.equal(update(a2, gram), a1) and torch.equal(a2, a)
+    buf = torch.empty(a.numel() + 1, device=cuda, dtype=dtype)
+    view = buf[1:].view(a.shape)
+    view.copy_(a)
+    assert _rel(ista_shrink(view, phi_y, gram, thresh, gamma=0.3), want) \
+        < 1e-6
+    with pytest.raises(ValueError, match="never phi_y"):
+        ista_shrink(a, phi_y, gram, thresh, gamma=0.3, out=phi_y)
 
 
 def _jacobi_inputs(cuda, graph, den, batch_shape):
@@ -828,6 +869,51 @@ def test_coupling_spmv_kernel_matches_plain(cuda, shards, B):
         empty = torch.ones(C.padded_n, dtype=torch.bool, device=cuda)
         empty[C.entry_rows()[C.values != 0]] = False
         assert torch.equal(got[:, empty], y0[:, empty])
+
+
+@pytest.mark.parametrize("B", [1, 3, 16, 112])
+@pytest.mark.parametrize("shards", [2, 4])
+def test_coupling_tiles_read_in_place(cuda, shards, B):
+    """The couplings' kernel on a plan's compacted layout, given the tiles
+    as a round receives them (separate tensors, one a strided, unaligned
+    view), against its plain version; one launch, the same bits twice,
+    and the same bits from the joined tiles and from the uncompacted
+    layout; past the tile table (capacity 1) one launch per offset."""
+    csr, _ = tpm.community_graph_csr(20000, seed=1)
+    parts = tpm.partition_general(csr, shards, method="spectral",
+                                  block=(8, 8))
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    for s in range(shards):
+        C = coupling_layout(parts, s, parts.n_local_padded, cuda)
+        L = compact_coupling(C, parts.tile_widths)
+        assert len(L.groups) == 1 and L.n_entry_rows < C.padded_n
+        tiles = [torch.randn(B, h, generator=gen, device=cuda)
+                 for h in parts.tile_widths]
+        wide = torch.randn(B, tiles[0].shape[-1] + 3, generator=gen,
+                           device=cuda)
+        wide[:, 1:-2] = tiles[0]
+        tiles[0] = wide[:, 1:-2]
+        y0 = torch.randn(B, C.padded_n, generator=gen, device=cuda)
+        before = sliced_ell_spmv_accumulate.launches
+        got = sliced_ell_spmv_accumulate(L, tuple(tiles), y0.clone())
+        torch.cuda.synchronize()
+        assert sliced_ell_spmv_accumulate.launches == before + 1
+        want = coupling_plain(L, tiles, y0.clone())
+        assert _rel(got - y0, want - y0) < 1e-5
+        assert torch.equal(
+            sliced_ell_spmv_accumulate(L, tuple(tiles), y0.clone()), got)
+        joined = torch.cat(tiles, -1)
+        assert torch.equal(sliced_ell_spmv_accumulate(L, joined, y0.clone()),
+                           got)
+        assert torch.equal(sliced_ell_spmv_accumulate(C, joined, y0.clone()),
+                           got)
+        L1 = compact_coupling(C, parts.tile_widths, capacity=1)
+        before = sliced_ell_spmv_accumulate.launches
+        got1 = sliced_ell_spmv_accumulate(L1, tuple(tiles), y0.clone())
+        torch.cuda.synchronize()
+        assert sliced_ell_spmv_accumulate.launches == before + len(L1.groups)
+        assert len(L1.groups) == len(parts.offsets)
+        assert _rel(got1 - y0, want - y0) < 1e-5
 
 
 def test_general_plan_same_bits_twice(cuda):
