@@ -125,7 +125,18 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    submits make one batch of K counted rounds and 64 x
    ``halo_bytes_per_apply`` bytes, bit for bit the direct call, float64
    dense within 1e-4, a faulted plan beside the clean one never sharing
-   a batch, and a wall-clock engine over the group refused;
+   a batch; then one wall-clock engine over two ``cuda_halo`` plans of
+   the group (banded and BFS general): rank 0 leads, replaying seeded
+   Poisson streams of DEFAULT_MIX (half to each plan) at 25, 100 and 400
+   requests /s for 3 s each and broadcasting each packed batch, the
+   other ranks follow (every request exactly once, each follower running
+   the leader's batch count, the first batch of each (plan, kind,
+   bucket) equal to a direct call of its entry on every rank bit for
+   bit, every served `apply` row within 1e-4 of float64 dense, each
+   batch's counted rounds and bytes those of the direct call and the
+   byte model, the step, SpMV and coupling kernels launched as the
+   direct calls launch them; p50 / p99, signals /s, occupancy, padding
+   and the broadcast's host ms and share of a dispatch per rate);
 12. checks the invariants (`repro_torch.analysis`): `check_plan` over
    the cuda and dense plans above (apply, adjoint, Gram, the Chebyshev,
    Jacobi and Chebyshev-Jacobi solves, at B = 1 and 64: exchange
@@ -197,7 +208,9 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    (MoE: no assignment dropped, every expert pick equal or a printed near
    tie); the sub-quadratic caches at 2**20 tokens; and the tensor-core
    kernel at whisper's non-causal and cross shapes and qwen3-moe's layer,
-   against its plain version and SDPA;
+   against its plain version and SDPA; then runs the LM serving example
+   (`repro_torch.examples.serve_lm`: hymba-1.5b reduced, B 4, 16 prompt
+   tokens and 24 generated) on the card;
 17. shows through the kernels' launch counters that every path ran through
    its kernels: each path is driven once with the counts set to 0 just
    before it and read just after (a replayed graph launches without its
@@ -543,6 +556,12 @@ SERVE_MAX_WAIT = 0.005
 SERVE_VIRTUAL, SERVE_VIRTUAL_RATE = 512, 20000.0
 SERVE_RATES, SERVE_WALL = (1000.0, 10000.0, 50000.0), 2000
 SERVE_MIN_OCCUPANCY = 2.0
+# The wall-clock leader phase on the 4 ranks: rank 0 serves Poisson
+# streams of DEFAULT_MIX at SERVE_LEADER_RATES for SERVE_LEADER_S seconds
+# each, half of the requests to the banded and half to the general
+# cuda_halo plan, and the other ranks follow.
+SERVE_LEADER_RATES, SERVE_LEADER_S = (25.0, 100.0, 400.0), 3.0
+SERVE_LEADER_OPS = ("banded", "general")
 TRACE_REPLAYS = 3
 # A trace session whose records lack the replayed kernel (CUPTI lost them:
 # an H100 run's session of 3 replays held one device-to-device copy and
@@ -949,9 +968,10 @@ def _sharded_checks(rank: int, world: int,
                          plan_n, kw_a)
     faulted = _fault_checks(rank, world, op, wparts, F)
     serving = _serving_rank(rank, world, op, wparts["banded"], dense)
+    leader = _leader_phase(rank, op, wparts, dense)
     invariants = _invariant_checks(op, plans, gen_plans, wparts)
     return dict(rank=rank, halo_width=h, n_edges=n_edges, paths=rows,
-                wires=wires, faults=faulted, serving=serving,
+                wires=wires, faults=faulted, serving=serving, leader=leader,
                 invariants=invariants,
                 exchange_only_ms_per_round=exchange_ms, profile=profile,
                 general=dict(offsets=list(offsets),
@@ -1010,11 +1030,9 @@ def _serving_rank(rank: int, world: int, op, parts, dense) -> dict:
     rounds and `halo_bytes_per_apply` x BATCH bytes, whose rows equal the
     direct call bit for bit and float64 dense within TOL_PATH; a plan
     under FAULT_ARGS registered beside the clean one never shares its
-    batches, and its labels carry the reference's fault key; a wall-clock
-    engine over the group raises."""
+    batches, and its labels carry the reference's fault key."""
     from repro_torch.dist import FaultSpec, comm
-    from repro_torch.serve import (DEFAULT_BUCKETS, ServeEngine,
-                                   VirtualClock, WallClock)
+    from repro_torch.serve import DEFAULT_BUCKETS, ServeEngine, VirtualClock
 
     dev = torch.device("cuda")
     counters = _graph_counters()
@@ -1051,14 +1069,7 @@ def _serving_rank(rank: int, world: int, op, parts, dense) -> dict:
           f"serving on rank {rank}: served rows differ from the direct call")
     err, rel = rel_err(rows, dense.apply(X.double()))
     check(rel <= TOL_PATH, f"serving on rank {rank}: rel err {rel:.3e}")
-    try:
-        ServeEngine(plan, clock=WallClock())
-        wall = None
-    except ValueError as exc:
-        wall = str(exc)
-    check(wall is not None and "advance_to" in wall,
-          f"serving on rank {rank}: a wall-clock engine over the group must "
-          "raise")
+    check(eng.role == "lockstep", f"serving on rank {rank}: {eng.role}")
     faulty = op.plan("cuda_halo", partition=parts,
                      fault_spec=FaultSpec(**FAULT_ARGS))
     both = ServeEngine({"clean": plan, "faulty": faulty},
@@ -1078,6 +1089,199 @@ def _serving_rank(rank: int, world: int, op, parts, dense) -> dict:
                 total_bytes=st.total_bytes, launches=counts,
                 max_abs_err=err, rel_err=rel, first_ms=first,
                 fault_labels=labels)
+
+
+def _leader_phase(rank: int, op, wparts, dense) -> dict:
+    """The wall-clock leader phase on one rank of the group (every rank
+    calls it together): one `WallClock` engine per rate over the banded
+    and the general cuda_halo plan; rank 0 replays the rate's Poisson
+    stream and the others `follow()`.  After the last rate the launch
+    counts are read; then rank 0 broadcasts the first batch of each
+    (plan, kind, bucket) and the plan and kind of every served batch,
+    every rank runs those batches' entries directly (each call counted
+    alone), and each rank holds its served launches to the sum of the
+    direct calls' over the served batches; rank 0 holds the direct
+    outputs to its served ones bit for bit, each served batch's rounds
+    and bytes to the direct call's (an `apply`: K rounds and the byte
+    model), and every served `apply` row to float64 dense."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import comm
+    from repro_torch.serve import (DEFAULT_BUCKETS, ServeEngine, WallClock,
+                                   poisson_arrivals, signal_for)
+    from repro_torch.serve.loadgen import DEFAULT_MIX
+
+    dev = torch.device("cuda")
+    counters = _graph_counters()
+    plans = {name: op.plan("cuda_halo", partition=wparts[name])
+             for name in SERVE_LEADER_OPS}
+    _, _, method, solve_kw = DEFAULT_MIX[1]
+    t0 = time.perf_counter()
+    for p in plans.values():  # every entry's first call, on every rank
+        p.bucketed_callables(DEFAULT_BUCKETS, solve_specs=[(method,
+                                                            solve_kw)],
+                             warm=True)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    leader = rank == 0
+    first, batches, applied, rates = {}, [], [], {}
+    for k in counters:
+        k.launches = 0
+    for rate in SERVE_LEADER_RATES:
+        eng = ServeEngine(plans, buckets=DEFAULT_BUCKETS,
+                          max_wait=SERVE_MAX_WAIT, clock=WallClock(),
+                          sync_results=True)
+        check(eng.role == ("leader" if leader else "follower"),
+              f"leader phase on rank {rank}: role {eng.role}")
+        if not leader:
+            rates[f"{rate:g}"] = dict(followed=eng.follow())
+            continue
+        orig = eng._callable
+
+        def recording(key, group, _orig=orig):
+            fn = _orig(key, group)
+
+            def run(batch):
+                with comm.counting() as rec:
+                    out = fn(batch)
+                plan = plans[key.op]
+                st = rec.stats(SHARDS, batch.shape[0],
+                               plan.info["exchange_collectives_per_round"])
+                tag = (key.op, key.kind, batch.shape[0])
+                batches.append(dict(tag=tag, rounds=st.exchange_rounds,
+                                    total_bytes=st.total_bytes))
+                if tag not in first:
+                    first[tag] = dict(method=group.method,
+                                      solve_kwargs=group.solve_kwargs,
+                                      batch=batch.clone(), out=out.clone())
+                return out
+
+            return run
+
+        eng._callable = recording
+        events = [dataclasses.replace(
+            ev, op=SERVE_LEADER_OPS[i % len(SERVE_LEADER_OPS)])
+            for i, ev in enumerate(poisson_arrivals(
+                rate, int(rate * SERVE_LEADER_S), seed=SEED))]
+        sigs = torch.from_numpy(np.stack([signal_for(ev, N)
+                                          for ev in events])).to(dev)
+        futs = []
+        start = eng.clock.now()
+        for ev, sig in zip(events, sigs):
+            target = start + ev.t
+            while eng.clock.now() < target:
+                if not eng.poll():
+                    time.sleep(1e-4)
+            futs.append(eng.submit(sig, op=ev.op, kind=ev.kind,
+                                   method=ev.method, **ev.kwargs()))
+        while eng.pending_count:
+            if not eng.poll():
+                time.sleep(1e-4)
+        eng.close()
+        torch.cuda.synchronize()
+        s = eng.metrics.summary()
+        check(s["served_exactly_once"] and s["n_served"] == len(events)
+              and all(f.response.ok for f in futs)
+              and eng.n_broadcasts == s["n_batches"],
+              f"leader at {rate:g}/s: {s}, {eng.n_broadcasts} broadcasts")
+        dispatch_ms = 1e3 * float(np.mean([
+            b.t_complete - b.t_dispatch for b in eng.metrics.batches]))
+        bcast_ms = 1e3 * eng.broadcast_s / eng.n_broadcasts
+        rates[f"{rate:g}"] = dict(
+            summary=s, n_requests=len(events), dispatch_ms=dispatch_ms,
+            broadcast_ms=bcast_ms, broadcast_share=bcast_ms / dispatch_ms,
+            kinds={k: sum(ev.kind == k for ev in events)
+                   for k in ("apply", "solve")})
+        applied += [(sig, f.result()) for ev, sig, f in
+                    zip(events, sigs, futs) if ev.kind == "apply"]
+        del sigs, futs
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in counters if k.launches}
+    # the direct calls, on every rank together
+    box = [None if not leader else dict(
+        tags=[b["tag"] for b in batches],
+        followed={r: v["summary"]["n_batches"] for r, v in rates.items()},
+        first=[dict(tag=t, method=d["method"],
+                    solve_kwargs=d["solve_kwargs"], batch=d["batch"].cpu())
+               for t, d in first.items()])]
+    dist.broadcast_object_list(box, src=0)
+    sent = box[0]
+    if not leader:
+        for r, n in sent["followed"].items():
+            check(rates[r]["followed"] == n,
+                  f"follower rank {rank} at {r}/s ran "
+                  f"{rates[r]['followed']} batches, the leader {n}")
+    direct, bitwise = {}, {}
+    for d in sent["first"]:
+        opname, kind, bucket = d["tag"]
+        plan = plans[opname]
+        fn = (plan.compiled_solve(d["method"], **d["solve_kwargs"])
+              if kind == "solve" else plan.compiled(kind))
+        torch.cuda.synchronize()
+        for k in counters:
+            k.launches = 0
+        with comm.counting() as rec:
+            out = fn(d["batch"].to(dev))
+        torch.cuda.synchronize()
+        st = rec.stats(SHARDS, bucket,
+                       plan.info["exchange_collectives_per_round"])
+        direct[d["tag"]] = dict(
+            rounds=st.exchange_rounds, total_bytes=st.total_bytes,
+            launches={k.__name__: k.launches for k in counters
+                      if k.launches})
+        if leader:
+            bitwise[d["tag"]] = bool(torch.equal(out, first[d["tag"]]["out"]))
+    want = {}
+    for tag in sent["tags"]:
+        for k, v in direct[tag]["launches"].items():
+            want[k] = want.get(k, 0) + v
+    check(launches == want, f"leader phase on rank {rank}: served launches "
+          f"{launches}, the direct calls' {want}")
+    kinds = {(t[0], t[1]) for t in sent["tags"]}
+    for opname in SERVE_LEADER_OPS:
+        need = {"sliced_ell_spmv", "cheb_step", "jacobi_step"}
+        if plans[opname].info.get("coupling_launches_per_round"):
+            need.add("sliced_ell_spmv_accumulate")
+        got = set()
+        for kind in ("apply", "solve"):
+            if (opname, kind) in kinds:
+                got |= {k for t, d in direct.items()
+                        if t[:2] == (opname, kind) for k in d["launches"]}
+        check(need <= got, f"leader phase on rank {rank}: {opname} "
+              f"launched {sorted(got)}, needs {sorted(need)}")
+    out = dict(warm_s=warm_s, launches=launches, rates=rates,
+               n_batches=len(sent["tags"]))
+    if not leader:
+        return out
+    check(all(bitwise.values()), f"leader phase: first batches differ from "
+          f"the direct calls: {bitwise}")
+    for b in batches:
+        opname, kind, bucket = b["tag"]
+        d = direct[b["tag"]]
+        check(b["rounds"] == d["rounds"]
+              and b["total_bytes"] == d["total_bytes"],
+              f"leader phase {b['tag']}: counted {b}, direct {d}")
+        if kind == "apply":
+            check(b["rounds"] == K and b["total_bytes"] == bucket
+                  * plans[opname].info["halo_bytes_per_apply"],
+                  f"leader phase {b['tag']}: {b} against K = {K} and the "
+                  "byte model")
+    err = ref_max = 0.0
+    for c in range(0, len(applied), BATCH):
+        part = applied[c:c + BATCH]
+        ref = dense.apply(torch.stack([x for x, _ in part]).double())
+        got = torch.stack([y for _, y in part]).double()
+        check(bool(torch.isfinite(got).all()), "leader phase: non-finite")
+        err = max(err, float((got - ref).abs().max()))
+        ref_max = max(ref_max, float(ref.abs().max()))
+    rel = err / max(ref_max, 1e-30)
+    check(rel <= TOL_PATH, f"leader phase: served apply rows rel err "
+          f"{rel:.3e} against float64 dense")
+    out.update(bitwise=len(bitwise), max_abs_err=err, rel_err=rel,
+               applied=len(applied),
+               direct={f"{t[0]}:{t[1]}:{t[2]}": v for t, v in
+                       direct.items()})
+    return out
 
 
 def _serving_phase(plan, dense, smi: str):
@@ -3975,6 +4179,24 @@ def _subquadratic_check(arch: str) -> dict:
                 share=total / full_kv)
 
 
+def _serve_lm_example() -> list:
+    """`python -m repro_torch.examples.serve_lm` on the card, in this
+    process (the JAX example's arguments): exit 0 and the launcher's
+    three ``[serve]`` lines, which it returns."""
+    import contextlib
+    import io
+
+    from repro_torch.examples import serve_lm
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = serve_lm.main([])
+    lines = [l for l in buf.getvalue().splitlines() if l.startswith("[serve]")]
+    check(rc == 0 and len(lines) == 3,
+          f"examples.serve_lm: exit {rc}, output {buf.getvalue()!r}")
+    return lines
+
+
 def _families_phase(run_path, path_rows: list, flash_rows: dict,
                     smi: str) -> list:
     """Phase 16: the flash kernel at the families' layer shapes, then each
@@ -5085,6 +5307,37 @@ def main(argv=None) -> int:
           f"{max(r['first_ms'] for r in srv):.1f} ms max over ranks")
     path_rows.append(dict(name="serving over cuda_halo", label=SHARD_LABEL,
                           ranks=srv))
+    # the wall-clock leader over the banded and general cuda_halo plans
+    lead = [r["leader"] for r in ranks]
+    for r in lead:
+        for k, v in r["launches"].items():
+            path_launches[k] += v
+            sharded_launches[k] += v
+    l0 = lead[0]
+    for rate, row in l0["rates"].items():
+        s = row["summary"]
+        print(f"serving, wall-clock leader over cuda_halo banded + general "
+              f"[{SHARD_LABEL}] at {rate} requests/s for "
+              f"{SERVE_LEADER_S:g} s ({row['n_requests']} requests, "
+              f"{row['kinds']}): p50 {s['latency_ms']['p50']:.3f} ms, p99 "
+              f"{s['latency_ms']['p99']:.3f} ms, "
+              f"{s['signals_per_sec']:.1f} signals/s, mean occupancy "
+              f"{s['mean_batch_occupancy']:.2f}, padding waste "
+              f"{s['padding_waste']:.3f}, {s['n_batches']} batches; "
+              f"dispatch {row['dispatch_ms']:.3f} ms, broadcast "
+              f"{row['broadcast_ms']:.3f} ms host per dispatch "
+              f"({100 * row['broadcast_share']:.2f}% of a dispatch); "
+              f"followers ran "
+              f"{[r['rates'][rate]['followed'] for r in lead[1:]]} ({smi})")
+    print(f"serving, wall-clock leader [{SHARD_LABEL}]: {l0['n_batches']} "
+          f"batches in all, {l0['bitwise']} first batches per (plan, kind, "
+          f"bucket) bit for bit the direct calls on every rank, "
+          f"{l0['applied']} apply rows rel err {l0['rel_err']:.3e} (tol "
+          f"{TOL_PATH}) against float64 dense; launches per rank "
+          f"{[r['launches'] for r in lead]}; warm-up "
+          f"{max(r['warm_s'] for r in lead):.1f} s")
+    path_rows.append(dict(name="serving, wall-clock leader over cuda_halo",
+                          label=SHARD_LABEL, ranks=lead))
     # the compressed wires, the faults and gossip (phases 2-5)
     exchange_launches, gossip_step = _report_exchange_phases(
         ranks, smi, path_rows, names)
@@ -5211,6 +5464,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     path_rows.extend(_families_phase(run_path, path_rows, flash_rows, smi))
     print(f"lm families phase: {time.perf_counter() - t0:.1f} s")
+    # -- the LM serving example, as a user runs it ---------------------------
+    lines, _ = run_path("examples.serve_lm (hymba-1.5b --smoke, B 4, "
+                        "16 + 24)", _serve_lm_example, steady_iters=0)
+    for line in lines:
+        print(f"examples.serve_lm: {line} ({smi})")
 
     print(f"path launches (all counted runs): {path_launches}; bf16 sweep "
           f"paths: {bf16_launches}; of these, the sharded paths "

@@ -1,10 +1,11 @@
 """Static and run-time analysis of the port: the invariant checks and the
 lint (the JAX package's `repro.analysis`, restated for PyTorch).
 
-Two layers guard the invariants the port's slices settled (the K-round,
+Three layers guard the invariants the port's slices settled (the K-round,
 2K|E| exchange schedule at every batch size, faults that add no rounds,
 sweeps under their L2 model, f32 hot paths without float64 or TF32,
-logged fallbacks, the fenced-off LM scaffold, no JAX):
+logged fallbacks, the fenced-off LM scaffold, no JAX, a README that
+names every backend and solve method):
 
 * :mod:`repro_torch.analysis.checks` — run-time checks over eager plan
   calls, reading the exchange events of `dist.comm.counting`, the sweep
@@ -12,6 +13,10 @@ logged fallbacks, the fenced-off LM scaffold, no JAX):
   `TorchDispatchMode`.  Rule IDs ``RT-*``.
 * :mod:`repro_torch.analysis.astlint` — stdlib AST lint over
   `src/repro_torch` and `chip_smoke.py`.  Rule IDs ``RP-*``.
+* :mod:`repro_torch.analysis.docs` — stdlib checks that the README's
+  port section names every backend and solve method and that its links
+  resolve, and that git tracks no bytecode.  Rule IDs ``DOC-*`` and
+  ``RP-TRACKED-BYTECODE``.
 
 Findings (:class:`Finding`) carry file:line, a stable rule ID and the
 enclosing symbol; :class:`Allowlist` (`lint_allowlist.txt` beside this
@@ -25,10 +30,11 @@ from .checks import (DTYPE_MIXED_OK, RUNTIME_RULES, check_batch_schedule,
                      check_dtype_discipline, check_fault_schedule,
                      check_l2_budget, check_plan, collective_schedule,
                      exchange_schedule, perm_problems, record_call)
+from .docs import DOCS_RULES, docs_findings
 from .findings import (AllowEntry, Allowlist, AllowlistError, Finding,
                        ScaffoldEntry)
 
-ALL_RULES = RUNTIME_RULES + AST_RULES
+ALL_RULES = RUNTIME_RULES + AST_RULES + DOCS_RULES
 
 __all__ = [
     "ALL_RULES",
@@ -36,6 +42,7 @@ __all__ = [
     "AllowEntry",
     "Allowlist",
     "AllowlistError",
+    "DOCS_RULES",
     "DTYPE_MIXED_OK",
     "Finding",
     "RUNTIME_RULES",
@@ -48,6 +55,7 @@ __all__ = [
     "check_l2_budget",
     "check_plan",
     "collective_schedule",
+    "docs_findings",
     "exchange_schedule",
     "lint_file",
     "lint_source",

@@ -1,9 +1,12 @@
 """The port's lint entry point: ``python -m repro_torch.analysis``.
 
-Runs up to two layers and applies `lint_allowlist.txt` beside this file:
+Runs up to three layers and applies `lint_allowlist.txt` beside this file:
 
 * ``ast``     — the AST rules of :mod:`repro_torch.analysis.astlint`
   (``RP-*``) over `src/repro_torch` and `chip_smoke.py`;
+* ``docs``    — the checks of :mod:`repro_torch.analysis.docs`
+  (``DOC-*`` and ``RP-TRACKED-BYTECODE``) over the README and the git
+  index;
 * ``runtime`` — the run-time checks of :mod:`repro_torch.analysis.checks`
   (``RT-*``) over every registered backend on a bandwidth-1 path graph
   (n 64, K 10, J 2, the JAX package's lint operator), at B = 1 and 64,
@@ -18,7 +21,7 @@ allowlist entries (of a layer that ran, matching nothing) are reported as
 warnings.  The runtime layer builds its plans on the card (every rank on
 ``cuda:<rank % device_count>``) unless ``--device cpu`` asks for the CPU;
 without a card it stops with an error.  The ``ast`` layer needs no
-device.
+device; neither does ``docs``.  The default runs all three.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ from typing import List
 
 from .astlint import AST_RULES, lint_tree
 from .checks import RUNTIME_RULES, check_fault_schedule, check_plan
+from .docs import DOCS_RULES, docs_findings
 from .findings import Allowlist, AllowlistError, Finding
 
 ROOT = Path(__file__).resolve().parents[3]
@@ -172,12 +176,13 @@ def spawn_runtime(world: int, device=None) -> List[Finding]:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m repro_torch.analysis",
-        description="the port's lint: AST rules and run-time invariant "
-                    "checks")
+        description="the port's lint: AST rules, docs checks and "
+                    "run-time invariant checks")
     parser.add_argument("--check", action="store_true",
                         help="exit nonzero on findings not allowlisted")
-    parser.add_argument("--layers", default="ast,runtime",
-                        help="comma-set of ast|runtime (default: both)")
+    parser.add_argument("--layers", default="ast,docs,runtime",
+                        help="comma-set of ast|docs|runtime (default: "
+                             "all three)")
     parser.add_argument("--ranks", default="1",
                         help="comma-list of rank counts for the runtime "
                              "layer; counts > 1 spawn gloo ranks "
@@ -188,7 +193,7 @@ def main(argv=None) -> int:
     parser.add_argument("--allowlist", default=str(ALLOWLIST))
     args = parser.parse_args(argv)
     layers = [l.strip() for l in args.layers.split(",") if l.strip()]
-    unknown = set(layers) - {"ast", "runtime"}
+    unknown = set(layers) - {"ast", "docs", "runtime"}
     if unknown:
         parser.error(f"unknown layers: {sorted(unknown)}")
     os.chdir(ROOT)
@@ -212,6 +217,9 @@ def main(argv=None) -> int:
     if "ast" in layers:
         findings += ast_findings(allowlist)
         rules += AST_RULES
+    if "docs" in layers:
+        findings += docs_findings(str(ROOT))
+        rules += DOCS_RULES
     if "runtime" in layers:
         rules += RUNTIME_RULES
         for world in ranks:

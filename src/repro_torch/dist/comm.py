@@ -27,6 +27,12 @@ goes through this module, which tallies what really ran while a
   package's measurement never sees, so it is tallied apart (``assembly``,
   with its own host time) and kept out of the rounds and the byte counts.
 
+Two more calls carry the serving engine's control, not a plan's data:
+:func:`broadcast_dispatch` (rank 0 of a group sends one batch's header
+and its packed signals to the other ranks) and :func:`receive_dispatch`
+(they take it).  They are not exchange rounds: nothing counts them, and
+the engine times them itself (`repro_torch.serve.engine`).
+
 Transport: with an NCCL group tensors go card to card.  Gloo sends and
 receives only host tensors, so with a gloo group and CUDA tensors every
 tile is copied to pinned host memory and back, explicitly and on every
@@ -290,7 +296,7 @@ def _peer(group, group_rank: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# The three communication calls
+# The three communication calls, and the serving engine's two
 # ---------------------------------------------------------------------------
 class PendingExchange:
     """A posted exchange round; :meth:`wait` returns the received tiles,
@@ -378,6 +384,46 @@ def assemble(y: Tensor, group: Optional[dist.ProcessGroup]) -> Tensor:
     _record("assembly", y, group=group)
     _timed("assembly_s", t0)
     return out
+
+
+def _src(group: dist.ProcessGroup) -> int:
+    return _peer(group, 0)
+
+
+def broadcast_dispatch(header: Dict[str, Any], batch: Optional[Tensor],
+                       group: dist.ProcessGroup) -> None:
+    """On group rank 0: send `header` (a picklable dict) and then
+    `batch` to every other rank of `group`; ``batch=None`` sends the
+    header alone (a stop).  The header goes through
+    ``broadcast_object_list`` with the batch's shape and dtype added; the
+    batch is host-staged on a gloo group with a CUDA batch, sent card to
+    card on NCCL."""
+    if batch is not None:
+        header = dict(header, shape=tuple(batch.shape), dtype=batch.dtype)
+    dist.broadcast_object_list([header], src=_src(group), group=group)
+    if batch is not None:
+        buf = _host(batch)[0] if _staged(group, batch) else \
+            batch.contiguous()
+        dist.broadcast(buf, src=_src(group), group=group)
+
+
+def receive_dispatch(group: dist.ProcessGroup, device: torch.device
+                     ) -> Tuple[Dict[str, Any], Optional[Tensor]]:
+    """On every other rank of `group`: the next (header, batch) that
+    rank 0 sent with :func:`broadcast_dispatch`, the batch on `device`
+    (None when the header came alone)."""
+    box: List[Any] = [None]
+    dist.broadcast_object_list(box, src=_src(group), group=group)
+    header = box[0]
+    if "shape" not in header:
+        return header, None
+    staged = (torch.device(device).type == "cuda"
+              and str(dist.get_backend(group)) == "gloo")
+    buf = torch.empty(header["shape"], dtype=header["dtype"],
+                      pin_memory=staged,
+                      device=None if staged else device)
+    dist.broadcast(buf, src=_src(group), group=group)
+    return header, buf.to(device, non_blocking=True)
 
 
 # ---------------------------------------------------------------------------

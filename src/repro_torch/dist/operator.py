@@ -91,6 +91,9 @@ class ExecutionPlan:
     info: Dict[str, Any] = dataclasses.field(default_factory=dict)
     solve_lasso_fn: Optional[Callable] = None
     matvec_runner: Optional[Callable] = None
+    #: the `torch.distributed` group a sharded plan exchanges over; None
+    #: on one shard (what `repro_torch.serve` broadcasts a batch over)
+    group: Any = None
 
     # mirrored operator metadata -------------------------------------------
     @property

@@ -331,4 +331,5 @@ def sharded_plan(op, backend: str, mv, *, group, rank: int, nl: int,
     return ExecutionPlan(
         op=op, backend=backend, device=device,
         apply=apply, apply_adjoint=apply_adjoint, apply_gram=apply_gram,
-        solve_lasso_fn=solve_lasso, matvec_runner=matvec_runner, info=info)
+        solve_lasso_fn=solve_lasso, matvec_runner=matvec_runner, info=info,
+        group=group)

@@ -7,12 +7,18 @@
   piecewise-smooth field (Algorithm 3), on one device or sharded over
   gloo ranks;
 * `semi_supervised` — Section III-D: label propagation on a two-cluster
-  graph with four RKHS kernels.
+  graph with four RKHS kernels;
+* `serve_lm` and `train_lm` — the LM scaffold: batched KV-cache serving
+  of a reduced hymba-1.5b, and training of a reduced deepseek-7b with
+  checkpoints, ``--gossip`` averaging its gradients by the paper's
+  Algorithm 1 on 4 gloo ranks.
 
 The counterparts of the JAX package's `examples/` scripts.  Each runs on
-the card by default and takes ``--device cpu``; each `main` returns what
-it printed, and each `run` takes its inputs explicitly, so that the same
-numpy inputs can go through the JAX package's functions.
+the card by default and takes ``--device cpu``.  The graph examples'
+`main` returns what it printed and their `run` takes its inputs
+explicitly, so that the same numpy inputs can go through the JAX
+package's functions; the LM examples' `main` returns the launcher's exit
+code, and `launcher_argv` gives the arguments they pass it.
 """
 from __future__ import annotations
 

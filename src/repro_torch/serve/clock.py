@@ -16,7 +16,10 @@ a ``Clock`` passed at construction, so the same engine runs under:
 
 Anything with a ``now() -> float`` (seconds) method satisfies the
 protocol; only virtual-style clocks need ``advance_to`` (required by
-:meth:`repro_torch.serve.engine.ServeEngine.run_until_idle`).
+:meth:`repro_torch.serve.engine.ServeEngine.run_until_idle`).  Over a
+plan of more than one rank the clock also picks the engine's mode: with
+``advance_to`` every rank's engine batches alike in lockstep; without,
+rank 0 leads and the other ranks follow (`repro_torch.serve.engine`).
 """
 from __future__ import annotations
 

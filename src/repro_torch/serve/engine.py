@@ -28,24 +28,50 @@ Time comes exclusively from the injected :mod:`~repro_torch.serve.clock`:
 virtual in tests (every decision reproducible without sleeping), wall in
 production loops and ``chip_smoke.py``'s wall-clock replays.
 
-One deliberate difference from the JAX engine: the JAX package is one
-controller program over all shards, while a sharded plan of the port
-runs one process per rank, each with its own engine.  Every rank's
-engine must make the same batching decisions, or the ranks post
-different exchanges and hang; so an engine over a plan that spans more
-than one rank takes only a clock with ``advance_to`` (a virtual clock
-that every rank drives alike) and raises ValueError at construction on
-any other.
+**Plans over more than one rank.**  The JAX package is one
+controller program over all shards; a sharded plan of the port runs one
+process per rank, each with its own engine, and every rank must run the
+same batches in the same order, or the ranks post different exchanges
+and hang.  The clock decides how they agree:
+
+* **lockstep** — a clock with ``advance_to`` (a :class:`VirtualClock`
+  that every rank drives the same way): every rank submits the same
+  requests and its own engine makes the same decisions.
+* **leader and followers** — any other clock (:class:`WallClock` by
+  default).  Rank 0 of the plans' group is the leader: the only rank
+  that takes :meth:`submit`, :meth:`poll` and :meth:`flush`, and the
+  owner of the queues, the clock, the metrics and the futures.  At each
+  dispatch, once expiry and packing have succeeded, it broadcasts one
+  header (op, kind, method, solve kwargs, bucket, occupancy) and the
+  packed batch over the group (`dist.comm.broadcast_dispatch`), then
+  calls the entry as every rank does.  Every other rank is a follower
+  and calls :meth:`follow`, which runs the same entry on each batch it
+  receives, drops the output (a sharded plan returns the global result
+  on every rank, so the leader's output is what it serves) and returns
+  the number of batches it ran once the leader calls :meth:`close`.
+  The scheduling policy above stays the leader's alone; a dispatch on a
+  one-rank plan is not broadcast.  The broadcasts are not exchange
+  rounds: `dist.comm.counting` counts a served batch's K rounds and
+  byte model as in lockstep.  A follower logs an exception of its own
+  entry and goes on with the next header; recovering a group whose
+  exchange broke off (a rank gone mid-round) is out of scope.
+
+All of an engine's multi-rank plans share one group (else construction
+raises ValueError), and in either mode every rank calls :meth:`warm`
+together when it is called at all.
 """
 from __future__ import annotations
 
 import itertools
 import logging
+import time
 from collections import OrderedDict, deque
 from typing import Any, Deque, Dict, Mapping, Optional
 
 import torch
+import torch.distributed as dist
 
+from ..dist import comm
 from .batching import bucket_for, pack_batch, unpack_batch
 from .clock import WallClock
 from .metrics import BatchRecord, LatencyAccounter
@@ -68,6 +94,21 @@ class _Group:
         self.solve_kwargs = dict(solve_kwargs or {})
 
 
+def _serving_group(plans: Mapping[str, Any]):
+    """The one process group of the multi-rank plans among `plans` (None
+    if there is none); raises ValueError if they span two groups."""
+    groups = []
+    for p in plans.values():
+        g = getattr(p, "group", None)
+        if g is not None and all(g is not h for h in groups):
+            groups.append(g)
+    if len(groups) > 1:
+        raise ValueError(
+            f"the multi-rank plans of one engine must share one process "
+            f"group; these span {len(groups)}")
+    return groups[0] if groups else None
+
+
 class ServeEngine:
     """Coalesces compatible requests onto shared bucketed launches.
 
@@ -76,8 +117,10 @@ class ServeEngine:
     single-plan form registers under ``"default"``).  buckets: the
     batch sizes the entries serve (sorted, deduped).  max_wait: seconds a
     request may queue before a deadline flush.  clock: any ``now()``
-    provider (default :class:`WallClock`; a plan over more than one rank
-    needs one with ``advance_to``).  sync_results=True waits on each
+    provider (default :class:`WallClock`; over a plan of more than one
+    rank it picks lockstep or leader and followers, see the module
+    docstring, and `role` says which: ``"single"``, ``"lockstep"``,
+    ``"leader"`` or ``"follower"``).  sync_results=True waits on each
     dispatched batch's output stream so ``t_complete`` is an honest
     latency sample (the one deliberate host sync, at the queue boundary:
     the counterpart of ``jax.block_until_ready``); False leaves results
@@ -126,19 +169,32 @@ class ServeEngine:
         self.max_queue_depth = (int(max_queue_depth)
                                 if max_queue_depth is not None else None)
         self.clock = clock if clock is not None else WallClock()
-        if (getattr(self.clock, "advance_to", None) is None
-                and any(int(p.info.get("n_shards", 1)) > 1
-                        for p in self.plans.values())):
-            raise ValueError(
-                "a plan over more than one rank is served by one engine per "
-                "rank, and the ranks must batch alike: pass a clock with "
-                "advance_to() (VirtualClock) that every rank drives the "
-                f"same way, not {type(self.clock).__name__}")
+        self.group = _serving_group(self.plans)
+        if self.group is None:
+            self.role = "single"
+        elif getattr(self.clock, "advance_to", None) is not None:
+            self.role = "lockstep"
+        else:
+            self.role = ("leader" if dist.get_rank(self.group) == 0
+                         else "follower")
         self.sync_results = bool(sync_results)
         self.metrics = accounter if accounter is not None \
             else LatencyAccounter()
         self._groups: "OrderedDict[CompatKey, _Group]" = OrderedDict()
         self._ids = itertools.count()
+        self._closed = False
+        #: the leader's broadcasts: how many, and their host seconds
+        self.n_broadcasts = 0
+        self.broadcast_s = 0.0
+
+    def _serves(self, call: str) -> None:
+        if self.role == "follower":
+            raise RuntimeError(
+                f"{call}() on rank {dist.get_rank(self.group)} of the "
+                "plans' group: rank 0 serves under a clock without "
+                "advance_to(); this rank calls follow()")
+        if self._closed:
+            raise RuntimeError(f"{call}() on a closed engine")
 
     # -- admission -----------------------------------------------------------
     def submit(self, signal, *, op: str = "default", kind: str = "apply",
@@ -157,6 +213,7 @@ class ServeEngine:
         Response.  At a full queue (``max_queue_depth``) the returned
         future is already resolved with a ``"rejected"`` error Response.
         """
+        self._serves("submit")
         if op not in self.plans:
             raise KeyError(
                 f"unknown operator {op!r}; registered: "
@@ -265,6 +322,7 @@ class ServeEngine:
         across keys), each in largest-bucket chunks.  Queued requests
         whose per-request deadline has passed are answered with an
         ``"expired"`` error Response first — they never ride a batch."""
+        self._serves("poll")
         now = self.clock.now()
         self._sweep_expired(now)
         # dueness is `now >= arrival + max_wait` — the SAME float
@@ -284,6 +342,7 @@ class ServeEngine:
 
     def flush(self) -> int:
         """Dispatch everything pending regardless of deadlines."""
+        self._serves("flush")
         served = 0
         for key in list(self._groups):
             group = self._groups[key]
@@ -310,6 +369,60 @@ class ServeEngine:
             served += self.poll()
         raise RuntimeError(
             f"run_until_idle did not drain in {max_steps} steps")
+
+    # -- leader and followers ------------------------------------------------
+    def follow(self) -> int:
+        """A follower's loop: run every batch the leader broadcasts, in
+        order, through the same entry, until the leader's :meth:`close`;
+        returns the number of batches run.  An exception of an entry is
+        logged and the loop goes on with the next header."""
+        if self.role != "follower":
+            raise RuntimeError(
+                f"follow() is for the ranks other than 0 of a multi-rank "
+                f"group under a clock without advance_to(); this engine "
+                f"is {self.role!r}")
+        ran = 0
+        device = next(p.device for p in self.plans.values()
+                      if p.group is not None)
+        while True:
+            header, batch = comm.receive_dispatch(self.group, device)
+            if batch is None:
+                return ran
+            ran += 1
+            op, kind = header["op"], header["kind"]
+            try:
+                key = compat_key(op, self.plans[op], kind,
+                                 header["method"], header["solve_kwargs"])
+                self._callable(key, _Group(header["method"],
+                                           header["solve_kwargs"]))(batch)
+            except Exception:  # noqa: BLE001 — contained by design
+                logger.exception(
+                    "follower rank %d: batch %d (%s:%s, bucket=%d) failed; "
+                    "waiting for the next header",
+                    dist.get_rank(self.group), ran, op, kind,
+                    header["bucket"])
+
+    def close(self) -> int:
+        """On the leader: dispatch what is still queued, then send the
+        followers the stop that ends their :meth:`follow`; returns the
+        number of requests the last flush answered.  Later calls do
+        nothing; so does close() on any other engine."""
+        if self.role != "leader" or self._closed:
+            return 0
+        served = self.flush()
+        self._closed = True
+        comm.broadcast_dispatch({"stop": True}, None, self.group)
+        return served
+
+    def _broadcast(self, key: CompatKey, group: _Group, bucket: int,
+                   n_valid: int, batch) -> None:
+        t0 = time.perf_counter()
+        comm.broadcast_dispatch(
+            {"op": key.op, "kind": key.kind, "method": group.method,
+             "solve_kwargs": group.solve_kwargs, "bucket": bucket,
+             "n_valid": n_valid}, batch, self.group)
+        self.broadcast_s += time.perf_counter() - t0
+        self.n_broadcasts += 1
 
     # -- dispatch ------------------------------------------------------------
     def _callable(self, key: CompatKey, group: _Group):
@@ -346,6 +459,9 @@ class ServeEngine:
                                     device=self.plans[key.op].device)
         t_dispatch = now
         try:
+            if (self.role == "leader"
+                    and self.plans[key.op].group is not None):
+                self._broadcast(key, group, bucket, n_valid, batch)
             fn = self._callable(key, group)
             out = fn(batch)
             if self.sync_results and out.is_cuda:

@@ -10,8 +10,16 @@ order.  Tolerances are those of the reference's own tests of the
 functions: 1e-5 relative for the Chebyshev applies and the solves, atol
 1e-4 for the lasso (tests/test_batched.py:150) and for the SSL scores,
 accuracies equal.  The sharded mains spawn 2 gloo ranks at n = 120 and
-are held against the single-process run on the same inputs.
+are held against the single-process run on the same inputs.  The two LM
+examples pass their launchers the JAX examples' arguments (read by
+running each JAX script with its launcher's `main` replaced by a
+recorder) and run to exit 0 at --device cpu.
 """
+import importlib.util
+import os
+import sys
+import tempfile
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,7 +33,7 @@ from repro.core import wavelets as jwav
 from repro.core.multiplier import graph_multiplier as jgraph_multiplier
 from repro.dist import GraphOperator as JOp
 from repro_torch.examples import distributed_lasso, quickstart
-from repro_torch.examples import semi_supervised
+from repro_torch.examples import semi_supervised, serve_lm, train_lm
 
 TOL_APPLY = 1e-5
 TOL_LASSO = 1e-4
@@ -179,3 +187,72 @@ def test_semi_supervised_matches_jax_example():
         assert r["accuracy"] == pytest.approx(jssl.accuracy(
             want, jnp.asarray(labels), jnp.asarray(x["mask"]))), name
     assert got["tikhonov L_norm  (S = L_norm)"]["accuracy"] > 0.9
+
+
+# ---------------------------------------------------------------------------
+# The LM examples: the JAX scripts' launcher arguments, and a run each
+# ---------------------------------------------------------------------------
+EXAMPLES = os.path.join(os.path.dirname(__file__), "..", "examples")
+
+
+def _jax_example_argv(name, monkeypatch, *cli):
+    """The argv examples/<name>.py passes its launcher's `main`, read by
+    running the script with that `main` replaced by a recorder (and, for
+    ``--gossip``, four devices reported by `jax.devices`)."""
+    import jax
+
+    from repro.launch import serve as jserve
+    from repro.launch import train as jtrain
+
+    seen = []
+    launcher = {"serve_lm": jserve, "train_lm": jtrain}[name]
+    monkeypatch.setattr(launcher, "main",
+                        lambda argv: seen.append(list(argv)) or 0)
+    monkeypatch.setattr(jax, "devices", lambda *a, **k: [None] * 4)
+    monkeypatch.setattr(sys, "argv", [f"{name}.py", *cli])
+    monkeypatch.setattr(sys, "path", list(sys.path))
+    spec = importlib.util.spec_from_file_location(
+        f"_jax_example_{name}", os.path.join(EXAMPLES, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    with pytest.raises(SystemExit) as stop:
+        mod.main()
+    assert stop.value.code == 0 and len(seen) == 1
+    return seen[0]
+
+
+def test_serve_lm_argv_equals_jax_example(monkeypatch):
+    want = _jax_example_argv("serve_lm", monkeypatch)
+    assert serve_lm.launcher_argv() == want
+    assert serve_lm.launcher_argv("cpu") == want + ["--device", "cpu"]
+
+
+@pytest.mark.parametrize("gossip", [False, True], ids=["plain", "gossip"])
+def test_train_lm_argv_equals_jax_example(monkeypatch, gossip):
+    """The JAX example's arguments (its ``--gossip`` on four devices is
+    the port's 4 gloo ranks); the checkpoints go to the temporary
+    directory, /tmp where TMPDIR is unset, as the JAX example's."""
+    cli = ["--steps", "7"] + (["--gossip"] if gossip else [])
+    want = _jax_example_argv("train_lm", monkeypatch, *cli)
+    got = train_lm.launcher_argv(7, gossip, ckpt_dir="/tmp/repro_train_lm")
+    assert got == want
+    default = train_lm.launcher_argv(7, gossip)
+    i = default.index("--ckpt-dir") + 1
+    assert default[i] == os.path.join(tempfile.gettempdir(),
+                                      "repro_train_lm")
+    assert default[:i] + default[i + 1:] == want[:i] + want[i + 1:]
+
+
+def test_serve_lm_runs_on_cpu(capsys):
+    assert serve_lm.main(["--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "[serve] batch=4 prompt=16 gen=24" in out, out
+
+
+@pytest.mark.parametrize("gossip", [False, True], ids=["plain", "gossip"])
+def test_train_lm_runs_on_cpu(tmp_path, capsys, gossip):
+    """Two steps (``--gossip``: on 4 gloo ranks spawned by the launcher)
+    to exit 0, the final checkpoint written."""
+    argv = ["--device", "cpu", "--steps", "2", "--ckpt-dir", str(tmp_path)]
+    assert train_lm.main(argv + (["--gossip"] if gossip else [])) == 0
+    assert "step_00000002" in os.listdir(tmp_path)

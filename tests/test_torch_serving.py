@@ -25,7 +25,14 @@ JAX package's (`repro.serve`).
    B = 32; its rows equal the rank's direct ``compiled("apply")`` call
    bit for bit and the JAX dense plan within 1e-4 (the reference backend
    test's tolerance); a faulted plan registered beside the clean one never
-   coalesces with it; a wall-clock engine over the group raises.
+   coalesces with it.  Under a clock without ``advance_to`` rank 0 leads
+   and the others follow: a `WallClock` leader serves B = 32 submits
+   once; under a scripted clock the leader's batch records and summary
+   for a seeded Poisson stream are the JAX engine's over the JAX dense
+   plan, every served batch equals the direct call on every rank bit for
+   bit with the same counted exchange, and every follower runs the
+   leader's batch count; a follower's submit raises, and plans over two
+   groups cannot share an engine.
 
 The JAX package is imported inside the fixtures and tests only: the
 spawned ranks import this module to find their entry point.
@@ -755,8 +762,148 @@ def test_compat_labels_equal_reference(spec):
 # ---------------------------------------------------------------------------
 # 8 gloo ranks: the engine realizes the batch amortization on the port
 # ---------------------------------------------------------------------------
+LEAD_STREAM = dict(rate=700.0, n_requests=40, seed=11)
+LEAD_BUCKETS = (1, 4, 8)
+
+
+class ScriptedClock:
+    """A clock with ``now()`` and no ``advance_to``: the replay sets `t`.
+    Over a multi-rank plan the engine then leads (rank 0) or follows."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def now(self) -> float:
+        return self.t
+
+
+def replay_scripted(engine, clock, events, n, signal_fn):
+    """`replay_virtual`'s schedule under a :class:`ScriptedClock`: hop to
+    each due deadline before the next arrival, submit, then drain by
+    deadlines; {event index: future}.  Either package's engine."""
+    def drain(until):
+        due = engine.next_deadline()
+        while due is not None and due <= until:
+            clock.t = max(clock.t, due)
+            engine.poll()
+            due = engine.next_deadline()
+
+    futures = {}
+    for i, ev in enumerate(events):
+        drain(ev.t)
+        clock.t = max(clock.t, ev.t)
+        engine.poll()
+        futures[i] = engine.submit(signal_fn(ev, n), op=ev.op, kind=ev.kind,
+                                   method=ev.method, **ev.kwargs())
+    drain(float("inf"))
+    return futures
+
+
+def _direct_entry(plan, kind, method, solve_kwargs):
+    if kind == "solve":
+        return plan.compiled_solve(method, **solve_kwargs)
+    return plan.compiled(kind)
+
+
+def _leader_case(rank, plan, n, per_round):
+    """The scripted-clock leader (rank 0) or a follower over `plan`; then
+    every batch the leader served run again directly on every rank, its
+    output and its counted exchange held against the served one."""
+    eng = ServeEngine(plan, buckets=LEAD_BUCKETS, max_wait=MAX_WAIT,
+                      clock=ScriptedClock(), sync_results=False)
+    out = {"role": eng.role}
+    if eng.role == "leader":
+        saved, orig = [], eng._callable
+
+        def recording(key, group):
+            fn = orig(key, group)
+
+            def run(batch):
+                with comm.counting() as rec:
+                    y = fn(batch)
+                st_ = rec.stats(WORLD, batch.shape[0], per_round)
+                saved.append(dict(kind=key.kind, method=group.method,
+                                  solve_kwargs=group.solve_kwargs,
+                                  batch=batch.clone(), out=y.clone(),
+                                  rounds=st_.exchange_rounds,
+                                  total_bytes=st_.total_bytes))
+                return y
+
+            return run
+
+        eng._callable = recording
+        futs = replay_scripted(eng, eng.clock,
+                               poisson_arrivals(**LEAD_STREAM), n,
+                               signal_for)
+        eng.close()
+        try:
+            eng.follow()
+        except RuntimeError as exc:
+            out["leader_follow"] = str(exc)
+        try:
+            eng.run_until_idle()
+        except TypeError as exc:
+            out["leader_run_until_idle"] = str(exc)
+        out.update(records=_records(eng), summary=eng.metrics.summary(),
+                   n_batches=len(eng.metrics.batches),
+                   n_broadcasts=eng.n_broadcasts,
+                   values={i: f.result() for i, f in futs.items()})
+        calls = [{k: v for k, v in d.items() if k != "out"} for d in saved]
+    else:
+        with comm.counting() as rec:
+            out["followed"] = eng.follow()
+        out["follower_rounds"] = rec.stats(WORLD, 1,
+                                           per_round).exchange_rounds
+        calls = None
+    box = [calls]
+    dist.broadcast_object_list(box, src=0)
+    bitwise, counts = [], []
+    for i, d in enumerate(box[0]):
+        fn = _direct_entry(plan, d["kind"], d["method"], d["solve_kwargs"])
+        with comm.counting() as rec:
+            y = fn(d["batch"])
+        st_ = rec.stats(WORLD, d["batch"].shape[0], per_round)
+        if rank == 0:
+            s = saved[i]
+            bitwise.append(bool(torch.equal(y, s["out"])))
+            counts.append((d["kind"], d["batch"].shape[0], s["rounds"],
+                           st_.exchange_rounds, s["total_bytes"],
+                           st_.total_bytes))
+    out.update(bitwise=bitwise, counts=counts,
+               served_rounds=sum(c[2] for c in counts))
+    return out
+
+
+def _wall_case(rank, plan, x):
+    """A WallClock leader serving B_SHARD submits (one batch-full
+    dispatch) while the followers follow; a follower's submit, poll and
+    flush raise."""
+    eng = ServeEngine(plan, buckets=(1, B_SHARD), max_wait=MAX_WAIT,
+                      clock=WallClock())
+    if eng.role == "follower":
+        refused = []
+        for call in (lambda: eng.submit(x[0]), eng.poll, eng.flush):
+            try:
+                call()
+                refused.append("no error")
+            except RuntimeError as exc:
+                refused.append(str(exc))
+        return {"role": eng.role, "followed": eng.follow(),
+                "refused": refused}
+    futs = [eng.submit(s) for s in x]
+    eng.close()
+    s_ = eng.metrics.summary()
+    return {"role": eng.role, "n_served": s_["n_served"],
+            "exactly_once": s_["served_exactly_once"],
+            "all_ok": all(f.response.ok for f in futs),
+            "batches": [(b.bucket, b.occupancy)
+                        for b in eng.metrics.batches]}
+
+
 def _rank_serving(rank, setup):
-    """One rank: virtual-clock engines over cuda_halo and halo."""
+    """One rank: virtual-clock (lockstep) engines over cuda_halo and halo,
+    then the leader-and-followers engines under clocks without
+    advance_to, and the refusals."""
     from repro_torch.serve import compat_key
 
     lmax, K = setup["lmax"], K_SHARD
@@ -764,7 +911,8 @@ def _rank_serving(rank, setup):
                        multipliers=twav.sgwt_multipliers(lmax, J=2),
                        lmax=lmax, K=K)
     x = torch.from_numpy(setup["x"])
-    out = {}
+    n = x.shape[1]
+    out, values = {}, {}
     for backend in ("cuda_halo", "halo"):
         plan = op.plan(backend, device="cpu")
         eng = ServeEngine(plan, buckets=(1, B_SHARD), max_wait=MAX_WAIT,
@@ -776,11 +924,7 @@ def _rank_serving(rank, setup):
         st_ = rec.stats(WORLD, B_SHARD, per_round)
         direct = plan.compiled("apply")(x)
         rows = [f.result() for f in futs]
-        try:
-            ServeEngine(plan, clock=WallClock())
-            wall = "no error"
-        except ValueError as exc:
-            wall = str(exc)
+        wall = _wall_case(rank, plan, x)
         faulty = op.plan(backend, device="cpu", fault_spec=FaultSpec(
             drop_prob=0.2, stale_prob=0.1, noise_prob=0.05, seed=3))
         both = ServeEngine({"clean": plan, "faulty": faulty},
@@ -789,7 +933,10 @@ def _rank_serving(rank, setup):
         mixed = [both.submit(s, op=("clean", "faulty")[i % 2])
                  for i, s in enumerate(x[:8])]
         both.run_until_idle()
+        lead = _leader_case(rank, plan, n, per_round)
+        values[backend] = lead.pop("values", None)
         out[backend] = {
+            "role": eng.role,
             "all_done": all(f.done() for f in futs),
             "batches": [(b.bucket, b.occupancy) for b in eng.metrics.batches],
             "rounds": st_.exchange_rounds,
@@ -800,13 +947,23 @@ def _rank_serving(rank, setup):
             "err": float(np.abs(torch.stack(rows).numpy()
                                 - setup["ref"]).max()),
             "wall": wall,
+            "lead": lead,
             "mixed_batches": [(b.key.label(), b.occupancy)
                               for b in both.metrics.batches],
             "mixed_ok": all(f.response.ok for f in mixed),
             "fault_label": compat_key("faulty", faulty, "apply",
                                       None).label(),
         }
-    return out
+    # two plans over two groups (the same ranks) cannot share an engine
+    other = dist.new_group(list(range(WORLD)))
+    try:
+        ServeEngine({"a": op.plan("halo", device="cpu"),
+                     "b": op.plan("halo", device="cpu", mesh=other)},
+                    clock=VirtualClock())
+        out["two_groups"] = "no error"
+    except ValueError as exc:
+        out["two_groups"] = str(exc)
+    return out, values
 
 
 def _serve_worker(rank, world, tmp, setup):
@@ -816,18 +973,36 @@ def _serve_worker(rank, world, tmp, setup):
                             rank=rank, world_size=world,
                             timeout=timedelta(seconds=300))
     try:
-        out = _rank_serving(rank, setup)
+        out, values = _rank_serving(rank, setup)
     finally:
         dist.destroy_process_group()
     with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
+    if rank == 0:
+        torch.save(values, os.path.join(tmp, "values.pt"))
+
+
+def _jax_leader_reference(jop, n):
+    """The JAX engine over the JAX dense plan under the scripted clock and
+    the leader's stream: batch records, summary, served values."""
+    from repro import serve as jserve
+
+    eng = jserve.ServeEngine(jop.plan("dense"), buckets=LEAD_BUCKETS,
+                             max_wait=MAX_WAIT, clock=ScriptedClock(),
+                             sync_results=False)
+    futs = replay_scripted(eng, eng.clock,
+                           jserve.poisson_arrivals(**LEAD_STREAM), n,
+                           jserve.signal_for)
+    return {"records": _records(eng), "summary": eng.metrics.summary(),
+            "values": {i: np.asarray(f.result()) for i, f in futs.items()}}
 
 
 @pytest.fixture(scope="module")
 def serve_ranks(sensor_banded, tmp_path_factory):
     """The banded n = 600 sensor graph of tests/test_serving.py's payload
     (J = 2, K = 10), B = 32 signals and the JAX dense plan's outputs; one
-    spawn of 8 gloo ranks; every rank's record."""
+    spawn of 8 gloo ranks; every rank's record, rank 0's served values of
+    the leader's stream, and the JAX engine's run of that stream."""
     import jax.numpy as jnp
     import torch.multiprocessing as mp
 
@@ -849,7 +1024,8 @@ def serve_ranks(sensor_banded, tmp_path_factory):
     for r in range(WORLD):
         with open(tmp / f"rank{r}.json") as f:
             out.append(json.load(f))
-    return out
+    return {"ranks": out, "values": torch.load(tmp / "values.pt"),
+            "jax": _jax_leader_reference(jop, L.shape[0])}
 
 
 @pytest.mark.parametrize("backend", ["cuda_halo", "halo"])
@@ -857,16 +1033,27 @@ def test_engine_coalesces_to_one_batch_traffic_8shards(serve_ranks,
                                                        backend):
     """B requests served by each rank's engine ride one (B, N) call whose
     counted exchange is K rounds and the plan's byte model at B — one
-    B-batch's 2K|E|, not B of them — bit for bit the direct call."""
-    for rank, rec in enumerate(serve_ranks):
+    B-batch's 2K|E|, not B of them — bit for bit the direct call.  Under
+    a wall clock the same plan is served by rank 0 alone, the other
+    ranks following: B submits, one batch, each answered once."""
+    for rank, rec in enumerate(serve_ranks["ranks"]):
         r = rec[backend]
+        assert r["role"] == "lockstep", rank
         assert r["all_done"], rank
         assert r["batches"] == [[B_SHARD, B_SHARD]], (rank, r["batches"])
         assert r["rounds"] == K_SHARD, (rank, r["rounds"])
         assert r["total_bytes"] == B_SHARD * r["bytes_b1"], rank
         assert r["bitwise"], rank
         assert r["err"] <= TOL_DENSE, (rank, r["err"])
-        assert "advance_to" in r["wall"], (rank, r["wall"])
+        wall = r["wall"]
+        if rank == 0:
+            assert wall["role"] == "leader"
+            assert wall["n_served"] == B_SHARD and wall["exactly_once"]
+            assert wall["all_ok"]
+            assert wall["batches"] == [[B_SHARD, B_SHARD]]
+        else:
+            assert wall["role"] == "follower", rank
+            assert wall["followed"] == 1, (rank, wall)
 
 
 @pytest.mark.parametrize("backend", ["cuda_halo", "halo"])
@@ -874,7 +1061,7 @@ def test_faulted_plan_never_coalesces_8shards(serve_ranks, backend):
     """A plan under FaultSpec(0.2, 0.1, 0.05, seed=3) registered beside
     the clean one: separate batches, labels carrying the fault key, the
     same on every rank."""
-    recs = [rec[backend] for rec in serve_ranks]
+    recs = [rec[backend] for rec in serve_ranks["ranks"]]
     for r in recs:
         assert r["mixed_ok"]
         labels = {label for label, _ in r["mixed_batches"]}
@@ -883,3 +1070,60 @@ def test_faulted_plan_never_coalesces_8shards(serve_ranks, backend):
         assert "faults=" in r["fault_label"]
         assert sum(occ for _, occ in r["mixed_batches"]) == 8
         assert r["mixed_batches"] == recs[0]["mixed_batches"]
+
+
+@pytest.mark.parametrize("backend", ["cuda_halo", "halo"])
+def test_leader_schedule_equals_jax_engine_8shards(serve_ranks, backend):
+    """Under a clock without advance_to, rank 0 leads a seeded Poisson
+    stream (DEFAULT_MIX) over the sharded plan: its batch records and
+    summary are the JAX engine's over the JAX dense plan under the same
+    clock and stream, and every batch was broadcast once."""
+    jref = serve_ranks["jax"]
+    lead = serve_ranks["ranks"][0][backend]["lead"]
+    assert lead["role"] == "leader"
+    assert [tuple(r) for r in lead["records"]] == jref["records"]
+    assert lead["summary"] == jref["summary"]
+    assert lead["summary"]["served_exactly_once"]
+    assert lead["n_broadcasts"] == lead["n_batches"] == len(jref["records"])
+    assert "follow" in lead["leader_follow"]
+    assert "advance_to" in lead["leader_run_until_idle"]
+
+
+@pytest.mark.parametrize("backend", ["cuda_halo", "halo"])
+def test_leader_rows_bitwise_and_counted_8shards(serve_ranks, backend):
+    """Every batch the leader served equals the rank's direct call of the
+    same entry on the same packed batch, bit for bit, and counted the
+    same exchange: K rounds and the byte model for an apply.  Served
+    values are within 1e-4 of the JAX dense plan's.  Every follower's
+    follow() returns the leader's batch count and ran its rounds."""
+    ranks = serve_ranks["ranks"]
+    lead = ranks[0][backend]["lead"]
+    bytes_b1 = ranks[0][backend]["bytes_b1"]
+    assert lead["bitwise"] and all(lead["bitwise"])
+    for kind, bucket, served, direct, sb, db in lead["counts"]:
+        assert served == direct and sb == db, (kind, bucket)
+        if kind == "apply":
+            assert served == K_SHARD and sb == bucket * bytes_b1
+    for rank in range(1, WORLD):
+        f = ranks[rank][backend]["lead"]
+        assert f["role"] == "follower", rank
+        assert f["followed"] == lead["n_batches"], (rank, f["followed"])
+        assert f["follower_rounds"] == lead["served_rounds"], rank
+    got = serve_ranks["values"][backend]
+    want = serve_ranks["jax"]["values"]
+    assert set(got) == set(want)
+    err = max(float(np.abs(got[i].numpy() - want[i]).max()) for i in want)
+    assert err <= TOL_DENSE, err
+
+
+def test_follower_refuses_and_groups_must_match_8shards(serve_ranks):
+    """A follower's submit, poll and flush raise (rank 0 serves), and an
+    engine over plans of two process groups raises at construction."""
+    for rank, rec in enumerate(serve_ranks["ranks"]):
+        assert "share one process group" in rec["two_groups"], rank
+        if rank == 0:
+            continue
+        for backend in ("cuda_halo", "halo"):
+            refused = rec[backend]["wall"]["refused"]
+            assert len(refused) == 3
+            assert all("rank 0 serves" in m for m in refused), refused
