@@ -1295,7 +1295,7 @@ def _serving_phase(plan, dense, smi: str):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.dist.capture import kernel_counters
+    from repro_torch.obs import kernel_counters
     from repro_torch.serve import (DEFAULT_BUCKETS, ServeEngine,
                                    VirtualClock, WallClock, poisson_arrivals,
                                    replay_virtual, signal_for)

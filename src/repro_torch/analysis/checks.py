@@ -64,6 +64,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
+from .. import obs
 from ..dist import comm
 from ..kernels import ops
 from .findings import Finding
@@ -203,22 +204,6 @@ def sweep_l2_bytes(launch) -> int:
     return model(n, batch, itemsize, scratch_dtype=sdt, stored=stored)
 
 
-def kernel_launches() -> Dict[str, int]:
-    """The graph kernels' launch counters, as the kernel modules keep
-    them (they move on a card only)."""
-    from ..kernels.bcsr_spmv import (sliced_ell_spmv,
-                                     sliced_ell_spmv_accumulate)
-    from ..kernels.cheb_step import cheb_order, cheb_step
-    from ..kernels.cheb_sweep import cheb_sweep, jacobi_sweep
-    from ..kernels.jacobi_step import jacobi_round, jacobi_step
-    from ..kernels.soft_threshold import ista_shrink
-
-    fns = (sliced_ell_spmv, sliced_ell_spmv_accumulate, cheb_step,
-           cheb_order, cheb_sweep, jacobi_sweep, jacobi_step, jacobi_round,
-           ista_shrink)
-    return {f.__name__: f.launches for f in fns}
-
-
 # ---------------------------------------------------------------------------
 # Exchange schedule
 # ---------------------------------------------------------------------------
@@ -334,16 +319,18 @@ def record_call(fn: Callable, *args, dtypes: bool = True) -> CallRecord:
     """Run ``fn(*args)`` once with every recorder on."""
     sweeps = SweepLaunches()
     mode = OpDtypes()
-    before = kernel_launches()
+    before = obs.launch_counts()
     with comm.counting() as rec, sweeps.patched():
         with (mode if dtypes else contextlib.nullcontext()):
             fn(*args)
         tf32 = (bool(torch.backends.cuda.matmul.allow_tf32),
                 bool(torch.backends.cudnn.allow_tf32))
-    after = kernel_launches()
-    return CallRecord(rec.events, sweeps.launches, mode.records,
-                      {k: after[k] - before[k] for k in after
-                       if after[k] != before[k]}, tf32)
+    # the graph kernels' launches: the tally leaves the LM's flash
+    # kernels out
+    launches = {k: v for k, v in obs.launch_delta(before).items()
+                if not k.startswith("flash_attention")}
+    return CallRecord(rec.events, sweeps.launches, mode.records, launches,
+                      tf32)
 
 
 def _frame_finding(rule: str, frames, label: str, message: str) -> Finding:

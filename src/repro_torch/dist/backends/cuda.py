@@ -35,6 +35,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ... import obs
 from ...core import chebyshev as cheb
 from ...core import graph as graphmod
 from ...kernels import ops
@@ -59,10 +60,12 @@ def build(op, *, mesh=None, partition=None, device=None,
     if callable(op.P):
         raise ValueError("cuda backend needs a dense P to build Block-ELL")
     dev = resolve_device(device)
-    L = torch.as_tensor(op.P).to(torch.float32).numpy(force=True)
-    A = graphmod.to_block_ell(L, block).to(dev)
-    n = L.shape[0]
-    del L
+    with obs.span("plan.pack"):
+        L = torch.as_tensor(op.P).to(torch.float32).numpy(force=True)
+        A = graphmod.to_block_ell(L, block).to(dev)
+        n = L.shape[0]
+        del L
+        S = A.sliced_ell()
     total = A.padded_n
     lmax = op.lmax
     # the coefficient tables live on the device from here on: no call
@@ -112,7 +115,6 @@ def build(op, *, mesh=None, partition=None, device=None,
         return outs[..., :n]
 
     nnz_blocks = int(A.mask.sum())
-    S = A.sliced_ell()
     nnz, stored = S.nnz, S.stored
     return ExecutionPlan(
         op=op, backend="cuda", device=dev,

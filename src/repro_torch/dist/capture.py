@@ -42,7 +42,15 @@ Counters (per entry):
   counters move at capture only, never at replay.
 * ``replays[(shape, dtype)]`` — graph replays at that signature, so the
   launches a served run made are ``launches[key] x replays[key]``.
-* ``capture_ms[(shape, dtype)]`` — the host time of warm-up plus capture.
+* ``capture_ms[(shape, dtype)]`` — the host time of warm-up plus capture:
+  the duration of its ``entry.capture`` span (`repro_torch.obs`).
+
+Spans and counters (`repro_torch.obs`): the first call at a signature
+opens ``entry.capture`` (the solver's ``solver.setup`` spans nest in it);
+while a `torch.profiler` session records, every call opens
+``entry.call`` and, in graph mode, ``entry.replay`` around the graph's
+launch alone, and each such replay adds 1 to ``entry.replays`` and the
+launches its capture made to ``kernels.replayed_launches``.
 
 Entries of one plan share one graph memory pool
 (``torch.cuda.graph_pool_handle``): their replays run one after another
@@ -53,10 +61,12 @@ of one plan concurrently on two streams.
 """
 from __future__ import annotations
 
-import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+from torch.autograd import profiler as _profiler
+
+from .. import obs
 
 Tensor = torch.Tensor
 
@@ -68,31 +78,6 @@ GRAPH_SOLVE_METHODS = ("chebyshev", "jacobi", "cheb_jacobi")
 #: host values (x0, den_diag, the ARMA pole tables) or host reads
 #: (history's per-round list, check_every's residuals).
 _HOST_KWARGS = ("x0", "den_diag", "poles", "residues")
-
-
-def kernel_counters() -> Tuple[Callable, ...]:
-    """Every kernel wrapper of the port that counts its launches."""
-    from ..kernels.bcsr_spmv import (sliced_ell_spmv,
-                                     sliced_ell_spmv_accumulate)
-    from ..kernels.cheb_step import cheb_order, cheb_step
-    from ..kernels.cheb_sweep import cheb_sweep, jacobi_sweep
-    from ..kernels.flash_attention import (flash_attention_ffma,
-                                           flash_attention_wgmma)
-    from ..kernels.jacobi_step import jacobi_round, jacobi_step
-    from ..kernels.soft_threshold import ista_shrink
-
-    return (sliced_ell_spmv, sliced_ell_spmv_accumulate, cheb_step,
-            cheb_order, cheb_sweep, jacobi_step, jacobi_round, jacobi_sweep,
-            ista_shrink, flash_attention_wgmma, flash_attention_ffma)
-
-
-def _snapshot() -> Dict[str, int]:
-    return {k.__name__: k.launches for k in kernel_counters()}
-
-
-def _delta(before: Dict[str, int]) -> Dict[str, int]:
-    after = _snapshot()
-    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
 
 
 def capture_mode(plan, kind: str, method: Optional[str] = None,
@@ -131,13 +116,24 @@ class PlanEntry:
         self.launches: Dict[Tuple, Dict[str, int]] = {}
         self.replays: Dict[Tuple, int] = {}
         self.capture_ms: Dict[Tuple, float] = {}
-        self._graphs: Dict[Tuple, Tuple[Any, Tensor, Tensor]] = {}
+        # (graph, static input, static output, its launches of the port's
+        # kernels)
+        self._graphs: Dict[Tuple, Tuple[Any, Tensor, Tensor, int]] = {}
 
     def __repr__(self) -> str:
         return (f"PlanEntry({self.label!r}, mode={self.mode}, "
                 f"captures={sum(self.captures.values())})")
 
     def __call__(self, x):
+        if not _profiler._is_profiler_enabled:
+            return self._call(x, False)
+        call = obs.begin("entry.call")
+        try:
+            return self._call(x, True)
+        finally:
+            obs.end(call)
+
+    def _call(self, x, traced: bool):
         if self.mode == "eager":
             return self._eager(x)
         x = torch.as_tensor(x, device=self.device)
@@ -145,9 +141,16 @@ class PlanEntry:
         graph = self._graphs.get(key)
         if graph is None:
             graph = self._capture(x, key)
-        g, static_in, static_out = graph
+        g, static_in, static_out, launched = graph
         static_in.copy_(x)
-        g.replay()
+        if traced:
+            replay = obs.begin("entry.replay")
+            g.replay()
+            obs.end(replay)
+            obs.add("entry.replays")
+            obs.add("kernels.replayed_launches", launched)
+        else:
+            g.replay()
         self.replays[key] += 1
         return static_out.clone()
 
@@ -156,35 +159,37 @@ class PlanEntry:
         key = (shape, getattr(x, "dtype", None))
         if key in self.captures:
             return self.fn(x)
-        before = _snapshot()
-        t0 = time.perf_counter()
-        out = self.fn(x)
-        self.capture_ms[key] = (time.perf_counter() - t0) * 1e3
-        self.launches[key] = _delta(before)
+        before = obs.launch_counts()
+        with obs.span("entry.capture") as span:
+            out = self.fn(x)
+        self.capture_ms[key] = obs.get(span).seconds * 1e3
+        self.launches[key] = obs.launch_delta(before)
         self.captures[key] = 1
         return out
 
     def _capture(self, x: Tensor, key: Tuple):
-        t0 = time.perf_counter()
-        # one eager run first, on a side stream: builds the kernels, the
-        # solver setup and its device tables, and the allocator's blocks
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            self.fn(x)
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        static_in = x.clone()
-        g = torch.cuda.CUDAGraph()
-        before = _snapshot()
-        with torch.cuda.graph(g, pool=self.pool):
-            static_out = self.fn(static_in)
-        if not isinstance(static_out, Tensor):
-            raise TypeError(f"entry {self.label!r} returned "
-                            f"{type(static_out).__name__}; a captured entry "
-                            "returns one tensor")
-        self.launches[key] = _delta(before)
-        self.capture_ms[key] = (time.perf_counter() - t0) * 1e3
+        with obs.span("entry.capture") as span:
+            # one eager run first, on a side stream: builds the kernels,
+            # the solver setup and its device tables, and the allocator's
+            # blocks
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                self.fn(x)
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            static_in = x.clone()
+            g = torch.cuda.CUDAGraph()
+            before = obs.launch_counts()
+            with torch.cuda.graph(g, pool=self.pool):
+                static_out = self.fn(static_in)
+            if not isinstance(static_out, Tensor):
+                raise TypeError(f"entry {self.label!r} returned "
+                                f"{type(static_out).__name__}; a captured "
+                                "entry returns one tensor")
+            self.launches[key] = obs.launch_delta(before)
+        self.capture_ms[key] = obs.get(span).seconds * 1e3
         self.captures[key] = 1
         self.replays[key] = 0
-        self._graphs[key] = (g, static_in, static_out)
+        self._graphs[key] = (g, static_in, static_out,
+                             sum(self.launches[key].values()))
         return self._graphs[key]

@@ -50,7 +50,9 @@ kernel loops at run time, so the port has no such unroll budget.
 Setup at full width: diag(den(P)) and the spectral-radius estimate need a
 dense P; the port computes both on the plan's device in float64 (the JAX
 package did it in host numpy), with numpy's ``default_rng(0)`` start
-vector and the same 2% safety factor.
+vector and the same 2% safety factor.  The set-up that misses the
+operator's memo (diag(den(P)), rho, each device table) runs in a
+``solver.setup`` span (`repro_torch.obs`); a hit records nothing.
 """
 from __future__ import annotations
 
@@ -61,6 +63,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..core import arma as _arma
 from ..core import chebyshev as cheb
 from ..core import jacobi as _jacobi
@@ -277,7 +280,8 @@ def _device_table(op, key, make, device, dtype) -> Tensor:
     cache = _op_solver_cache(op)
     full = key + (device, dtype)
     if full not in cache:
-        cache[full] = torch.as_tensor(make(), device=device).to(dtype)
+        with obs.span("solver.setup"):
+            cache[full] = torch.as_tensor(make(), device=device).to(dtype)
     return cache[full]
 
 
@@ -291,7 +295,8 @@ def _resolve_den_diag(op, den, den_diag, device):
     cache = _op_solver_cache(op)
     key = ("den_diag", den)
     if key not in cache:
-        cache[key] = _poly_diag(_dense_p64(op, device), den)
+        with obs.span("solver.setup"):
+            cache[key] = _poly_diag(_dense_p64(op, device), den)
     return cache[key]
 
 
@@ -560,8 +565,9 @@ def _solve_jacobi(plan, runner, y, num, den, K, method, rho, den_diag, x0,
             cache = _op_solver_cache(op)
             key = ("rho", den)
             if key not in cache:
-                cache[key] = _estimate_rho(op, den, 1.0 / dd,
-                                           device=plan.device)
+                with obs.span("solver.setup"):
+                    cache[key] = _estimate_rho(op, den, 1.0 / dd,
+                                               device=plan.device)
             rho = cache[key]
             info["rho_estimated"] = True
         rho = float(rho)
